@@ -1,0 +1,500 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA GPU::
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines:
+
+1. device — the card's name and power limit, as nvidia-smi gives them;
+2. build — both step kernels built from this checkout's sources (the CUDA
+   one with nvcc, the Triton one compiled by its first launch), timed;
+3. kernels — each kernel held against its plain PyTorch version on the card
+   at the serving shapes (S ∈ {8, 32} lanes of 128x128x1, f32 and bf16):
+   inactive lanes bitwise, active lanes within the stated bound; kernel
+   and plain-version device times with a cold L2 (held against the bound),
+   the kernel's with a warm L2, and its eager call time;
+4. slice — the paper U-Net (random weights from a seed) serving 8 requests
+   through ``ServeEngine.serve()`` with each step backend: finite outputs,
+   backends agree, each kernel launched on its own run, one lane replayed
+   by ``split_sample_lane``, window depth k=4 against k=1, throughput.
+
+It then prints the kernels' JSON line, and last the device line.  It exits
+non-zero, without the last line, when CUDA is absent or any phase fails.
+Imports nothing of ``jax`` and nothing of the JAX package.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.configs import UNetConfig  # noqa: E402
+from repro_torch.core.collafuse import CutPlan, split_sample_lane  # noqa: E402
+from repro_torch.diffusion.sampler import make_sampler  # noqa: E402
+from repro_torch.diffusion.schedule import cosine_schedule  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import ddpm_step as kds  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.models.unet import UNet, flops_per_image  # noqa: E402
+from repro_torch.serve import (EngineConfig, Request, ServeEngine,  # noqa: E402
+                               make_scheduler)
+
+# Published H100 rates (NVIDIA data sheets; dense, no sparsity): memory
+# bandwidth and float32 rate outside the tensor cores.
+CARD_RATES = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12)}
+T = 100
+IMG = (128, 128, 1)
+# bytes one pass of a cold-L2 timing moves: over 5x the H100's 50 MB L2
+COLD_BYTES = 256 << 20
+
+
+def card_rates(name: str):
+    return CARD_RATES["PCIe" if "PCIe" in name else "SXM"]
+
+
+def cuda_time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Mean time of ``fn()`` over ``iters`` back-to-back eager calls, between
+    CUDA events, after ``warmup`` calls.  For a short kernel this is the
+    host's launch rate, not the device time (see :func:`graph_time_ms`)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def graph_time_ms(fn, arg_sets, replays: int) -> float:
+    """Device time of one call: ``fn(*args)`` for each ``args`` of
+    ``arg_sets`` in turn, captured in one CUDA graph (outputs kept alive,
+    so each call writes fresh memory), the graph replayed ``replays`` times
+    between CUDA events.  No host launch cost is left in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in arg_sets[:3]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(*args) for args in arg_sets]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (len(arg_sets) * replays)
+    del graph, outs
+    return ms
+
+
+def warm_time_ms(fn, args) -> float:
+    """Device time of one ``fn(*args)`` with its inputs resident in L2:
+    50 calls on the same inputs, as in the engine tick, where the model has
+    just written ε̂.  Reads below ``bound_ms`` are possible here."""
+    return graph_time_ms(fn, [args] * 50, replays=20)
+
+
+def cold_time_ms(fn, args) -> float:
+    """Device time of one ``fn(*args)`` with a cold L2, the time held
+    against ``bound_ms``: the tensor arguments are cloned into as many sets
+    as make one pass over them and their outputs move more than
+    ``COLD_BYTES``, and each call of the graph takes the next set, so every
+    call reads its inputs from device memory."""
+    out = fn(*args)
+    per_set = out.numel() * out.element_size() + sum(
+        a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+    n = max(8, -(-COLD_BYTES // per_set))
+    sets = [[a.clone() if torch.is_tensor(a) else a for a in args]
+            for _ in range(n)]
+    ms = graph_time_ms(fn, sets, replays=5)
+    del sets
+    torch.cuda.empty_cache()
+    return ms
+
+
+# ---------------------------------------------------------------------------
+# phase 1: device
+# ---------------------------------------------------------------------------
+def phase_device() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    line = smi.stdout.strip().splitlines()[0]
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{torch.cuda.get_device_name(0)} count "
+          f"{torch.cuda.device_count()}", flush=True)
+    print(line, flush=True)
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 2: build
+# ---------------------------------------------------------------------------
+def phase_build(dev) -> None:
+    t0 = time.perf_counter()
+    lib = build.build("traj_masked_step", verbose=True)
+    t_cuda = time.perf_counter() - t0
+    print(f"[build] traj_masked_step: nvcc -> {lib.relative_to(ROOT)} in "
+          f"{t_cuda:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.zeros((8,) + IMG, dtype=dt, device=dev)
+        coefs = torch.zeros((8, 4), device=dev)
+        ops.ddpm_step(x, x, x, coefs)
+        ops.traj_masked_step(x, torch.zeros(8, dtype=torch.int32, device=dev),
+                             x, x, torch.ones(8, dtype=torch.bool, device=dev),
+                             torch.ones((5, 4), device=dev))
+    torch.cuda.synchronize()
+    print(f"[build] ddpm_step: triton compile + first launches (f32, bf16) "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+def kernel_inputs(S: int, dtype, dev, tables):
+    """Lanes hitting the edges of the concatenated table (dense T=100 +
+    DDIM K=20 eta=0.3): lane 0 the DDIM column 0 (ar ≈ 4e-5), lane 1 the
+    first dense column, lane 2 the last dense column (keep = 0); every
+    fourth lane inactive, some with out-of-range columns."""
+    g = torch.Generator().manual_seed(1234 + S)
+    C = tables.shape[1]
+    cols = torch.randint(0, C, (S,), generator=g, dtype=torch.int32)
+    cols[:3] = torch.tensor([T, 0, T - 1], dtype=torch.int32)
+    active = torch.ones(S, dtype=torch.bool)
+    active[3::4] = False
+    cols[3] = -7
+    cols[7] = C + 50
+    x = (1.5 * torch.randn((S,) + IMG, generator=g)).to(dtype)
+    eps = torch.randn((S,) + IMG, generator=g).to(dtype)
+    z = torch.randn((S,) + IMG, generator=g).to(dtype)
+    return [t.to(dev) for t in (x, cols, eps, z, active)]
+
+
+def lane_bound(tables, cols, dtype, plain):
+    """Per-element bound of |kernel − plain| on active lanes: 4 f32 ulp of
+    the value, times max(1, 1/√ar) for the division's amplification; in bf16
+    plus one bf16 ulp (the two f32 results may round to neighbours)."""
+    ar = tables[1, torch.clamp(cols.long(), 0, tables.shape[1] - 1)]
+    amp = torch.clamp(torch.rsqrt(ar), min=1.0).reshape(-1, 1, 1, 1)
+    mag = plain.float().abs() + 1.0
+    bound = 4 * 2.0 ** -23 * mag * amp
+    if dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * mag
+    return bound
+
+
+def check_pair(name, out, ref, x, active, bound):
+    """Inactive lanes bitwise equal to x; active lanes within ``bound``.
+    Returns (max abs err on active lanes, bitwise on active lanes)."""
+    inact = ~active
+    if inact.any():
+        same = torch.equal(out[inact].view(torch.int16 if out.dtype ==
+                                           torch.bfloat16 else torch.int32),
+                           x[inact].view(torch.int16 if x.dtype ==
+                                         torch.bfloat16 else torch.int32))
+        if not same:
+            raise AssertionError(f"{name}: inactive lanes not bit-unchanged")
+    a = active
+    diff = (out[a].float() - ref[a].float()).abs()
+    if not torch.isfinite(out[a]).all():
+        raise AssertionError(f"{name}: non-finite output")
+    bad = diff > bound[a]
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond the "
+                             f"bound (max err {float(diff.max()):.3e})")
+    return float(diff.max()), bool(torch.equal(out[a], ref[a]))
+
+
+def phase_kernels(dev, card: str):
+    bw, f32_peak = card_rates(card)
+    sched = cosine_schedule(T)
+    tables = torch.cat([make_sampler(T).tables(sched),
+                        make_sampler(T, "ddim", 20, eta=0.3).tables(sched)],
+                       dim=1).to(dev)
+    C = tables.shape[1]
+    print(f"[kernels] table (5, {C}): dense DDPM T={T} + DDIM K=20 eta=0.3; "
+          f"DDIM column 0 ar={float(tables[1, T]):.3e}", flush=True)
+    rows = {}
+    for S in (8, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, cols, eps, z, active = kernel_inputs(S, dtype, dev, tables)
+            tag = f"S={S} {str(dtype).split('.')[-1]}"
+            # traj_masked_step (CUDA) against its plain version
+            out = ops.traj_masked_step(x, cols, eps, z, active, tables)
+            ref = kref.traj_masked_step_ref(x, cols, eps, z, active, tables)
+            torch.cuda.synchronize()
+            err_m, bit_m = check_pair(
+                f"traj_masked_step {tag}", out, ref, x, active,
+                lane_bound(tables, cols, dtype, ref))
+            # ddpm_step (Triton) against its plain version, every lane
+            coefs = kds.index_step_coefs(
+                tables, torch.clamp(cols.long(), 0, C - 1))
+            out_s = ops.ddpm_step(x, eps, z, coefs)
+            ref_s = kref.ddpm_step_ref(x, eps, z, coefs)
+            torch.cuda.synchronize()
+            all_on = torch.ones_like(active)
+            err_s, bit_s = check_pair(
+                f"ddpm_step {tag}", out_s, ref_s, x, all_on,
+                lane_bound(tables, cols, dtype, ref_s))
+            n_act = int(active.sum())
+            m_bytes = kds.masked_step_bytes(x, C, rows=tables.shape[0],
+                                            n_active=n_act)
+            s_bytes = 4 * x.numel() * x.element_size() + coefs.numel() * 4
+            m_ops = 8 * n_act * (x.numel() // S)     # mul sub div mul add + clip
+            s_ops = 5 * x.numel()
+            m_args = (x, cols, eps, z, active, tables)
+            s_args = (x, eps, z, coefs)
+            t_m = cold_time_ms(ops.traj_masked_step, m_args)
+            t_mp = cold_time_ms(kref.traj_masked_step_ref, m_args)
+            t_s = cold_time_ms(ops.ddpm_step, s_args)
+            t_sp = cold_time_ms(kref.ddpm_step_ref, s_args)
+            w_m = warm_time_ms(ops.traj_masked_step, m_args)
+            w_s = warm_time_ms(ops.ddpm_step, s_args)
+            e_m = cuda_time_ms(lambda: ops.traj_masked_step(*m_args))
+            e_s = cuda_time_ms(lambda: ops.ddpm_step(*s_args))
+            b_m = max(m_bytes / bw, m_ops / f32_peak) * 1e3
+            b_s = max(s_bytes / bw, s_ops / f32_peak) * 1e3
+            by_m = "bytes" if m_bytes / bw >= m_ops / f32_peak else "operations"
+            by_s = "bytes" if s_bytes / bw >= s_ops / f32_peak else "operations"
+            print(f"[kernels] traj_masked_step {tag}: active {n_act}/{S} "
+                  f"max_abs_err {err_m:.3e} bitwise {bit_m} | cold L2: "
+                  f"kernel {t_m * 1e3:.3f}us plain {t_mp * 1e3:.3f}us bound "
+                  f"{b_m * 1e3:.3f}us ({m_bytes} B, share "
+                  f"{b_m / t_m:.1%}) | warm L2 kernel {w_m * 1e3:.3f}us | "
+                  f"eager call {e_m * 1e3:.2f}us", flush=True)
+            print(f"[kernels] ddpm_step {tag}: max_abs_err {err_s:.3e} "
+                  f"bitwise {bit_s} | cold L2: kernel {t_s * 1e3:.3f}us "
+                  f"plain {t_sp * 1e3:.3f}us bound {b_s * 1e3:.3f}us "
+                  f"({s_bytes} B, share {b_s / t_s:.1%}) | warm L2 kernel "
+                  f"{w_s * 1e3:.3f}us | eager call {e_s * 1e3:.2f}us",
+                  flush=True)
+            rows[(S, dtype)] = {
+                "traj_masked_step": (err_m, t_m, t_mp, b_m, by_m),
+                "ddpm_step": (err_s, t_s, t_sp, b_s, by_s)}
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice at full width
+# ---------------------------------------------------------------------------
+def slice_requests():
+    return [Request(req_id=i, seed=1000 + i, batch=1 + i % 2,
+                    cut_ratio=(0.25, 0.5, 0.75)[i % 3], client_idx=i % 2,
+                    arrival_tick=2 * i, sampler=("ddpm", "ddim")[i % 2])
+            for i in range(8)]
+
+
+def max_diff(a, b, attr):
+    return max(float(np.abs(getattr(a.completions[r], attr) -
+                            getattr(b.completions[r], attr)).max())
+               for r in a.completions)
+
+
+def bitwise(a, b):
+    return all(np.array_equal(a.completions[r].x0, b.completions[r].x0) and
+               np.array_equal(a.completions[r].x_mid,
+                              b.completions[r].x_mid)
+               for r in a.completions)
+
+
+def phase_slice(dev):
+    ucfg = UNetConfig()
+    t0 = time.perf_counter()
+    server = UNet(ucfg, seed=0).to(dev).eval()
+    clients = [UNet(ucfg, seed=1 + c).to(dev).eval() for c in range(2)]
+    n_params = sum(p.numel() for p in server.parameters())
+    print(f"[slice] paper U-Net {n_params} params ({n_params * 4 / 1e6:.1f} "
+          f"MB f32) x 3 models, built in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    sched = cosine_schedule(T)
+    samplers = {"ddpm": make_sampler(T), "ddim": make_sampler(T, "ddim", 20)}
+
+    def engine(backend, k):
+        return ServeEngine(EngineConfig(
+            sched=sched, image_shape=IMG, slots=8,
+            scheduler=make_scheduler("cut_ratio", T, samplers=samplers),
+            step_backend=backend, samplers=samplers, ticks_per_dispatch=k,
+            device=dev), server)
+
+    # warm-up: cuDNN heuristics and allocator, on two short ddim requests
+    warm = [Request(req_id=i, seed=i, cut_ratio=0.75, sampler="ddim")
+            for i in range(2)]
+    with torch.inference_mode():
+        engine("cuda_masked", 4).serve(warm, clients)
+        engine("triton", 4).serve(warm, clients)
+    torch.cuda.synchronize()
+
+    runs, counts = {}, {}
+    for backend in ("cuda_masked", "triton", "torch"):
+        ops.reset_launch_counts()
+        res = engine(backend, 4).serve(slice_requests(), clients)
+        counts[backend] = ops.launch_counts()
+        runs[backend] = res
+        for comp in res.completions.values():
+            if not (np.isfinite(comp.x_mid).all() and
+                    np.isfinite(comp.x0).all()):
+                raise AssertionError(f"{backend}: non-finite output for "
+                                     f"request {comp.request.req_id}")
+        s = res.summary
+        print(f"[slice] {backend} k=4: {s['requests']} requests "
+              f"({s['images']} images), {s['ticks']} ticks, wall "
+              f"{res.wall_s:.3f}s | {s['ticks_per_s']:.2f} ticks/s "
+              f"({1e3 / s['ticks_per_s']:.2f} ms/tick) | "
+              f"{s['images_per_s']:.3f} images/s | finish "
+              f"{s['finish_s']:.3f}s | launches {counts[backend]}",
+              flush=True)
+    if counts["cuda_masked"]["traj_masked_step"] == 0:
+        raise AssertionError("traj_masked_step never launched on its run")
+    if counts["triton"]["ddpm_step"] == 0:
+        raise AssertionError("ddpm_step never launched on its run")
+
+    # backends agree: the kernels reproduce the plain arithmetic (f32), and
+    # a 1-ulp difference per step (x·(1/√ar) against x/√ar in the Triton
+    # path) is amplified through the chain, hence the bound
+    tol = 1e-2
+    base = runs["torch"]
+    for backend in ("cuda_masked", "triton"):
+        dm = max_diff(runs[backend], base, "x_mid")
+        d0 = max_diff(runs[backend], base, "x0")
+        print(f"[slice] {backend} vs torch: max |dx_mid| {dm:.3e} max |dx0| "
+              f"{d0:.3e} bitwise {bitwise(runs[backend], base)} "
+              f"(tolerance {tol})", flush=True)
+        if max(dm, d0) > tol:
+            raise AssertionError(f"{backend} disagrees with torch")
+
+    # one lane against split_sample_lane (batch 1 instead of 8 lanes: other
+    # convolution algorithms, so a tolerance)
+    res = runs["cuda_masked"]
+    for rid, img in ((0, 0), (1, 1)):
+        r = res.completions[rid].request
+        x0, xm = split_sample_lane(
+            sched, CutPlan(T, r.cut_ratio), server, clients[r.client_idx],
+            r.seed, img, IMG, return_intermediate=True,
+            backend="cuda_masked", sampler=samplers[r.sampler], device=dev)
+        dm = float(np.abs(xm.cpu().numpy() -
+                          res.completions[rid].x_mid[img]).max())
+        d0 = float(np.abs(x0.cpu().numpy() -
+                          res.completions[rid].x0[img]).max())
+        print(f"[slice] request {rid} image {img} ({r.sampler}, c="
+              f"{r.cut_ratio}) vs split_sample_lane: max |dx_mid| {dm:.3e} "
+              f"max |dx0| {d0:.3e} (tolerance {tol})", flush=True)
+        if max(dm, d0) > tol:
+            raise AssertionError("engine lane disagrees with "
+                                 "split_sample_lane")
+
+    # window depth: k=4 against k=1
+    res1 = engine("cuda_masked", 1).serve(slice_requests(), clients)
+    dm = max_diff(res, res1, "x_mid")
+    d0 = max_diff(res, res1, "x0")
+    print(f"[slice] k=4 vs k=1: max |dx_mid| {dm:.3e} max |dx0| {d0:.3e} "
+          f"bitwise {bitwise(res, res1)} | k=1 {res1.summary['ticks']} "
+          f"ticks, {res1.summary['ticks_per_s']:.2f} ticks/s", flush=True)
+    if max(dm, d0) > tol:
+        raise AssertionError("k=4 disagrees with k=1")
+
+    # where a tick's time goes: one server forward at 8 lanes
+    x = torch.randn((8,) + IMG, device=dev)
+    t = torch.full((8,), 50, dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        t_fwd = cuda_time_ms(lambda: server(x, t), iters=20, warmup=3)
+    flops = 8 * flops_per_image(ucfg)
+    s = res.summary
+    print(f"[slice] U-Net forward at 8 lanes: {t_fwd:.2f} ms "
+          f"({flops / t_fwd / 1e9:.1f} TFLOP/s on {flops / 1e9:.0f} GFLOP) "
+          f"against {1e3 / s['ticks_per_s']:.2f} ms per engine tick",
+          flush=True)
+    profile_forward(server, x, t)
+    return counts
+
+
+def profile_forward(model, x, t, reps: int = 3) -> None:
+    """Device time of one forward by kernel, from ``torch.profiler``: the
+    kernels' summed time against the wall time (the device's busy share)
+    and the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                model(x, t)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    if busy_ms == 0.0:
+        print("[profile] the profiler saw no device time: busy share not "
+              "measured", flush=True)
+        return
+    print(f"[profile] U-Net forward at 8 lanes: kernels {busy_ms:.2f} ms of "
+          f"{wall_ms:.2f} ms wall (device busy {busy_ms / wall_ms:.1%}), "
+          f"{sum(e.count for e in kernels) // reps} kernel launches",
+          flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        ms = e.self_device_time_total / 1e3 / reps
+        print(f"[profile]   {ms:8.3f} ms {ms / busy_ms:6.1%} "
+              f"x{e.count // reps:<4d} {e.key[:90]}", flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    # the reference computes in f32: no TF32 anywhere
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    card = phase_device()
+    phase_build(dev)
+    rows = phase_kernels(dev, card)
+    c = phase_slice(dev)
+    counts = {"traj_masked_step": c["cuda_masked"]["traj_masked_step"],
+              "ddpm_step": c["triton"]["ddpm_step"]}
+    main_row = rows[(8, torch.float32)]
+    src = {"traj_masked_step": ("cuda", "src/repro_torch/kernels/csrc/"
+                                "traj_masked_step.cu",
+                                "src/repro/kernels/ddpm_step.py:206"),
+           "ddpm_step": ("triton", "src/repro_torch/kernels/ddpm_step.py",
+                         "src/repro/kernels/ddpm_step.py:78")}
+    kernels = []
+    for name, (route, source, replaces) in src.items():
+        err, t_k, t_p, b, by = main_row[name]
+        kernels.append({"name": name, "route": route, "source": source,
+                        "replaces": replaces, "launches": counts[name],
+                        "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                        "bound_ms": b, "bound_by": by,
+                        "library_ms": None})
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,265 @@
+"""CollaFuse: cut-ratio governed split of the DDPM denoising chain
+(counterpart of ``repro/core/collafuse.py``; the training losses arrive
+with the training slice).
+
+Counting denoising steps (s = 1 is the noisiest, at t = T), the server runs
+the first (1-c)·T steps and the client the remaining c·T on its private
+model.  In timestep coordinates the cut falls at t_split = round(c·T); the
+partially denoised x at the cut is what the server hands back — the
+disclosed tensor.
+
+Noise.  The reference draws every normal from threefry keys (``lane_keys``,
+then ``k, k_n = split(k)`` each step).  The port does not reproduce
+threefry: each draw is a function of (request seed, image, role, step)
+alone, with role ∈ {"init", "server", "client"} and step the trajectory
+position (0 for the x_T draw).  A *noise source* is any callable
+``source(seed, image, role, step, shape) -> float32 CPU tensor``;
+:func:`lane_normal` is the default, :class:`InjectedNoise` replays given
+draws (the parity tests feed it the reference's threefry noise).  Because a
+draw never depends on the slot, the tick or the window depth, an engine
+lane is replayed by :func:`split_sample_lane`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.diffusion import ddpm
+from repro_torch.diffusion.backend import BackendLike
+from repro_torch.diffusion.sampler import (Sampler, make_sampler,
+                                           sample_trajectory)
+from repro_torch.diffusion.schedule import DiffusionSchedule
+
+
+@dataclasses.dataclass(frozen=True)
+class CutPlan:
+    """The split of a T-step chain at cut-ratio c."""
+
+    T: int
+    cut_ratio: float                       # c ∈ [0, 1]
+
+    def __post_init__(self):
+        assert 0.0 <= self.cut_ratio <= 1.0, self.cut_ratio
+
+    @property
+    def t_split(self) -> int:
+        return int(round(self.cut_ratio * self.T))
+
+    @property
+    def server_range(self) -> Tuple[int, int]:
+        return (self.t_split + 1, self.T)
+
+    @property
+    def client_range(self) -> Tuple[int, int]:
+        return (1, self.t_split)
+
+    @property
+    def n_server_steps(self) -> int:
+        return self.T - self.t_split
+
+    @property
+    def n_client_steps(self) -> int:
+        return self.t_split
+
+    @property
+    def server_fraction(self) -> float:
+        return self.n_server_steps / self.T
+
+    def describe(self) -> str:
+        return (f"c={self.cut_ratio:.2f}: server denoises t∈({self.t_split},"
+                f"{self.T}] ({self.n_server_steps} steps), client t∈[1,"
+                f"{self.t_split}] ({self.n_client_steps} steps)")
+
+    def cut_index(self, sampler: Sampler) -> int:
+        """Trajectory position of the cut: the server executes positions
+        [0, cut_index), the client [cut_index, K)."""
+        assert sampler.trajectory.T == self.T, (sampler.trajectory.T, self.T)
+        return sampler.trajectory.cut_pos(self.t_split)
+
+    def traj_server_steps(self, sampler: Sampler) -> int:
+        return self.cut_index(sampler)
+
+    def traj_client_steps(self, sampler: Sampler) -> int:
+        return sampler.K - self.cut_index(sampler)
+
+
+# ---------------------------------------------------------------------------
+# per-lane noise (the counterpart of lane_keys)
+# ---------------------------------------------------------------------------
+ROLES = {"init": 0, "server": 1, "client": 2}
+
+NoiseSource = Callable[[int, int, str, int, Tuple[int, ...]], torch.Tensor]
+
+
+def lane_seed(seed: int, image: int, role: str, step: int) -> int:
+    """The generator seed of one draw: a hash of (seed, image, role, step)."""
+    ss = np.random.SeedSequence([seed, image, ROLES[role], step])
+    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def lane_normal(seed: int, image: int, role: str, step: int,
+                shape) -> torch.Tensor:
+    """The default noise source: a standard normal of ``shape`` from a CPU
+    ``torch.Generator`` seeded by :func:`lane_seed` — the same numbers on
+    every device."""
+    g = torch.Generator().manual_seed(lane_seed(seed, image, role, step))
+    return torch.randn(tuple(shape), generator=g, dtype=torch.float32)
+
+
+class InjectedNoise:
+    """A noise source that replays given draws, keyed by
+    (seed, image, role, step); a missing key raises ``KeyError``."""
+
+    def __init__(self, draws: Mapping[tuple, np.ndarray]):
+        self.draws = draws
+
+    def __call__(self, seed, image, role, step, shape) -> torch.Tensor:
+        a = np.asarray(self.draws[(seed, image, role, step)], np.float32)
+        return torch.from_numpy(a.reshape(tuple(shape)).copy())
+
+
+def _batch_noise(source: NoiseSource, seed: int, images, role: str,
+                 shape) -> Callable[[int], torch.Tensor]:
+    """Step-noise function of a batch of a request's images."""
+    return lambda step: torch.stack(
+        [source(seed, i, role, step, shape) for i in images])
+
+
+# ---------------------------------------------------------------------------
+# split inference (sampling)
+# ---------------------------------------------------------------------------
+def _server_segment(sched, plan, sampler, server_fn, noise, x, backend):
+    """Server prefix: dense t = T … t_split+1, or trajectory positions
+    [0, cut_index) under a sampler."""
+    if sampler is None:
+        if plan.n_server_steps == 0:
+            return x
+        return ddpm.sample_range(sched, server_fn, noise, x, plan.T,
+                                 plan.t_split + 1, backend=backend)
+    return sample_trajectory(sched, sampler, server_fn, noise, x, 0,
+                             plan.cut_index(sampler), backend=backend)
+
+
+def _client_segment(sched, plan, sampler, client_fn, noise, x, backend):
+    """Client suffix: dense t = t_split … 1, or positions [cut_index, K)."""
+    if sampler is None:
+        if plan.n_client_steps == 0:
+            return x
+        return ddpm.sample_range(sched, client_fn, noise, x, plan.t_split, 1,
+                                 backend=backend)
+    return sample_trajectory(sched, sampler, client_fn, noise, x,
+                             plan.cut_index(sampler), sampler.K,
+                             backend=backend)
+
+
+def split_sample(sched: DiffusionSchedule, plan: CutPlan,
+                 server_fn: Callable, client_fn: Callable, seed: int, shape,
+                 return_intermediate: bool = False,
+                 backend: BackendLike = None,
+                 sampler: Optional[Sampler] = None,
+                 noise: Optional[NoiseSource] = None,
+                 device: DeviceLike = "cuda"):
+    """Full CollaFuse generation of ``shape[0]`` images of request ``seed``:
+    the client draws x_T, the server denoises down to the cut, the disclosed
+    x crosses back, the client finishes.  Image i draws what lane i of the
+    serving engine draws.  Returns x_0 (and the disclosed tensor if
+    ``return_intermediate``)."""
+    dev = resolve_device(device)
+    src = noise or lane_normal
+    images, img_shape = range(shape[0]), tuple(shape[1:])
+    x_t = _batch_noise(src, seed, images, "init", img_shape)(0).to(dev)
+    x_mid = _server_segment(sched, plan, sampler, server_fn,
+                            _batch_noise(src, seed, images, "server",
+                                         img_shape), x_t, backend)
+    x0 = _client_segment(sched, plan, sampler, client_fn,
+                         _batch_noise(src, seed, images, "client", img_shape),
+                         x_mid, backend)
+    if return_intermediate:
+        return x0, x_mid
+    return x0
+
+
+def split_sample_lane(sched: DiffusionSchedule, plan: CutPlan,
+                      server_fn: Callable, client_fn: Callable, seed: int,
+                      image: int, shape, return_intermediate: bool = False,
+                      backend: BackendLike = None,
+                      sampler: Optional[Sampler] = None,
+                      noise: Optional[NoiseSource] = None,
+                      device: DeviceLike = "cuda"):
+    """Single-image reference for one engine lane: image ``image`` of
+    request ``seed``, ``shape`` the image shape (H, W, C).  The serving
+    tests compare engine lanes against this."""
+    x0, x_mid = split_sample(sched, plan, server_fn, client_fn, seed,
+                             (1,) + tuple(shape), True, backend, sampler,
+                             _one_image(noise or lane_normal, image), device)
+    if return_intermediate:
+        return x0[0], x_mid[0]
+    return x0[0]
+
+
+def _one_image(source: NoiseSource, image: int) -> NoiseSource:
+    """View of ``source`` whose image 0 is ``image``."""
+    return lambda seed, _i, role, step, shape: source(seed, image, role,
+                                                      step, shape)
+
+
+def disclosed_at_pos(sched: DiffusionSchedule, sampler: Sampler,
+                     server_fn: Callable, seed: int, x0_client, pos: int,
+                     backend: BackendLike = None,
+                     noise: Optional[NoiseSource] = None):
+    """What the server could reconstruct of real client images: noise x_0
+    to x_T with the "init" draws, then denoise positions [0, pos) on the
+    server with the "server" draws.  Runs on x0_client's device."""
+    assert 0 <= pos <= sampler.K, (pos, sampler.K)
+    src = noise or lane_normal
+    images, img_shape = range(x0_client.shape[0]), tuple(x0_client.shape[1:])
+    dev = x0_client.device
+    eps = _batch_noise(src, seed, images, "init", img_shape)(0).to(dev)
+    t_top = torch.full((x0_client.shape[0],), sched.T, dtype=torch.int64,
+                       device=dev)
+    x_T = ddpm.q_sample(sched, x0_client, t_top, eps)
+    return sample_trajectory(sched, sampler, server_fn,
+                             _batch_noise(src, seed, images, "server",
+                                          img_shape), x_T, 0, pos,
+                             backend=backend)
+
+
+def disclosed_at_split(sched: DiffusionSchedule, plan: CutPlan,
+                       server_fn: Callable, seed: int, x0_client,
+                       backend: BackendLike = None,
+                       sampler: Optional[Sampler] = None,
+                       noise: Optional[NoiseSource] = None):
+    """:func:`disclosed_at_pos` at the plan's cut (the dense chain when
+    ``sampler`` is None)."""
+    sampler = sampler or make_sampler(plan.T)
+    return disclosed_at_pos(sched, sampler, server_fn, seed, x0_client,
+                            plan.cut_index(sampler), backend, noise)
+
+
+# ---------------------------------------------------------------------------
+# compute split accounting (paper H2c — GPU energy proxy)
+# ---------------------------------------------------------------------------
+def flops_split_steps(n_server_steps: int, n_client_steps: int,
+                      flops_per_model_call: float, batch: int) -> dict:
+    """FLOP split from raw per-side step counts."""
+    server = n_server_steps * flops_per_model_call * batch
+    client = n_client_steps * flops_per_model_call * batch
+    diffusion_pass = 10.0 * batch  # q_sample: a handful of elementwise ops
+    return {
+        "server_flops": server,
+        "client_flops": client + diffusion_pass,
+        "client_fraction": (client + diffusion_pass) /
+                           max(server + client + diffusion_pass, 1.0),
+    }
+
+
+def flops_split(plan: CutPlan, flops_per_model_call: float,
+                batch: int) -> dict:
+    """Denoising FLOPs executed per side for one generated batch, plus the
+    client's (cheap) diffusion pass."""
+    return flops_split_steps(plan.n_server_steps, plan.n_client_steps,
+                             flops_per_model_call, batch)

@@ -1,0 +1,221 @@
+"""StepBackend: who executes one denoise tick (counterpart of
+``repro/diffusion/backend.py``).
+
+Every hot loop — ``ddpm.sample_range``, the CollaFuse split samplers and the
+serving engine's masked lane tick — bottoms out in one reverse-diffusion
+update x_t -> x_{t-1}, the reference sampler's post-step clip, and (on slot
+arrays) the active-lane select.  A :class:`StepBackend` owns all three.
+
+Registered backends:
+
+``"torch"``        plain PyTorch: ``ddpm.p_sample`` + clip (+ ``torch.where``),
+                   the counterpart of the reference's ``"jnp"``.
+``"triton"``       the ``ddpm_step`` Triton kernel for the update; clip and
+                   the masked select stay plain (counterpart of ``"pallas"``).
+``"cuda_masked"``  the ``traj_masked_step`` CUDA kernel: column gather,
+                   update, clip and active select in one pass (counterpart of
+                   ``"pallas_masked"``).
+
+On CPU tensors the kernel backends run their kernels' plain versions.
+Inactive lanes always pass through bit-unchanged, even at out-of-range
+columns or timesteps.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ddpm_step as kds
+from repro_torch.kernels import ops as kops
+
+# Row index of the guidance-scale row in the canonical coefficient table
+# (rows 0-3 = c_eps, ar, sigma, keep drive the update).  This slice serves
+# unguided traffic, so the row is all zeros and rides along unused.
+GUIDANCE_ROW = 4
+N_TABLE_ROWS = 5
+
+
+def _lanes(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    return v.reshape(v.shape + (1,) * (ndim - v.ndim))
+
+
+class StepBackend:
+    """Owns the denoise update, the post-step clip, and the active select.
+
+    ``step(sched, x, t, eps_hat, noise, clip=...)`` advances every sample;
+    ``masked_step`` advances a slot array with per-lane timesteps (t clamped
+    into {1..T}); inactive lanes pass through bit-unchanged.  The
+    trajectory-indexed pair ``index_step`` / ``masked_index_step`` takes
+    per-sample COLUMNS into a canonical (4|5, C) coefficient table.
+    """
+
+    name: str = "abstract"
+
+    def step(self, sched, x, t, eps_hat, noise, *, clip: float = 3.0):
+        raise NotImplementedError
+
+    def masked_step(self, sched, x, t, eps_hat, noise, active, *,
+                    clip: float = 3.0, tables=None):
+        del tables                       # only the fused backend takes them
+        t_safe = torch.clamp(t, 1, sched.T)
+        x_new = self.step(sched, x, t_safe, eps_hat, noise, clip=clip)
+        return torch.where(_lanes(active, x.ndim), x_new, x)
+
+    # The base implementation is the plain expression: for dense ancestral
+    # tables it reproduces ``ddpm.p_sample`` + clip (same gathered values,
+    # same expression tree).
+    def index_step(self, x, cols, eps_hat, noise, tables, *,
+                   clip: float = 3.0):
+        idx = cols.to(torch.int64)
+
+        def row(r):
+            return _lanes(tables[r, idx], x.ndim)
+        mean = (x - row(0) * eps_hat) / torch.sqrt(row(1))
+        x_new = mean + row(3) * row(2) * noise
+        if clip:
+            x_new = torch.clamp(x_new, -clip, clip)
+        return x_new
+
+    def masked_index_step(self, x, cols, eps_hat, noise, active, tables, *,
+                          clip: float = 3.0):
+        """Masked trajectory tick: active lanes execute their column's step,
+        inactive lanes pass through bit-unchanged (cols clamped first)."""
+        cols_safe = torch.clamp(cols.to(torch.int64), 0, tables.shape[1] - 1)
+        x_new = self.index_step(x, cols_safe, eps_hat, noise, tables,
+                                clip=clip)
+        return torch.where(_lanes(active, x.ndim), x_new, x)
+
+
+def make_lane_tick(masked_index: Callable, kmax: int) -> Callable:
+    """Build the masked lane tick the engine's server windows and its client
+    finisher share (counterpart of ``backend.py:153``).
+
+        x, pos, done = lane_tick(model, menu, x, pos, end, traj, gate,
+                                 lane_noise)
+
+    ``menu`` is the trajectory menu as data: ``tables`` — the (5, C)
+    concatenated coefficient table on x's device, gathered per lane by
+    column — ``offsets`` — each trajectory's first column — and ``ts_pad``
+    — the (n_menu, kmax) padded timestep rows the model conditions on (both
+    host numpy).  ``pos``/``end``/``traj``/``gate`` are host numpy (S,)
+    arrays: the host tracks every lane's trajectory position, so no tick
+    waits on the device.  A lane steps only while ``gate & (pos < end)``;
+    once ``pos`` reaches ``end`` it HOLDS x and pos bitwise (the masked
+    select), so retiring at a window boundary reads the exact cut tensor at
+    any window depth.  ``lane_noise(pos, stepping)`` returns the (S, ...)
+    noise of this tick on x's device (rows of lanes not stepping are
+    unused).  ``masked_index`` is a backend's ``masked_index_step`` with
+    its clip bound.
+    """
+    def lane_tick(model, menu, x, pos, end, traj, gate, lane_noise):
+        stepping = gate & (pos < end)
+        pos_c = np.clip(pos, 0, kmax - 1)
+        dev = x.device
+        t_lane = torch.from_numpy(menu["ts_pad"][traj, pos_c]).to(dev)
+        eps_hat = model(x, t_lane)
+        noise = lane_noise(pos_c, stepping)
+        cols = torch.from_numpy(
+            (menu["offsets"][traj] + pos_c).astype(np.int32)).to(dev)
+        x = masked_index(x, cols, eps_hat, noise,
+                         torch.from_numpy(stepping).to(dev),
+                         tables=menu["tables"])
+        pos = np.where(stepping, pos + 1, pos)
+        done = stepping & (pos >= end)        # x now holds the cut tensor
+        return x, pos, done
+    return lane_tick
+
+
+_REGISTRY: Dict[str, StepBackend] = {}
+
+BackendLike = Optional[Union[str, StepBackend]]
+
+
+def register(cls):
+    """Class decorator: instantiate and expose under ``cls.name``."""
+    _REGISTRY[cls.name] = cls()
+    return cls
+
+
+def get_backend(spec: BackendLike = None) -> StepBackend:
+    """Resolve a backend name (or pass an instance through).  None = "torch"."""
+    if spec is None:
+        return _REGISTRY["torch"]
+    if isinstance(spec, StepBackend):
+        return spec
+    try:
+        return _REGISTRY[spec]
+    except KeyError:
+        raise ValueError(f"unknown step backend {spec!r}; "
+                         f"available: {available()}") from None
+
+
+def available():
+    return sorted(_REGISTRY)
+
+
+@register
+class TorchStepBackend(StepBackend):
+    """Plain PyTorch path (counterpart of ``JnpStepBackend``)."""
+
+    name = "torch"
+
+    def step(self, sched, x, t, eps_hat, noise, *, clip: float = 3.0):
+        from repro_torch.diffusion import ddpm         # import cycle: lazy
+        x = ddpm.p_sample(sched, x, t, eps_hat, noise)
+        if clip:
+            x = torch.clamp(x, -clip, clip)
+        return x
+
+
+@register
+class TritonStepBackend(StepBackend):
+    """The ``ddpm_step`` Triton kernel; clip and masked select stay plain."""
+
+    name = "triton"
+
+    def step(self, sched, x, t, eps_hat, noise, *, clip: float = 3.0):
+        x = kops.ddpm_step(x, eps_hat, noise, kds.ddpm_step_coefs(sched, t))
+        if clip:
+            x = torch.clamp(x, -clip, clip)
+        return x
+
+    def index_step(self, x, cols, eps_hat, noise, tables, *,
+                   clip: float = 3.0):
+        x = kops.ddpm_step(x, eps_hat, noise,
+                           kds.index_step_coefs(tables, cols))
+        if clip:
+            x = torch.clamp(x, -clip, clip)
+        return x
+
+
+@register
+class CudaMaskedStepBackend(StepBackend):
+    """One ``traj_masked_step`` CUDA kernel per tick: per-lane column
+    gather, update, clip and active select in a single read of (x, ε̂, z)
+    and one write."""
+
+    name = "cuda_masked"
+
+    def _ones(self, x):
+        return torch.ones((x.shape[0],), dtype=torch.bool, device=x.device)
+
+    def step(self, sched, x, t, eps_hat, noise, *, clip: float = 3.0):
+        return self.masked_step(sched, x, t, eps_hat, noise, self._ones(x),
+                                clip=clip)
+
+    def masked_step(self, sched, x, t, eps_hat, noise, active, *,
+                    clip: float = 3.0, tables=None):
+        return kops.ddpm_masked_step(sched, x, t, eps_hat, noise, active,
+                                     clip=clip, tables=tables)
+
+    def index_step(self, x, cols, eps_hat, noise, tables, *,
+                   clip: float = 3.0):
+        return self.masked_index_step(x, cols, eps_hat, noise, self._ones(x),
+                                      tables, clip=clip)
+
+    def masked_index_step(self, x, cols, eps_hat, noise, active, tables, *,
+                          clip: float = 3.0):
+        return kops.traj_masked_step(x, cols, eps_hat, noise, active, tables,
+                                     clip=clip)

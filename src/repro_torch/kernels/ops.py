@@ -1,0 +1,135 @@
+"""The step kernels' wrappers (counterpart of ``repro/kernels/ops.py:37-79``)
+and their launch counters.
+
+Each wrapper runs its kernel's plain version (:mod:`repro_torch.kernels.ref`)
+for a tensor on the CPU, and only then.  For a CUDA tensor it checks device,
+dtype, shape and contiguity, launches its kernel
+(:mod:`repro_torch.kernels.ddpm_step`) or raises, and adds one to its
+``launches`` attribute; nothing falls back.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import ddpm_step as _ddpm
+from repro_torch.kernels.ref import ddpm_step_ref, traj_masked_step_ref
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors on {dev}; the kernel runs on CUDA "
+                         "and the plain version only on the CPU")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_streams(name: str, x, eps_hat, noise) -> None:
+    if eps_hat.shape != x.shape or noise.shape != x.shape:
+        raise ValueError(f"{name}: shapes {tuple(x.shape)}, "
+                         f"{tuple(eps_hat.shape)}, {tuple(noise.shape)} differ")
+
+
+def ddpm_step(x_t: torch.Tensor, eps_hat: torch.Tensor, noise: torch.Tensor,
+              coefs: torch.Tensor) -> torch.Tensor:
+    """Fused denoise update (the Triton kernel).  x_t/eps_hat/noise: (B, ...);
+    coefs: (B, 4) f32 = (c_eps, 1/√ar, σ, keep), from
+    :func:`~repro_torch.kernels.ddpm_step.ddpm_step_coefs` or
+    :func:`~repro_torch.kernels.ddpm_step.index_step_coefs`.  Output in
+    x_t's dtype; no clip."""
+    if x_t.device.type == "cpu":
+        return ddpm_step_ref(x_t, eps_hat, noise, coefs)
+    _check_cuda("ddpm_step", x_t, eps_hat, noise, coefs)
+    _check_streams("ddpm_step", x_t, eps_hat, noise)
+    b = x_t.shape[0]
+    if coefs.shape != (b, 4) or coefs.dtype != torch.float32:
+        raise ValueError(f"ddpm_step: coefs must be ({b}, 4) float32, got "
+                         f"{tuple(coefs.shape)} {coefs.dtype}")
+    out = torch.empty_like(x_t)
+    if x_t.numel() == 0:
+        return out
+    _ddpm.launch_ddpm_step(x_t, eps_hat, noise, coefs, out)
+    ddpm_step.launches += 1
+    return out
+
+
+ddpm_step.launches = 0
+
+
+def traj_masked_step(x: torch.Tensor, cols: torch.Tensor,
+                     eps_hat: torch.Tensor, noise: torch.Tensor,
+                     active: torch.Tensor, tables: torch.Tensor, *,
+                     clip: float = 3.0) -> torch.Tensor:
+    """Fused masked trajectory tick over a slot array (the CUDA kernel):
+    per-lane column gather, update, clip and active select in one pass.
+
+    x/eps_hat/noise: (S, ...) f32 or bf16, one dtype; cols: (S,) integer
+    per-lane table column (any value — clamped into [0, C)); active: (S,)
+    bool; tables: canonical (4|5, C) f32 coefficient table.  Active lanes
+    take ``clip(step(x, col), ±clip)``; inactive lanes pass through
+    bit-unchanged.
+    """
+    cols = cols.to(torch.int32)
+    if x.device.type == "cpu":
+        return traj_masked_step_ref(x, cols, eps_hat, noise, active, tables,
+                                    clip=clip)
+    _check_cuda("traj_masked_step", x, eps_hat, noise, cols, active, tables)
+    _check_streams("traj_masked_step", x, eps_hat, noise)
+    if x.dtype not in _ddpm.DTYPES or eps_hat.dtype != x.dtype \
+            or noise.dtype != x.dtype:
+        raise ValueError("traj_masked_step: x, eps_hat and noise must share "
+                         "one dtype, float32 or bfloat16; got "
+                         f"{x.dtype}, {eps_hat.dtype}, {noise.dtype}")
+    s = x.shape[0]
+    if cols.shape != (s,):
+        raise ValueError(f"traj_masked_step: cols must be ({s},)")
+    if active.dtype != torch.bool or active.shape != (s,):
+        raise ValueError(f"traj_masked_step: active must be ({s},) bool")
+    if tables.dtype != torch.float32 or tables.ndim != 2 \
+            or tables.shape[0] < 4:
+        raise ValueError("traj_masked_step: tables must be (4|5, C) float32")
+    if s > 65535:
+        raise ValueError(f"traj_masked_step: {s} lanes > 65535 (grid.y)")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    _ddpm.launch_traj_masked_step(x, cols, eps_hat, noise, active, tables,
+                                  out, clip)
+    traj_masked_step.launches += 1
+    return out
+
+
+traj_masked_step.launches = 0
+
+
+def ddpm_masked_step(sched, x_t, t, eps_hat, noise, active, *,
+                     clip: float = 3.0, tables=None):
+    """Timestep-indexed view of :func:`traj_masked_step` over the dense
+    ancestral table (the schedule's, kept on x_t's device, unless
+    ``tables`` is given): per-lane t in {1..T} (any value — clamped) maps
+    to column T - t."""
+    if tables is None:
+        tables = _ddpm.masked_step_tables(sched, x_t.device)
+    T = tables.shape[1]
+    cols = T - torch.clamp(t, 1, T)
+    return traj_masked_step(x_t, cols, eps_hat, noise, active, tables,
+                            clip=clip)
+
+
+# the kernel wrappers that count their launches, by kernel name
+KERNELS = {"ddpm_step": ddpm_step, "traj_masked_step": traj_masked_step}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,49 @@
+"""Plain PyTorch versions of the step kernels (the allclose ground truth).
+
+Counterpart of ``repro/kernels/ref.py``: the mathematical definitions,
+written without any blocking.  The kernel wrappers in
+:mod:`repro_torch.kernels.ops` run these for tensors on the CPU, and
+the tests and ``chip_smoke.py`` hold each kernel against them on the card.
+Both compute in float32 and store in x's dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _lanes(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(B,) per-sample scalars -> (B, 1, ..., 1) for broadcasting."""
+    return v.reshape(v.shape + (1,) * (ndim - 1))
+
+
+def ddpm_step_ref(x_t, eps_hat, noise, coefs):
+    """Direct p_sample with precomputed per-sample coefs (B, 4) =
+    (c_eps, 1/√ar, σ, keep): ``(x − c_eps·ε̂)·inv_sa + keep·σ·z``."""
+    nd = x_t.ndim
+    c_eps = _lanes(coefs[:, 0], nd)
+    inv_sa = _lanes(coefs[:, 1], nd)
+    sigma = _lanes(coefs[:, 2], nd)
+    keep = _lanes(coefs[:, 3], nd)
+    x = x_t.to(torch.float32)
+    mean = (x - c_eps * eps_hat.to(torch.float32)) * inv_sa
+    return (mean + keep * sigma * noise.to(torch.float32)).to(x_t.dtype)
+
+
+def traj_masked_step_ref(x, cols, eps_hat, noise, active, tables, *,
+                         clip: float = 3.0):
+    """The masked trajectory tick, per lane: col = clip(cols, 0, C−1); where
+    ``active``, ``clip((x − c_eps·ε̂)/√ar + keep·σ·z, ±clip)`` from the
+    table's column; elsewhere x passes through bit-unchanged.  Rows 0-3 of
+    ``tables`` are (c_eps, ar, σ, keep); a fifth (guidance) row rides along
+    unused."""
+    nd = x.ndim
+    col = torch.clamp(cols.to(torch.int64), 0, tables.shape[1] - 1)
+    g = tables[:, col]
+    xf = x.to(torch.float32)
+    mean = (xf - _lanes(g[0], nd) * eps_hat.to(torch.float32)) / \
+        torch.sqrt(_lanes(g[1], nd))
+    new = mean + _lanes(g[3], nd) * _lanes(g[2], nd) * \
+        noise.to(torch.float32)
+    if clip:
+        new = torch.clamp(new, -clip, clip)
+    return torch.where(_lanes(active, nd), new.to(x.dtype), x)

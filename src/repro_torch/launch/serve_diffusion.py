@@ -1,0 +1,165 @@
+"""Diffusion serving launcher — the continuous-batching engine on one card.
+
+Runs the CollaFuse server segment for a stream of generation requests
+(mixed cut-ratios / batch sizes / arrival ticks / samplers) through the
+serving engine, then finishes every request on its client's private model::
+
+    python -m repro_torch.launch.serve_diffusion                # paper U-Net
+    python -m repro_torch.launch.serve_diffusion --device cpu --config \
+        launcher --T 10 --requests 4 --slots 4
+
+``--config paper`` is the paper's U-Net (128x128x1, base 64, mults
+(1,2,4,8), 2 res blocks, attention at 16); ``--config launcher`` is the
+reference launcher's small model.  Weights are random, drawn from
+``--seed``.  The default device is CUDA; without a card the launcher raises
+unless ``--device cpu`` is given.
+"""
+import argparse
+import dataclasses
+import json
+
+
+def _parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--config", choices=["paper", "launcher"],
+                    default="paper")
+    ap.add_argument("--T", type=int, default=100,
+                    help="diffusion steps (paper §4: 100)")
+    ap.add_argument("--image", type=int, default=0,
+                    help="image size (0 = the config's own)")
+    ap.add_argument("--slots", type=int, default=16)
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--max-batch", type=int, default=2,
+                    help="request batch sizes cycle 1..max-batch")
+    ap.add_argument("--cut-ratios", type=float, nargs="+",
+                    default=[0.25, 0.5, 0.75])
+    ap.add_argument("--clients", type=int, default=4,
+                    help="private client models finishing the chain")
+    ap.add_argument("--policy", choices=["fifo", "cut_ratio"],
+                    default="cut_ratio")
+    ap.add_argument("--sampler", default="ddpm", choices=["ddpm", "ddim"],
+                    help="ddpm = dense T-step chain; ddim = strided "
+                         "--num-steps subsequence")
+    ap.add_argument("--num-steps", type=int, default=0,
+                    help="DDIM trajectory length K (0 = dense T steps)")
+    ap.add_argument("--eta", type=float, default=0.0,
+                    help="DDIM stochasticity in [0,1]")
+    ap.add_argument("--mix", action="store_true",
+                    help="requests cycle over the whole menu (dense ddpm + "
+                         "a strided ddim) instead of one --sampler")
+    ap.add_argument("--step-backend", default="cuda_masked",
+                    choices=["torch", "triton", "cuda_masked"],
+                    help="denoise-tick StepBackend; cuda_masked runs the "
+                         "whole masked tick as one CUDA kernel")
+    ap.add_argument("--ticks-per-dispatch", type=int, default=1,
+                    help="k lane ticks per window; admission and retirement "
+                         "happen at window boundaries")
+    ap.add_argument("--arrival-every", type=int, default=0,
+                    help="0 = all at tick 0; k = one request every k ticks")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--json", default="",
+                    help="write the serve summary to this path")
+    return ap.parse_args(argv)
+
+
+def launcher_config(image: int = 8):
+    """The reference launcher's small U-Net (``serve_diffusion.py:190``)."""
+    from repro_torch.configs import UNetConfig
+    return dataclasses.replace(
+        UNetConfig().reduced(), image_size=image, base_channels=8,
+        channel_mults=(1, 2), n_res_blocks=1, attn_resolutions=(),
+        time_dim=32, norm_groups=4)
+
+
+def main(argv=None):
+    args = _parse_args(argv)
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import UNetConfig
+    from repro_torch.device import resolve_device
+    from repro_torch.diffusion.sampler import make_sampler
+    from repro_torch.diffusion.schedule import cosine_schedule
+    from repro_torch.models.unet import UNet
+    from repro_torch.serve import (EngineConfig, Request, ServeEngine,
+                                   make_scheduler)
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        # the reference computes in f32: no TF32 in convolutions or matmuls
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if args.sampler == "ddpm" and args.num_steps:
+        raise SystemExit("--num-steps strides the chain, which needs "
+                         "--sampler ddim (ddpm is dense-only)")
+    if args.config == "paper":
+        ucfg = UNetConfig()
+        if args.image:
+            ucfg = dataclasses.replace(ucfg, image_size=args.image)
+    else:
+        ucfg = launcher_config(args.image or 8)
+    samplers = {"ddpm": make_sampler(args.T)}
+    if args.sampler == "ddim" or args.mix:
+        samplers["ddim"] = make_sampler(
+            args.T, "ddim", args.num_steps or max(2, args.T // 2), args.eta)
+    request_samplers = list(samplers) if args.mix else [args.sampler]
+    traffic = ("mix of " + "/".join(request_samplers) if args.mix
+               else samplers[args.sampler].describe())
+    print(f"serve_diffusion: device={device} config={args.config} "
+          f"image={ucfg.image_size} slots={args.slots} "
+          f"requests={args.requests} T={args.T} policy={args.policy} "
+          f"backend={args.step_backend} sampler={traffic} "
+          f"k={args.ticks_per_dispatch}", flush=True)
+
+    server = UNet(ucfg, seed=args.seed).to(device).eval()
+    clients = [UNet(ucfg, seed=args.seed + 1 + c).to(device).eval()
+               for c in range(args.clients)]
+    requests = [
+        Request(req_id=i, seed=args.seed * 1_000_003 + i,
+                batch=1 + i % args.max_batch,
+                cut_ratio=args.cut_ratios[i % len(args.cut_ratios)],
+                client_idx=i % args.clients,
+                arrival_tick=i * args.arrival_every,
+                sampler=request_samplers[i % len(request_samplers)])
+        for i in range(args.requests)]
+    sched = cosine_schedule(args.T)
+
+    def engine():
+        cfg = EngineConfig(
+            sched=sched, image_shape=(ucfg.image_size, ucfg.image_size,
+                                      ucfg.in_channels),
+            slots=args.slots,
+            scheduler=make_scheduler(args.policy, args.T, samplers=samplers),
+            step_backend=args.step_backend, samplers=samplers,
+            ticks_per_dispatch=args.ticks_per_dispatch, device=device)
+        return ServeEngine(cfg, server)
+
+    engine().serve(list(requests), clients)       # warm-up: builds, caches
+    res = engine().serve(list(requests), clients)
+    s = res.summary
+    print(f"engine: {s['requests']} requests ({s['images']} images) in "
+          f"{res.wall_s:.2f}s over {s['ticks']} ticks | "
+          f"{s['requests_per_s']:.1f} req/s | "
+          f"p50/p95 latency {s['latency_ticks_p50']:.0f}/"
+          f"{s['latency_ticks_p95']:.0f} ticks | "
+          f"util {s['utilization_mean']:.2f}", flush=True)
+    print(f"client finish ({s['finish_mode']}): "
+          f"{s['finish_s'] * 1e3:.1f}ms in {s['finish_batches']} "
+          f"batch(es), overlap_frac {s['overlap_frac']:.2f} "
+          f"(tail {s['finish_tail_s'] * 1e3:.1f}ms)", flush=True)
+    print(f"flops: server {s['server_flops']:.3g} client "
+          f"{s['client_flops']:.3g} (client_fraction "
+          f"{s['client_fraction']:.3f})", flush=True)
+    for comp in res.completions.values():
+        assert comp.x0 is not None and np.isfinite(comp.x0).all(), \
+            f"non-finite output for request {comp.request.req_id}"
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(s, f, indent=1)
+        print(f"wrote {args.json}")
+    print("serve_diffusion OK")
+
+
+if __name__ == "__main__":
+    main()

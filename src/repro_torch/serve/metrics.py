@@ -1,0 +1,147 @@
+"""Serving telemetry: per-request latency, tick utilization, FLOP split
+(counterpart of ``repro/serve/metrics.py``, without the obs registry).
+
+The engine reports one event per admission and retirement plus the exact
+per-tick occupancy of every window; :meth:`ServeMetrics.summary` folds them
+into the run record, and :func:`finish_summary` adds the client segment's
+accounting.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.core.collafuse import CutPlan, flops_split_steps
+
+
+class ServeMetrics:
+    """Event sink for one engine run."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self._admit: Dict[int, Dict] = {}       # req_id -> {tick, wall}
+        self._retire: Dict[int, Dict] = {}
+        self._util: List[float] = []            # active lanes / capacity
+        self._t0: Optional[float] = None
+        self._windows = 0
+        self._idle_ticks = 0
+        self._lags: List[int] = []
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def _now(self) -> float:
+        if self._t0 is None:
+            self.start()
+        return time.perf_counter() - self._t0
+
+    def on_admit(self, req_id: int, tick: int) -> None:
+        self._admit[req_id] = {"tick": tick, "wall": self._now()}
+
+    def on_retire(self, req_id: int, tick: int) -> None:
+        self._retire[req_id] = {"tick": tick, "wall": self._now()}
+
+    def on_window_exact(self, active_start: int, done_counts) -> None:
+        """Exact per-tick occupancy of one window: ``done_counts[j]`` lanes
+        finished AT window tick j, and a lane counts as active through its
+        finish tick."""
+        counts = np.asarray(done_counts, np.int64)
+        assert int(counts.sum()) <= active_start, \
+            f"{counts.sum()} lanes done in a window that started with " \
+            f"{active_start} active"
+        self._windows += 1
+        retired_before = np.concatenate(([0], np.cumsum(counts[:-1])))
+        act = active_start - retired_before
+        self._util.extend((act / max(self.capacity, 1)).tolist())
+
+    def on_idle_gap(self, gap: int) -> None:
+        """Ticks skipped because no lane was in flight."""
+        if gap > 0:
+            self._idle_ticks += gap
+
+    def on_boundary_lag(self, lag: int) -> None:
+        """Ticks between a lane reaching its cut and the window boundary
+        that retired it (≤ ticks_per_dispatch − 1)."""
+        self._lags.append(lag)
+
+    @property
+    def ticks(self) -> int:
+        return len(self._util)
+
+    def latency_ticks(self, req_id: int) -> Optional[int]:
+        """Server-segment residency: admission tick -> retirement tick."""
+        if req_id not in self._retire:
+            return None
+        return self._retire[req_id]["tick"] - self._admit[req_id]["tick"]
+
+    def summary(self, wall_s: float, T: int, flops_per_call: float,
+                requests, steps_of: Optional[Callable] = None) -> Dict:
+        """Aggregate one run over ``requests``.  ``steps_of(req) ->
+        (n_server_steps, n_client_steps)`` gives the per-request model-call
+        split (default: the dense CutPlan split)."""
+        lat_t = np.array([self.latency_ticks(r.req_id) for r in requests
+                          if self.latency_ticks(r.req_id) is not None],
+                         dtype=np.float64)
+        lat_w = np.array([self._retire[r.req_id]["wall"] -
+                          self._admit[r.req_id]["wall"]
+                          for r in requests if r.req_id in self._retire],
+                         dtype=np.float64)
+        if steps_of is None:
+            def steps_of(r):
+                plan = CutPlan(T, r.cut_ratio)
+                return plan.n_server_steps, plan.n_client_steps
+        server_f = client_f = 0.0
+        images = 0
+        for r in requests:
+            n_srv, n_cli = steps_of(r)
+            split = flops_split_steps(n_srv, n_cli, flops_per_call, r.batch)
+            server_f += split["server_flops"]
+            client_f += split["client_flops"]
+            images += r.batch
+        total = max(server_f + client_f, 1.0)
+
+        def pct(a, q):
+            return float(np.percentile(a, q)) if a.size else 0.0
+        out = {
+            "requests": len(requests),
+            "images": images,
+            "ticks": self.ticks,
+            "windows": self._windows,
+            "ticks_per_s": self.ticks / max(wall_s, 1e-9),
+            "idle_ticks": self._idle_ticks,
+            "requests_per_s": len(requests) / max(wall_s, 1e-9),
+            "images_per_s": images / max(wall_s, 1e-9),
+            "latency_ticks_p50": pct(lat_t, 50),
+            "latency_ticks_p95": pct(lat_t, 95),
+            "latency_s_p50": pct(lat_w, 50),
+            "latency_s_p95": pct(lat_w, 95),
+            "utilization_mean": float(np.mean(self._util))
+            if self._util else 0.0,
+            "server_flops": server_f,
+            "client_flops": client_f,
+            "client_fraction": client_f / total,
+        }
+        if self._lags:
+            lags = np.array(self._lags, np.float64)
+            out["boundary_lag_mean"] = float(lags.mean())
+            out["boundary_lag_p100"] = int(lags.max())
+        return out
+
+
+def finish_summary(mode: str, finish_s: float, batches: int = 0,
+                   lanes: int = 0) -> Dict:
+    """Accounting of the client-finish segment, merged into the serve
+    summary.  Only the ``"drain"`` finisher exists in the port so far: it
+    runs after the server loop, so none of it overlaps server compute
+    (``overlap_frac`` 0, the whole of ``finish_s`` is tail)."""
+    assert mode == "drain", mode
+    return {
+        "finish_mode": mode,
+        "finish_s": finish_s,
+        "finish_tail_s": finish_s,
+        "overlap_frac": 0.0,
+        "finish_batches": batches,
+        "finish_lanes": lanes,
+    }

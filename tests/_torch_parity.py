@@ -1,0 +1,124 @@
+"""Shared helpers for the port's parity tests: run the same numpy inputs
+through the JAX reference (``repro``) and the PyTorch port (``repro_torch``).
+
+Noise is the one input the two cannot draw alike: the reference draws from
+threefry keys.  :func:`reference_lane_noise` replays the reference's key
+discipline — ``lane_keys`` (fold_in(req_key, image) split into k_init,
+k_srv, k_cli), then ``k, k_n = split(k)`` per step — and returns the draws
+keyed as the port's noise sources key them: (seed, image, role, step), with
+step the trajectory position.
+"""
+import jax
+import numpy as np
+import torch
+
+from repro.core import collafuse as jcf
+
+
+def set_torch_cpu():
+    """Deterministic f32 CPU math, two threads (the suite runs 6 workers)."""
+    torch.set_float32_matmul_precision("highest")
+    torch.set_num_threads(2)
+
+
+def np_tree(tree):
+    """A JAX pytree with every leaf as a numpy array (None kept)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [np_tree(v) for v in tree]
+    return np.asarray(tree)
+
+
+def unet_params(cfg, seed, perturb=True):
+    """Reference U-Net params for ``cfg`` (a ``repro`` UNetConfig) drawn
+    with numpy: fan-in scaled weights, and with ``perturb`` small nonzero
+    biases and GroupNorm offsets, so every leaf's mapping is exercised;
+    without it zero biases and unit norms, as the reference's init."""
+    from repro.models import unet as junet
+    shapes = jax.eval_shape(lambda k: junet.init_params(k, cfg),
+                            jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = str(path[-1])
+        shape = leaf.shape
+        if len(shape) >= 2:
+            fan_in = int(np.prod(shape[:-1])) if len(shape) == 4 \
+                else shape[-1] if "label_emb" in name else shape[0]
+            a = rng.standard_normal(shape) / np.sqrt(fan_in)
+        elif "g_scale" in name:
+            a = 1.0 + perturb * 0.1 * rng.standard_normal(shape)
+        else:
+            a = perturb * 0.1 * rng.standard_normal(shape)
+        return a.astype(np.float32)
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def reference_lane_noise(seed, batch, image_shape, cut, K, draws=None):
+    """The reference engine's draws for request ``PRNGKey(seed)``: x_T per
+    image ("init", step 0), the server chain over positions [0, cut) and the
+    client chain over [cut, K).  Adds to and returns ``draws``."""
+    draws = {} if draws is None else draws
+    k_init, k_srv, k_cli = jcf.lane_keys(jax.random.PRNGKey(seed), batch)
+    for i in range(batch):
+        draws[(seed, i, "init", 0)] = np.asarray(
+            jax.random.normal(k_init[i], image_shape))
+        for role, key, steps in (("server", k_srv[i], range(0, cut)),
+                                 ("client", k_cli[i], range(cut, K))):
+            for pos in steps:
+                key, k_n = jax.random.split(key)
+                draws[(seed, i, role, pos)] = np.asarray(
+                    jax.random.normal(k_n, image_shape))
+    return draws
+
+
+def reference_chain_noise(key, n_steps, shape):
+    """The batch-shaped draws of ``sample_range``/``sample_trajectory``
+    from ``key``: step j's noise is ``normal(split(k)[1], shape)``."""
+    out = []
+    for _ in range(n_steps):
+        key, k_n = jax.random.split(key)
+        out.append(np.asarray(jax.random.normal(k_n, shape)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# a tiny ε-model written alike in both frameworks (the serving tests' MLP)
+# ---------------------------------------------------------------------------
+def tiny_params(image_shape, seed, hidden=32):
+    rng = np.random.default_rng(seed)
+    d = int(np.prod(image_shape))
+    return {"w1": (rng.standard_normal((d + 8, hidden)) / 6.0
+                   ).astype(np.float32),
+            "w2": (rng.standard_normal((hidden, d)) / 6.0).astype(np.float32)}
+
+
+def tiny_apply_jax(p, x, t):
+    import jax.numpy as jnp
+    b = x.shape[0]
+    freqs = jnp.exp(jnp.linspace(0.0, 3.0, 4))
+    ang = t[:, None].astype(jnp.float32) * freqs[None]
+    temb = jnp.concatenate([jnp.sin(ang), jnp.cos(ang)], -1)
+    h = jax.nn.silu(jnp.concatenate([x.reshape(b, -1), temb], -1) @ p["w1"])
+    return (h @ p["w2"]).reshape(x.shape)
+
+
+class TinyEps(torch.nn.Module):
+    """:func:`tiny_apply_jax` as a module (NHWC in, NHWC out)."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.w1 = torch.nn.Parameter(torch.from_numpy(np.array(p["w1"])))
+        self.w2 = torch.nn.Parameter(torch.from_numpy(np.array(p["w2"])))
+
+    def forward(self, x, t):
+        b = x.shape[0]
+        freqs = torch.exp(torch.linspace(0.0, 3.0, 4, device=x.device))
+        ang = t[:, None].to(torch.float32) * freqs[None]
+        temb = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+        h = torch.nn.functional.silu(
+            torch.cat([x.reshape(b, -1), temb], -1) @ self.w1)
+        return (h @ self.w2).reshape(x.shape)

@@ -1,0 +1,83 @@
+"""The port's hand-written kernels against their plain versions, on the
+card.  Marked ``cuda``; without a card every test skips.  Imports neither
+jax nor the JAX package, so it runs on a machine that has only the port's
+dependencies::
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import importlib.util
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.diffusion import sampler as tsm  # noqa: E402
+from repro_torch.diffusion import schedule as tsch  # noqa: E402
+from repro_torch.kernels import ddpm_step as tds  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+
+torch.set_float32_matmul_precision("highest")
+torch.set_num_threads(2)
+
+def _cuda_inputs(S, dtype):
+    sched = tsch.cosine_schedule(100)
+    tables = torch.cat([tsm.make_sampler(100).tables(sched),
+                        tsm.make_sampler(100, "ddim", 20, 0.3).tables(sched)],
+                       dim=1).cuda()
+    g = torch.Generator().manual_seed(S)
+    cols = torch.randint(0, tables.shape[1], (S,), generator=g,
+                         dtype=torch.int32)
+    cols[:3] = torch.tensor([100, 0, 99], dtype=torch.int32)
+    active = torch.ones(S, dtype=torch.bool)
+    active[3::4] = False
+    cols[3] = -7
+    x, eps, z = (torch.randn((S, 128, 128, 1), generator=g).to(dtype)
+                 for _ in range(3))
+    return [t.cuda() for t in (x, cols, eps, z, active)] + [tables]
+
+
+def _require_cuda(triton=False):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    if triton and importlib.util.find_spec("triton") is None:
+        pytest.skip("needs the triton package")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [8, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_traj_masked_step_kernel_matches_plain_on_cuda(S, dtype):
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    x, cols, eps, z, active, tables = _cuda_inputs(S, dt)
+    before = ops.traj_masked_step.launches
+    out = ops.traj_masked_step(x, cols, eps, z, active, tables)
+    ref = kref.traj_masked_step_ref(x, cols, eps, z, active, tables)
+    torch.cuda.synchronize()
+    assert ops.traj_masked_step.launches == before + 1
+    assert torch.equal(out[~active], x[~active])
+    if dt == torch.float32:        # -fmad=false: the plain arithmetic, bitwise
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ddpm_step_kernel_matches_plain_on_cuda(dtype):
+    _require_cuda(triton=True)
+    dt = getattr(torch, dtype)
+    x, cols, eps, z, _, tables = _cuda_inputs(8, dt)
+    coefs = tds.index_step_coefs(tables, torch.clamp(cols, 0, 119))
+    before = ops.ddpm_step.launches
+    out = ops.ddpm_step(x, eps, z, coefs)
+    ref = kref.ddpm_step_ref(x, eps, z, coefs)
+    torch.cuda.synchronize()
+    assert ops.ddpm_step.launches == before + 1
+    if dt == torch.float32:        # fp fusion off: the plain arithmetic
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
