@@ -8,26 +8,40 @@ Run from the repository root on a machine with one NVIDIA GPU::
 Phases, each printing its own lines:
 
 1. device — the card's name and power limit, as nvidia-smi gives them;
-2. build — both step kernels built from this checkout's sources (the CUDA
-   one with nvcc, the Triton one compiled by its first launch), timed;
-3. kernels — each kernel held against its plain PyTorch version on the card
-   at the serving shapes (S ∈ {8, 32} lanes of 128x128x1, f32 and bf16):
-   inactive lanes bitwise, active lanes within the stated bound; kernel
-   and plain-version device times with a cold L2 (held against the bound),
-   the kernel's with a warm L2, and its eager call time;
+2. build — the kernels built from this checkout's sources (one nvcc per
+   CUDA source, all started together; the Triton one compiled by its
+   first launch), timed;
+3. kernels — each step kernel held against its plain PyTorch version on
+   the card at the serving shapes (S ∈ {8, 32} lanes of 128x128x1, f32 and
+   bf16): inactive lanes bitwise, active lanes within the stated bound;
+   kernel and plain-version device times with a cold L2 (held against the
+   bound), the kernel's with a warm L2, and its eager call time.  Then
+   ``flash_attention`` against ``attention_ref`` at one Yi-6B layer's
+   prefill shape (q 4x2048x32x128, k and v 4x2048x4x128), causal in bf16
+   and f32 and with a 1024 window, with its time, the plain version's, the
+   bound and ``scaled_dot_product_attention``'s time;
 4. slice — the paper U-Net (random weights from a seed) serving 8 requests
    through ``ServeEngine.serve()`` with each step backend: finite outputs,
    backends agree, each kernel launched on its own run, one lane replayed
-   by ``split_sample_lane``, window depth k=4 against k=1, throughput.
+   by ``split_sample_lane``, window depth k=4 against k=1, throughput;
+5. LM slice — Yi-6B at full width and depth in bf16 (random weights from a
+   seed): (a) prefill of 4x2048 tokens through the flash kernel, 32
+   launches a call, timed and profiled; (b) the same batch through
+   blockwise PyTorch attention, logits within the stated tolerance;
+   (c) 64 chained cached decode steps against (a)'s logits; (d) the
+   serving launcher at full width.
 
 It then prints the kernels' JSON line, and last the device line.  It exits
 non-zero, without the last line, when CUDA is absent or any phase fails.
 Imports nothing of ``jax`` and nothing of the JAX package.
 """
+import contextlib
+import io
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -36,20 +50,42 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import UNetConfig  # noqa: E402
+from repro_torch.configs import UNetConfig, get_config  # noqa: E402
 from repro_torch.core.collafuse import CutPlan, split_sample_lane  # noqa: E402
 from repro_torch.diffusion.sampler import make_sampler  # noqa: E402
 from repro_torch.diffusion.schedule import cosine_schedule  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import ddpm_step as kds  # noqa: E402
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
+                                      make_prefill_step)
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.unet import UNet, flops_per_image  # noqa: E402
 from repro_torch.serve import (EngineConfig, Request, ServeEngine,  # noqa: E402
                                make_scheduler)
 
 # Published H100 rates (NVIDIA data sheets; dense, no sparsity): memory
-# bandwidth and float32 rate outside the tensor cores.
-CARD_RATES = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12)}
+# bandwidth, float32 rate outside the tensor cores, bf16 tensor-core rate.
+CARD_RATES = {"SXM": (3.35e12, 67e12, 989e12),
+              "PCIe": (2.0e12, 51e12, 756e12)}
+CUDA_SOURCES = ("traj_masked_step", "flash_attention")
+# one Yi-6B layer's prefill: q (B, S, H, hd), k and v (B, S, KV, hd)
+ATTN_SHAPE = (4, 2048, 32, 4, 128)
+ATTN_WINDOW = 1024
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # test_kernels.py
+# Yi-6B logits in bf16, prefill through the kernel against blockwise
+# PyTorch attention and against the cached decode chain.  Logits of these
+# random weights have std ~1 and reach ~6, where a bf16 ulp is 2^-5.  The
+# paths round at different points (the kernel rounds p to bf16 inside its
+# tiles, blockwise per 2048-chunk, decode per step; sums run in other
+# orders; decode's GEMMs have other shapes), compounded over 32 layers.  A
+# CPU proxy (Yi's width, 16 layers, 256 tokens, bf16) differs by 0.084 at
+# most and 0.012 on average; an H100 by 0.11 and 0.016.  Held: max |Δ| <=
+# 0.25 (8 ulps at the top) and mean |Δ| <= 0.03; a wrong mask or a wrong
+# cache slot moves the mean by tenths.
+LM_TOL_MAX, LM_TOL_MEAN = 0.25, 0.03
 T = 100
 IMG = (128, 128, 1)
 # bytes one pass of a cold-L2 timing moves: over 5x the H100's 50 MB L2
@@ -149,11 +185,19 @@ def phase_device() -> str:
 # phase 2: build
 # ---------------------------------------------------------------------------
 def phase_build(dev) -> None:
+    def timed_build(name):
+        t0 = time.perf_counter()
+        return build.build(name, verbose=True), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lib = build.build("traj_masked_step", verbose=True)
-    t_cuda = time.perf_counter() - t0
-    print(f"[build] traj_masked_step: nvcc -> {lib.relative_to(ROOT)} in "
-          f"{t_cuda:.1f}s", flush=True)
+    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:    # one nvcc each
+        built = list(pool.map(timed_build, CUDA_SOURCES))
+    for name, (lib, t_cuda) in zip(CUDA_SOURCES, built):
+        extra = "".join(" " + f for f in build.SOURCE_FLAGS.get(name, []))
+        print(f"[build] {name}: nvcc{extra} -> {lib.relative_to(ROOT)} in "
+              f"{t_cuda:.1f}s", flush=True)
+    print(f"[build] CUDA sources built in parallel in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     for dt in (torch.float32, torch.bfloat16):
         x = torch.zeros((8,) + IMG, dtype=dt, device=dev)
@@ -225,7 +269,7 @@ def check_pair(name, out, ref, x, active, bound):
 
 
 def phase_kernels(dev, card: str):
-    bw, f32_peak = card_rates(card)
+    bw, f32_peak, _ = card_rates(card)
     sched = cosine_schedule(T)
     tables = torch.cat([make_sampler(T).tables(sched),
                         make_sampler(T, "ddim", 20, eta=0.3).tables(sched)],
@@ -422,14 +466,15 @@ def phase_slice(dev):
           f"({flops / t_fwd / 1e9:.1f} TFLOP/s on {flops / 1e9:.0f} GFLOP) "
           f"against {1e3 / s['ticks_per_s']:.2f} ms per engine tick",
           flush=True)
-    profile_forward(server, x, t)
+    profile_device("U-Net forward at 8 lanes", lambda: server(x, t))
     return counts
 
 
-def profile_forward(model, x, t, reps: int = 3) -> None:
-    """Device time of one forward by kernel, from ``torch.profiler``: the
+def profile_device(label: str, fn, reps: int = 3):
+    """Device time of ``fn()`` by kernel, from ``torch.profiler``: the
     kernels' summed time against the wall time (the device's busy share)
-    and the largest kernels."""
+    and the largest kernels.  Returns {kernel name: ms per call}, empty when
+    the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
@@ -438,24 +483,213 @@ def profile_forward(model, x, t, reps: int = 3) -> None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
-                model(x, t)
+                fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
     if busy_ms == 0.0:
-        print("[profile] the profiler saw no device time: busy share not "
-              "measured", flush=True)
-        return
-    print(f"[profile] U-Net forward at 8 lanes: kernels {busy_ms:.2f} ms of "
-          f"{wall_ms:.2f} ms wall (device busy {busy_ms / wall_ms:.1%}), "
+        print(f"[profile] {label}: the profiler saw no device time: busy "
+              "share not measured", flush=True)
+        return {}
+    print(f"[profile] {label}: kernels {busy_ms:.2f} ms of {wall_ms:.2f} ms "
+          f"wall (device busy {busy_ms / wall_ms:.1%}), "
           f"{sum(e.count for e in kernels) // reps} kernel launches",
           flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         ms = e.self_device_time_total / 1e3 / reps
         print(f"[profile]   {ms:8.3f} ms {ms / busy_ms:6.1%} "
               f"x{e.count // reps:<4d} {e.key[:90]}", flush=True)
+    return {e.key: e.self_device_time_total / 1e3 / reps for e in kernels}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: flash_attention at one Yi-6B layer's prefill shape
+# ---------------------------------------------------------------------------
+def attention_bound_ms(q, k, v, window, card):
+    """The least time the card could take: the larger of the bytes (q, k,
+    v read once, out written once) at the HBM rate and the FLOP on the
+    visible pairs at the dtype's peak (bf16 tensor cores; f32 SIMT)."""
+    bw, f32_peak, bf16_peak = card_rates(card)
+    peak = bf16_peak if q.dtype == torch.bfloat16 else f32_peak
+    t_bytes = kfa.attention_bytes(q, k, v) / bw
+    t_ops = kfa.attention_flops(q, k, causal=True, window=window) / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_attention(dev, card: str):
+    b, s, h, kv, hd = ATTN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(7)
+    base = [torch.randn(shape, generator=g, device=dev)
+            for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.to(dtype) for t in base)
+        for window in (0, ATTN_WINDOW):
+            tag = (f"{str(dtype).split('.')[-1]} causal"
+                   + (f" window {window}" if window else ""))
+            out = ops.flash_attention(q, k, v, causal=True, window=window)
+            ref = kref.attention_ref(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"flash_attention {tag}: non-finite")
+            err = float((out.float() - ref.float()).abs().max())
+            if err > ATTN_TOL[dtype]:
+                raise AssertionError(f"flash_attention {tag}: max_abs_err "
+                                     f"{err:.3e} > {ATTN_TOL[dtype]}")
+            del ref
+            t_k = cuda_time_ms(lambda: ops.flash_attention(
+                q, k, v, causal=True, window=window), iters=10, warmup=2)
+            t_p = cuda_time_ms(lambda: kref.attention_ref(
+                q, k, v, causal=True, window=window), iters=3, warmup=1)
+            bound, by = attention_bound_ms(q, k, v, window, card)
+            flops = kfa.attention_flops(q, k, causal=True, window=window)
+            lib = None
+            if not window:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+                def sdpa():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+                lib_err = float((sdpa().transpose(1, 2).float() -
+                                 out.float()).abs().max())
+                lib = cuda_time_ms(sdpa, iters=10, warmup=2)
+            torch.cuda.empty_cache()
+            print(f"[kernels] flash_attention {tag} q {tuple(q.shape)} k "
+                  f"{tuple(k.shape)}: max_abs_err {err:.3e} (tolerance "
+                  f"{ATTN_TOL[dtype]}) | kernel {t_k:.3f} ms "
+                  f"({flops / t_k / 1e9:.1f} TFLOP/s on {flops:.3e} FLOP) "
+                  f"plain {t_p:.3f} ms bound {bound:.3f} ms ({by}, share "
+                  f"{bound / t_k:.1%})"
+                  + (f" | library sdpa {lib:.3f} ms (vs kernel max "
+                     f"{lib_err:.3e})" if lib is not None else ""),
+                  flush=True)
+            rows[(dtype, window)] = (err, t_k, t_p, bound, by, lib)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the LM slice, Yi-6B at full width and depth
+# ---------------------------------------------------------------------------
+def logit_gap(name, got, want):
+    """Max and mean |Δ| of two logit tensors, held to the LM tolerances."""
+    d = (got.float() - want.float()).abs()
+    mx, mean = float(d.max()), float(d.mean())
+    print(f"[lm] {name}: max |dlogit| {mx:.4f} mean {mean:.5f} (tolerance "
+          f"max {LM_TOL_MAX} mean {LM_TOL_MEAN}; logits max "
+          f"{float(want.float().abs().max()):.3f})", flush=True)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite logits")
+    if mx > LM_TOL_MAX or mean > LM_TOL_MEAN:
+        raise AssertionError(f"{name}: logits disagree")
+
+
+def phase_lm(dev, card: str):
+    _, _, bf16_peak = card_rates(card)
+    cfg = get_config("yi-6b")
+    b, s = ATTN_SHAPE[:2]
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} params, config says "
+                             f"{cfg.param_count()}")
+    print(f"[lm] yi-6b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, {cfg.dtype}; "
+          f"{n_params} params ({n_params * 2 / 1e9:.1f} GB) drawn in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    g = torch.Generator(device=dev).manual_seed(11)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                     device=dev)}
+    flops = cfg.flops_per_token_fwd(s) * b * s
+
+    # (a) prefill through the kernel: one counted run, then timed runs
+    prefill = make_prefill_step(cfg, kernel="flash")
+    prefill(model, batch)                                    # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{counts['flash_attention']} times in one "
+                             f"prefill, not {cfg.n_layers}")
+    if logits.shape != (b, s, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        prefill(model, batch)
+    torch.cuda.synchronize()
+    t_pre = (time.perf_counter() - t0) / reps
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"[lm] (a) prefill {b}x{s} kernel=flash: {t_pre * 1e3:.1f} ms, "
+          f"{b * s / t_pre:.0f} tokens/s, {flops / t_pre / 1e12:.1f} TFLOP/s "
+          f"of {bf16_peak / 1e12:.0f} ({flops / t_pre / bf16_peak:.1%}) on "
+          f"{flops:.3e} FLOP | flash_attention launches "
+          f"{counts['flash_attention']} a call | peak "
+          f"memory {peak_gb:.1f} GB", flush=True)
+    prof = profile_device(f"yi-6b prefill {b}x{s}",
+                          lambda: prefill(model, batch), reps=1)
+    attn_ms = sum(ms for k, ms in prof.items() if "flash_attention" in k)
+    if prof:
+        print(f"[lm] flash_attention {attn_ms:.1f} ms of "
+              f"{sum(prof.values()):.1f} ms device time in a prefill "
+              f"({attn_ms / sum(prof.values()):.1%})", flush=True)
+
+    # (b) the same batch through blockwise PyTorch attention
+    t0 = time.perf_counter()
+    logits_t = make_prefill_step(cfg, kernel="torch")(model, batch)
+    torch.cuda.synchronize()
+    print(f"[lm] (b) prefill kernel=torch: {(time.perf_counter() - t0) * 1e3:.1f}"
+          f" ms (one call)", flush=True)
+    logit_gap("(b) flash vs torch prefill", logits, logits_t)
+    del logits_t
+
+    # (c) 64 chained cached decode steps over one prompt's first positions
+    n_dec = 64
+    decode = make_decode_step(cfg)
+    cache = tf.init_cache(cfg, 1, n_dec, device=dev)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(n_dec):
+        lg, cache = decode(model, cache,
+                           {"tokens": batch["tokens"][:1, pos:pos + 1]}, pos)
+        outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / n_dec
+    print(f"[lm] (c) {n_dec} chained decode steps at batch 1: "
+          f"{t_dec * 1e3:.2f} ms a step", flush=True)
+    logit_gap("(c) decode chain vs prefill", torch.stack(outs, 1),
+              logits[:1, :n_dec])
+    last = {"tokens": batch["tokens"][:1, n_dec - 1:n_dec]}
+    profile_device("yi-6b decode step at batch 1",      # rewrites one slot
+                   lambda: decode(model, cache, last, n_dec - 1))
+    del model, cache, logits, outs
+    torch.cuda.empty_cache()
+
+    # (d) the serving launcher at full width
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stats = lm_serve.main(["--arch", "yi-6b", "--no-reduced",
+                               "--requests", "2", "--batch", "4",
+                               "--prompt-len", "128", "--tokens", "32"])
+    for line in buf.getvalue().splitlines():
+        print(f"[lm] (d) {line}", flush=True)
+    if "serving loop OK" not in buf.getvalue():
+        raise AssertionError("the launcher did not print 'serving loop OK'")
+    print(f"[lm] (d) launcher decode {stats[-1]['tok_s']:.1f} tokens/s at "
+          f"batch 4 (request 1), cache fill of 4x128 in "
+          f"{stats[-1]['prefill_s']:.2f}s", flush=True)
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main():
@@ -470,9 +704,12 @@ def main():
     card = phase_device()
     phase_build(dev)
     rows = phase_kernels(dev, card)
+    attn_rows = phase_attention(dev, card)
     c = phase_slice(dev)
+    lm_counts = phase_lm(dev, card)
     counts = {"traj_masked_step": c["cuda_masked"]["traj_masked_step"],
-              "ddpm_step": c["triton"]["ddpm_step"]}
+              "ddpm_step": c["triton"]["ddpm_step"],
+              "flash_attention": lm_counts["flash_attention"]}
     main_row = rows[(8, torch.float32)]
     src = {"traj_masked_step": ("cuda", "src/repro_torch/kernels/csrc/"
                                 "traj_masked_step.cu",
@@ -487,6 +724,13 @@ def main():
                         "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                         "bound_ms": b, "bound_by": by,
                         "library_ms": None})
+    err, t_k, t_p, b, by, lib = attn_rows[(torch.bfloat16, 0)]
+    kernels.append({"name": "flash_attention", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:124",
+                    "launches": counts["flash_attention"],
+                    "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                    "bound_ms": b, "bound_by": by, "library_ms": lib})
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,9 +4,10 @@ Each source under ``kernels/csrc/`` has a plain C interface.  It is compiled
 by ``nvcc`` for ``sm_90a`` into a shared library and loaded with ``ctypes``:
 seconds to build, against minutes for a source that includes PyTorch's
 headers.  Libraries go to ``build/repro_torch_kernels/`` at the repository
-root, keyed by a hash of the source and :data:`NVCC_FLAGS`, so a changed
-source rebuilds and an unchanged one loads at once.  Nothing is built when
-a module is imported: the first call that launches a kernel builds it.
+root, keyed by a hash of the source and of the flags it is built with
+(:func:`nvcc_flags`), so a changed source or flag rebuilds and an unchanged
+one loads at once.  Nothing is built when a module is imported: the first
+call that launches a kernel builds it.
 """
 from __future__ import annotations
 
@@ -17,14 +18,19 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]    # registers and spills, shown by build(verbose)
+
+# flags one source adds to NVCC_FLAGS.  traj_masked_step's float32 output
+# equals its plain version bit for bit only if no product and sum contract
+# into an FMA; flash_attention wants the FMAs (half its SIMT rate without).
+SOURCE_FLAGS: Dict[str, List[str]] = {"traj_masked_step": ["-fmad=false"]}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -38,10 +44,15 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels are built from source")
 
 
+def nvcc_flags(name: str) -> List[str]:
+    """The flags ``csrc/<name>.cu`` is compiled with."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = src + " ".join(NVCC_FLAGS).encode()
+    key = src + " ".join(nvcc_flags(name)).encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -58,7 +69,7 @@ def build(name: str, verbose: bool = False) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [find_nvcc(), *nvcc_flags(name), "-o", tmp,
            str(CSRC / f"{name}.cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)

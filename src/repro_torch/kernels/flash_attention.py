@@ -1,0 +1,78 @@
+"""Flash attention for Hopper: the ctypes binding of
+``csrc/flash_attention.cu`` and its raw launcher.
+
+Counterpart of ``repro/kernels/flash_attention.py``.  The kernel replaces
+the Pallas ``flash_attention`` (``repro/kernels/flash_attention.py:124``,
+body ``_attn_kernel``); its source's header gives the contract, the design
+and the bound.  Call it through :func:`repro_torch.kernels.ops
+.flash_attention`, which checks its inputs, runs the plain version
+(:func:`repro_torch.kernels.ref.attention_ref`) for CPU tensors, and counts
+each launch.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = ["DTYPES", "HEAD_DIMS", "launch_flash_attention", "visible_pairs",
+           "attention_flops", "attention_bytes"]
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+
+
+def _lib():
+    fn = build.load("flash_attention").flash_attention
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i,
+                       p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_flash_attention(q, k, v, out, *, scale: float, causal: bool,
+                           window: int) -> None:
+    """Launch the kernel on the current stream (built on first use); raises
+    if the launch fails.  The tensors are as :func:`repro_torch.kernels.ops
+    .flash_attention` checks them: CUDA, contiguous, 16-byte aligned, one
+    dtype of :data:`DTYPES`; q and out (B, Sq, H, hd), k and v
+    (B, Skv, KV, hd), hd in :data:`HEAD_DIMS`."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    fn = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh,
+                 float(scale), int(bool(causal)), int(window), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention: CUDA launch failed with "
+                           f"cudaError {err}")
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps, row i and key j counted from 0."""
+    total = 0
+    for i in range(sq):
+        hi = min(i, skv - 1) if causal else skv - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attention_flops(q, k, *, causal: bool = True, window: int = 0) -> int:
+    """Operations of one call on the visible (query, key) pairs: 2·hd for
+    q·k and 2·hd for p·v, per pair and query head."""
+    b, sq, h, hd = q.shape
+    return 4 * hd * b * h * visible_pairs(sq, k.shape[1], causal, window)
+
+
+def attention_bytes(q, k, v) -> int:
+    """Device-memory bytes of one call: q, k and v read once, the output
+    (q's shape and dtype) written once."""
+    return (2 * q.numel() * q.element_size() + k.numel() * k.element_size()
+            + v.numel() * v.element_size())

@@ -1,20 +1,24 @@
-"""The step kernels' wrappers (counterpart of ``repro/kernels/ops.py:37-79``)
-and their launch counters.
+"""The kernels' wrappers (counterpart of ``repro/kernels/ops.py``) and their
+launch counters.
 
 Each wrapper runs its kernel's plain version (:mod:`repro_torch.kernels.ref`)
 for a tensor on the CPU, and only then.  For a CUDA tensor it checks device,
 dtype, shape and contiguity, launches its kernel
-(:mod:`repro_torch.kernels.ddpm_step`) or raises, and adds one to its
+(:mod:`repro_torch.kernels.ddpm_step`,
+:mod:`repro_torch.kernels.flash_attention`) or raises, and adds one to its
 ``launches`` attribute; nothing falls back.
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import ddpm_step as _ddpm
-from repro_torch.kernels.ref import ddpm_step_ref, traj_masked_step_ref
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels.ref import (attention_ref, ddpm_step_ref,
+                                     traj_masked_step_ref)
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -121,8 +125,54 @@ def ddpm_masked_step(sched, x_t, t, eps_hat, noise, active, *,
                             clip=clip)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Causal / sliding-window GQA attention with online softmax (the CUDA
+    kernel).  q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0; one
+    dtype, float32 or bfloat16; hd in {32, 64, 128}.  Returns (B, Sq, H, hd)
+    in q's dtype.  Any lengths: the kernel masks its ragged tiles."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softmax_scale=softmax_scale)
+    _check_cuda("flash_attention", q, k, v)
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention: q must be (B, Sq, H, hd) and k, v "
+                         f"one (B, Skv, KV, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    if k.shape[0] != b or k.shape[3] != hd or kvh == 0 or h % kvh:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} need one B and hd, and H % KV == 0")
+    if hd not in _fa.HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"{_fa.HEAD_DIMS}")
+    if q.dtype not in _fa.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention: q, k and v must share one dtype, "
+                         f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: tensors must be 16-byte aligned")
+    if b * kvh > 65535:
+        raise ValueError(f"flash_attention: B*KV = {b * kvh} > 65535 "
+                         "(grid.y)")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    _fa.launch_flash_attention(q, k, v, out, scale=scale, causal=causal,
+                               window=window)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
 # the kernel wrappers that count their launches, by kernel name
-KERNELS = {"ddpm_step": ddpm_step, "traj_masked_step": traj_masked_step}
+KERNELS = {"ddpm_step": ddpm_step, "traj_masked_step": traj_masked_step,
+           "flash_attention": flash_attention}
 
 
 def launch_counts() -> Dict[str, int]:

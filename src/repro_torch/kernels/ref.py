@@ -1,12 +1,14 @@
-"""Plain PyTorch versions of the step kernels (the allclose ground truth).
+"""Plain PyTorch versions of the kernels (the allclose ground truth).
 
 Counterpart of ``repro/kernels/ref.py``: the mathematical definitions,
 written without any blocking.  The kernel wrappers in
 :mod:`repro_torch.kernels.ops` run these for tensors on the CPU, and
 the tests and ``chip_smoke.py`` hold each kernel against them on the card.
-Both compute in float32 and store in x's dtype.
+All compute in float32 and store in the input's dtype.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -47,3 +49,28 @@ def traj_masked_step_ref(x, cols, eps_hat, noise, active, tables, *,
     if clip:
         new = torch.clamp(new, -clip, clip)
     return torch.where(_lanes(active, nd), new.to(x.dtype), x)
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  softmax_scale=None):
+    """Materialised softmax attention with GQA, in float32, returned in q's
+    dtype.  q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0;
+    query row i and key row j both count from 0.  ``window`` > 0 keeps the
+    keys j > i - window."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, sq, kvh, g, hd).to(torch.float32)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.to(torch.float32)) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    s = s.masked_fill(~ok, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(torch.float32))
+    return o.reshape(b, sq, h, hd).to(q.dtype)

@@ -1,0 +1,103 @@
+"""LM serving launcher: cache-filling prefill + decode service loop on one
+card (counterpart of ``repro/launch/serve.py``)::
+
+    python -m repro_torch.launch.serve --arch yi-6b --no-reduced \
+        --requests 2 --batch 4 --prompt-len 128 --tokens 32
+    python -m repro_torch.launch.serve --device cpu --arch yi-6b \
+        --requests 2 --batch 2 --prompt-len 8 --tokens 4
+
+Each request wave is a batch of random prompts.  The service fills a fresh
+KV cache by chaining ``decode_step`` over the prompt positions, as the
+reference does, takes the first new token by argmax, and then decodes the
+rest, sampling each token from the logits with a ``torch.Generator``.
+``--reduced`` (the default, as in the reference) serves the config's tiny
+member; ``--no-reduced`` serves it at full width and depth.  Weights are
+random, drawn from ``--seed``.  The default device is CUDA; without a card
+the launcher raises unless ``--device cpu`` is given.
+"""
+import argparse
+
+
+def _parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--arch", default="glm4-9b")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=8)
+    ap.add_argument("--window", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    """Serve the waves; returns the per-request timings
+    ``[{"prefill_s", "decode_s", "tok_s"}, ...]``, tok_s counting the
+    tokens of the decode steps after the first token."""
+    args = _parse_args(argv)
+    import time
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import transformer as tf
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    print(f"serving {args.arch} ({'reduced' if args.reduced else 'full'}, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) on "
+          f"{device} (window={args.window or 'full'})", flush=True)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    params = tf.init_params(cfg, seed=args.seed, device=device)
+    decode = make_decode_step(cfg, window=args.window)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    b, s = args.batch, args.prompt_len
+    max_len = s + args.tokens
+    stats = []
+    for req in range(args.requests):
+        prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                device=device)
+        cache = tf.init_cache(cfg, b, max_len, window=args.window,
+                              device=device)
+        sync()
+        t0 = time.perf_counter()
+        for pos in range(s):            # fill the cache, one position a step
+            logits, cache = decode(params, cache,
+                                   {"tokens": prompts[:, pos:pos + 1]}, pos)
+        last = logits[:, -1]
+        sync()
+        t_prefill = time.perf_counter() - t0
+        tok = torch.argmax(last, dim=-1)[:, None]
+        t0 = time.perf_counter()
+        for i in range(args.tokens - 1):
+            logits, cache = decode(params, cache, {"tokens": tok}, s + i)
+            probs = torch.softmax(logits[:, -1].to(torch.float32), dim=-1)
+            tok = torch.multinomial(probs, 1, generator=gen)
+        sync()
+        t_dec = time.perf_counter() - t0
+        if not bool(torch.isfinite(logits).all()):
+            raise RuntimeError(f"request {req}: non-finite logits")
+        steps = args.tokens - 1
+        tok_s = steps * b / max(t_dec, 1e-9)
+        stats.append({"prefill_s": t_prefill, "decode_s": t_dec,
+                      "tok_s": tok_s})
+        print(f"request {req}: prefill {b}x{s} {t_prefill:.2f}s | "
+              f"decode {steps} steps x {b} {t_dec:.2f}s ({tok_s:.1f} tok/s)",
+              flush=True)
+    print("serving loop OK", flush=True)
+    return stats
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,209 @@
+"""GQA attention: blockwise full / sliding-window attention, the decode step
+over a KV cache, and the GQA module (counterpart of the GQA part of
+``repro/models/attention.py``).
+
+``gqa_forward`` runs the attention core one of two ways: ``kernel="flash"``
+(the default) calls :func:`repro_torch.kernels.ops.flash_attention`, the
+hand-written CUDA kernel on a card and its plain version on the CPU, as
+the reference's ``"pallas"`` calls its Pallas kernel; ``kernel="torch"``
+runs :func:`blockwise_attention` in plain PyTorch, the reference's
+``"jnp"``.  Products of bfloat16 operands are taken in float32 where the
+reference asks for a float32 result (``preferred_element_type``).
+
+MLA, cross-attention, M-RoPE and the sequence-sharded variants wait for
+their slices (``ROADMAP.md``, Queue 1 item 6).  The decode step writes the
+new key and value into the cache in place, where the reference returns a
+new cache: that keeps one copy of a cache in device memory.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, trunc_normal_
+
+NEG_INF = -2.0 ** 30
+KERNELS = ("flash", "torch")
+
+
+class GQAttention(nn.Module):
+    """The GQA projections in the reference's layouts: wq (d, H, hd),
+    wk and wv (d, KV, hd), wo (H, hd, d)."""
+
+    def __init__(self, cfg: ModelConfig, dtype=None, device=None):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        kw = dict(dtype=dtype, device=device)
+        self.wq = nn.Parameter(torch.empty(d, h, hd, **kw))
+        self.wk = nn.Parameter(torch.empty(d, kv, hd, **kw))
+        self.wv = nn.Parameter(torch.empty(d, kv, hd, **kw))
+        self.wo = nn.Parameter(torch.empty(h, hd, d, **kw))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        d = self.wq.shape[0]
+        for w in (self.wq, self.wk, self.wv):
+            trunc_normal_(w, d, generator)
+        trunc_normal_(self.wo, self.wo.shape[0] * self.wo.shape[1], generator)
+
+    def project(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """(B, S, d) · (d, N, hd) -> (B, S, N, hd) in x's dtype."""
+        b, s, d = x.shape
+        return (x @ w.reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """(B, S, H, hd) · (H, hd, d) -> (B, S, d) in o's dtype."""
+        b, s = o.shape[:2]
+        return o.reshape(b, s, -1) @ self.wo.reshape(-1, self.wo.shape[2])
+
+
+# ---------------------------------------------------------------------------
+# blockwise (flash-style) attention core
+# ---------------------------------------------------------------------------
+def _chunk_sizes(s_q: int, s_kv: int) -> tuple[int, int]:
+    return min(s_q, 2048), min(s_kv, 2048)
+
+
+def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
+                        q_offset: int = 0,
+                        softmax_scale: Optional[float] = None):
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0.
+
+    Online softmax over chunks of up to 2048 queries and keys, in float32;
+    chunks no query can see are skipped.  ``q_offset``: absolute position
+    of q[0] relative to k[0].  Returns (B, Sq, H, hd) in q's dtype; p is
+    cast to v's dtype before the product with v, as in the reference."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qc, kc = _chunk_sizes(sq, skv)
+    n_q, n_kv = sq // qc, skv // kc
+    if n_q * qc != sq or n_kv * kc != skv:
+        raise ValueError(f"lengths {sq}, {skv} are not multiples of the "
+                         f"chunks {qc}, {kc}")
+    f32 = torch.float32
+    qg = q.reshape(b, sq, kvh, g, hd)
+    outs = []
+    for iq in range(n_q):
+        q_blk = qg[:, iq * qc:(iq + 1) * qc].to(f32)           # (B,qc,KV,G,hd)
+        q_lo = q_offset + iq * qc
+        q_hi = q_lo + qc - 1
+        m = torch.full((b, kvh, g, qc), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((b, kvh, g, qc), dtype=f32, device=q.device)
+        acc = torch.zeros((b, kvh, g, qc, hd), dtype=f32, device=q.device)
+        for ik in range(n_kv):
+            k_lo = ik * kc
+            k_hi = k_lo + kc - 1
+            if causal and k_lo > q_hi:
+                continue                                        # fully masked
+            if window and k_hi < q_lo - window + 1:
+                continue                                        # outside window
+            k_blk = k[:, k_lo:k_lo + kc]                        # (B,kc,KV,hd)
+            v_blk = v[:, k_lo:k_lo + kc]
+            s = torch.einsum("bqkgd,btkd->bkgqt", q_blk, k_blk.to(f32)) * scale
+            need_mask = (causal and k_hi > q_lo) or (
+                window and k_lo < q_hi - window + 1)
+            if need_mask:
+                qpos = q_lo + torch.arange(qc, device=q.device)[:, None]
+                kpos = k_lo + torch.arange(kc, device=q.device)[None, :]
+                ok = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
+                if causal:
+                    ok &= kpos <= qpos
+                if window:
+                    ok &= kpos > qpos - window
+                s = s.masked_fill(~ok, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p_ = torch.exp(s - m_new[..., None])
+            l = l * alpha + p_.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p_.to(v.dtype).to(f32), v_blk.to(f32))
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-37)
+        outs.append(out.permute(0, 3, 1, 2, 4))                 # (B,qc,KV,G,hd)
+    return torch.cat(outs, dim=1).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, valid_len=None,
+                     softmax_scale: Optional[float] = None):
+    """Single-step attention.  q: (B, 1, H, hd); caches: (B, T, KV, hd).
+
+    ``valid_len``: cache positions >= valid_len are masked (None = the
+    whole cache is valid)."""
+    b, _, h, hd = q.shape
+    t, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    qg = q.reshape(b, kvh, g, hd).to(f32)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.to(f32)) * scale
+    if valid_len is not None:
+        mask = torch.arange(t, device=q.device) < valid_len
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).to(f32),
+                     v_cache.to(f32))
+    return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA module
+# ---------------------------------------------------------------------------
+def _positions_default(b: int, s: int, device):
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def gqa_forward(x, p: GQAttention, cfg: ModelConfig, *, positions=None,
+                window: int = 0, kernel: str = "flash"):
+    """Full (prefill) causal GQA self-attention.  x: (B, S, d) -> (B, S, d)
+    in x's dtype."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
+    b, s, _ = x.shape
+    q = p.project(x, p.wq)
+    k = p.project(x, p.wk)
+    v = p.project(x, p.wv)
+    if positions is None:
+        positions = _positions_default(b, s, x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if kernel == "flash":
+        o = ops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        o = blockwise_attention(q, k, v, causal=True, window=window)
+    return p.out(o)
+
+
+def gqa_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_decode(x, p: GQAttention, cache: Dict[str, torch.Tensor], pos: int,
+               cfg: ModelConfig, *, window: int = 0):
+    """One decode step.  x: (B, 1, d); pos: absolute position (int).
+
+    Full attention: cache length T == sequence length, written at index
+    pos.  Sliding window: T == window (a ring buffer), index pos % window.
+    Writes the cache in place and returns (out, cache)."""
+    b = x.shape[0]
+    pos = int(pos)
+    q = p.project(x, p.wq)
+    k = p.project(x, p.wk)
+    v = p.project(x, p.wv)
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k = apply_rope(k, posb, cfg.rope_theta)
+    t = cache["k"].shape[1]
+    slot = pos % t if window else pos
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    o = decode_attention(q, cache["k"], cache["v"], valid_len=min(pos + 1, t))
+    return p.out(o), cache

@@ -122,3 +122,30 @@ class TinyEps(torch.nn.Module):
         h = torch.nn.functional.silu(
             torch.cat([x.reshape(b, -1), temb], -1) @ self.w1)
         return (h @ self.w2).reshape(x.shape)
+
+
+def lm_params(cfg, seed):
+    """Reference LM params for ``cfg`` (a ``repro`` ModelConfig) drawn with
+    numpy in the shapes of ``jax.eval_shape(tf.init_params)``: matrices
+    scaled by the fan-in the reference's ``dense_init`` uses (the first
+    axis; ``H·hd`` for the attention output map, ``d`` for the embedding;
+    the layer-stacked leaves one axis later) and norm scales near 1, so
+    every leaf's mapping is exercised.  float32 numpy leaves, for both packages."""
+    from repro.models import transformer as jtf
+    shapes = jax.eval_shape(lambda k: jtf.init_params(k, cfg),
+                            jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        names = [str(getattr(p, "key", p)) for p in path]
+        shape = leaf.shape
+        stacked = names[0] == "layers"
+        core = shape[1:] if stacked else shape
+        if names[-1] == "scale":
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            fan_in = {"wo": core[0] * core[1],
+                      "embedding": core[-1]}.get(names[-1], core[0])
+            a = rng.standard_normal(shape) / np.sqrt(fan_in)
+        return a.astype(np.float32)
+    return jax.tree_util.tree_map_with_path(fill, shapes)

@@ -81,3 +81,64 @@ def test_ddpm_step_kernel_matches_plain_on_cuda(dtype):
     else:
         torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
                                    atol=2 ** -7)
+
+
+def _attn_inputs(b, s, h, kv, hd, dtype, seed=0, skv=None):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, s, h, hd), generator=g).to(dtype)
+    k = torch.randn((b, skv or s, kv, hd), generator=g).to(dtype)
+    v = torch.randn((b, skv or s, kv, hd), generator=g).to(dtype)
+    return q.cuda(), k.cuda(), v.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [
+    (1, 128, 4, 4, 32, 0),        # MHA
+    (2, 256, 8, 2, 64, 0),        # GQA G=4
+    (1, 512, 4, 1, 64, 0),        # MQA
+    (1, 384, 6, 3, 64, 0),        # non-pow2 heads
+    (2, 256, 4, 2, 64, 32),       # windows, incl. rows whose first visible
+    (2, 256, 4, 2, 64, 200),      # tile holds only masked keys
+    (1, 200, 32, 4, 128, 0),      # ragged tiles, Yi's heads
+    (1, 1024, 32, 4, 128, 100),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain_on_cuda(b, s, h, kv, hd, window,
+                                                      dtype):
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_inputs(b, s, h, kv, hd, dt)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    ref = kref.attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5    # tests/test_kernels.py
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_non_causal_and_shorter_queries_on_cuda():
+    _require_cuda()
+    q, _, _ = _attn_inputs(2, 96, 8, 2, 64, torch.float32, seed=1)
+    _, k, v = _attn_inputs(2, 96, 8, 2, 64, torch.float32, seed=2, skv=160)
+    out = ops.flash_attention(q, k, v, causal=False)
+    ref = kref.attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take():
+    _require_cuda()
+    q, k, v = _attn_inputs(1, 64, 4, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                            v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="H % KV"):
+        ops.flash_attention(q, k[:, :, :1].expand(-1, -1, 3, -1).contiguous(),
+                            v[:, :, :1].expand(-1, -1, 3, -1).contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2), k, v)

@@ -200,3 +200,23 @@ def test_t_indexed_masked_step_is_the_column_view():
     cols = (T - torch.clamp(t, 1, T)).to(torch.int32)
     ref = tops.traj_masked_step(x, cols, eps, z, active, tables)
     assert torch.equal(out, ref)
+
+
+def test_nvcc_flags_are_per_source_and_keyed_into_the_library_path(
+        monkeypatch):
+    """traj_masked_step keeps -fmad=false (its bitwise contract),
+    flash_attention builds with FMAs; a source's library path follows the
+    flags it is built with."""
+    from repro_torch.kernels import build
+    assert "-fmad=false" in build.nvcc_flags("traj_masked_step")
+    assert "-fmad=false" not in build.nvcc_flags("flash_attention")
+    assert build.nvcc_flags("traj_masked_step") != \
+        build.nvcc_flags("flash_attention")
+    fa, tm = (build.library_path(n) for n in ("flash_attention",
+                                              "traj_masked_step"))
+    monkeypatch.setitem(build.SOURCE_FLAGS, "flash_attention",
+                        ["-fmad=false"])
+    assert build.library_path("flash_attention") != fa
+    assert build.library_path("traj_masked_step") == tm
+    monkeypatch.setitem(build.SOURCE_FLAGS, "traj_masked_step", [])
+    assert build.library_path("traj_masked_step") != tm

@@ -127,9 +127,13 @@ def test_non_cpu_tensors_never_take_the_plain_version():
                                             device="meta"), x, x,
                              torch.empty(2, dtype=torch.bool, device="meta"),
                              torch.empty((5, 3), device="meta"))
+    q = torch.empty((1, 8, 4, 32), device="meta")
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        ops.flash_attention(q, q, q)
 
 
 def test_reset_launch_counts():
     ops.ddpm_step.launches = 3
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"ddpm_step": 0, "traj_masked_step": 0}
+    assert ops.launch_counts() == {"ddpm_step": 0, "traj_masked_step": 0,
+                                   "flash_attention": 0}
