@@ -1,8 +1,9 @@
 """Config registry of the port: ``get_config(arch_id)``, ``list_archs()``
 and the input shapes (counterpart of ``repro/configs/__init__.py``).
 
-The port serves the dense GQA decoders; every other architecture of the
-reference waits for its own slice (``ROADMAP.md``, Queue 1 item 6).
+The port serves the dense GQA decoders and the Zamba2 hybrid; every other
+architecture of the reference waits for its own slice (``ROADMAP.md``,
+Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ _ARCH_MODULES = {
     "granite-3-8b": "granite_3_8b",
     "glm4-9b": "glm4_9b",
     "minicpm-2b": "minicpm_2b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

@@ -21,7 +21,7 @@ __all__ = ["DTYPES", "HEAD_DIMS", "launch_flash_attention", "visible_pairs",
            "attention_flops", "attention_bytes"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 
 
 def _lib():

@@ -5,7 +5,8 @@ Each wrapper runs its kernel's plain version (:mod:`repro_torch.kernels.ref`)
 for a tensor on the CPU, and only then.  For a CUDA tensor it checks device,
 dtype, shape and contiguity, launches its kernel
 (:mod:`repro_torch.kernels.ddpm_step`,
-:mod:`repro_torch.kernels.flash_attention`) or raises, and adds one to its
+:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.ssm_scan`) or raises, and adds one to its
 ``launches`` attribute; nothing falls back.
 """
 from __future__ import annotations
@@ -17,8 +18,9 @@ import torch
 
 from repro_torch.kernels import ddpm_step as _ddpm
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.ref import (attention_ref, ddpm_step_ref,
-                                     traj_masked_step_ref)
+                                     ssm_scan_ref, traj_masked_step_ref)
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -130,8 +132,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softmax_scale: Optional[float] = None) -> torch.Tensor:
     """Causal / sliding-window GQA attention with online softmax (the CUDA
     kernel).  q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0; one
-    dtype, float32 or bfloat16; hd in {32, 64, 128}.  Returns (B, Sq, H, hd)
-    in q's dtype.  Any lengths: the kernel masks its ragged tiles."""
+    dtype, float32 or bfloat16; hd in {32, 64, 112, 128}.  Returns
+    (B, Sq, H, hd) in q's dtype.  Any lengths: the kernel masks its ragged
+    tiles."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softmax_scale=softmax_scale)
@@ -170,9 +173,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bm: torch.Tensor, cm: torch.Tensor, *, chunk: int = 128,
+             head_block: int = 8) -> torch.Tensor:
+    """Mamba2 (SSD) chunked scan, the state-space mixing only (the CUDA
+    kernel).  x: (B, S, nh, P); dt: (B, S, nh) softplus'd step sizes;
+    a: (nh,) float32 decay rates; bm, cm: (B, S, N) (n_groups = 1).  x, bm
+    and cm share one dtype, float32 or bfloat16; dt is float32 or x's dtype;
+    P, N <= 64.  Returns y (B, S, nh, P) in x's dtype.
+
+    ``chunk`` is the reference's argument: chunking is exact in arithmetic,
+    and the kernel scans in chunks of its own (64), any S.  ``head_block``
+    bounds the heads one block takes (see
+    :func:`~repro_torch.kernels.ssm_scan.head_block_for`)."""
+    if chunk < 1 or head_block < 1:
+        raise ValueError(f"ssm_scan: chunk {chunk} and head_block "
+                         f"{head_block} must be positive")
+    if x.device.type == "cpu":
+        return ssm_scan_ref(x, dt, a, bm, cm)
+    _check_cuda("ssm_scan", x, dt, a, bm, cm)
+    if x.ndim != 4 or bm.ndim != 3 or cm.shape != bm.shape:
+        raise ValueError("ssm_scan: x must be (B, S, nh, P) and bm, cm one "
+                         f"(B, S, N); got {tuple(x.shape)}, "
+                         f"{tuple(bm.shape)}, {tuple(cm.shape)}")
+    b, s, nh, p = x.shape
+    n = bm.shape[-1]
+    if dt.shape != (b, s, nh) or a.shape != (nh,) or bm.shape[:2] != (b, s):
+        raise ValueError(f"ssm_scan: x {tuple(x.shape)} needs dt ({b}, {s}, "
+                         f"{nh}), a ({nh},) and bm, cm ({b}, {s}, N); got "
+                         f"{tuple(dt.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(bm.shape)}")
+    if x.dtype not in _ssm.DTYPES or bm.dtype != x.dtype \
+            or cm.dtype != x.dtype:
+        raise ValueError("ssm_scan: x, bm and cm must share one dtype, "
+                         f"float32 or bfloat16; got {x.dtype}, {bm.dtype}, "
+                         f"{cm.dtype}")
+    if dt.dtype not in (torch.float32, x.dtype) or a.dtype != torch.float32:
+        raise ValueError("ssm_scan: dt must be float32 or x's dtype and a "
+                         f"float32; got {dt.dtype}, {a.dtype}")
+    if not (1 <= p <= _ssm.MAX_WIDTH and 1 <= n <= _ssm.MAX_WIDTH):
+        raise ValueError(f"ssm_scan: head dim {p} and state {n} must be in "
+                         f"[1, {_ssm.MAX_WIDTH}]")
+    if b > 65535:
+        raise ValueError(f"ssm_scan: B = {b} > 65535 (grid.y)")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    hb = _ssm.head_block_for(b, nh, head_block, _ssm.sm_count(x.device))
+    _ssm.launch_ssm_scan(x, dt, a, bm, cm, y, head_block=hb)
+    ssm_scan.launches += 1
+    return y
+
+
+ssm_scan.launches = 0
+
+
 # the kernel wrappers that count their launches, by kernel name
 KERNELS = {"ddpm_step": ddpm_step, "traj_masked_step": traj_masked_step,
-           "flash_attention": flash_attention}
+           "flash_attention": flash_attention, "ssm_scan": ssm_scan}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -74,3 +74,28 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(torch.float32))
     return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def ssm_scan_ref(x, dt, a, bm, cm):
+    """The stepwise SSM recurrence (the SSD definition, O(S) sequential):
+
+        h_t = exp(dt_t · a) · h_{t-1} + dt_t · x_t ⊗ b_t
+        y_t = c_t · h_t
+
+    x: (B, S, nh, P); dt: (B, S, nh); a: (nh,); bm, cm: (B, S, N).  The
+    state (B, nh, N, P) is float32; y (B, S, nh, P) comes back in x's
+    dtype."""
+    b, s, nh, p = x.shape
+    n = bm.shape[-1]
+    f32 = torch.float32
+    xf, dtf = x.to(f32), dt.to(f32)
+    bf, cf, af = bm.to(f32), cm.to(f32), a.to(f32)
+    state = torch.zeros((b, nh, n, p), dtype=f32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * af[None, :])                  # (B, nh)
+        upd = torch.einsum("bn,bhp->bhnp", bf[:, t],
+                           xf[:, t] * dtf[:, t, :, None])
+        state = state * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype)                   # (B,S,nh,P)

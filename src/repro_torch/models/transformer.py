@@ -1,16 +1,28 @@
-"""The dense GQA decoder: prefill logits, KV cache and cached decode
-(counterpart of the dense family of ``repro/models/transformer.py``).
+"""The LM families the port serves, prefill logits, cache and cached
+decode (counterpart of the dense and hybrid families of
+``repro/models/transformer.py``).
 
-A :class:`Transformer` holds the embedding, ``n_layers`` :class:`DenseLayer`
-modules ([RMSNorm, GQA, residual, RMSNorm, SwiGLU, residual], the
-reference's ``_dense_layer_apply``/``_dense_layer_decode``) run by a Python
-loop where the reference scans, the final norm and the LM head.  The public
-functions keep the reference's names and layouts: tokens (B, S), logits
-(B, S, V) in the config's dtype.  The parameters are the "params" the
-functions take; :func:`params_from_jax` maps a reference tree onto them.
+A :class:`Transformer` holds the embedding, the family's stack, the final
+norm and the LM head.  The stack is run by Python loops where the
+reference scans:
 
-The port serves the dense family; MoE, SSM, hybrid, VLM and audio models
-raise a ``ValueError`` that names their ROADMAP item.
+* dense: ``n_layers`` :class:`DenseLayer` modules ([RMSNorm, GQA, residual,
+  RMSNorm, SwiGLU, residual], the reference's ``_dense_layer_apply`` /
+  ``_dense_layer_decode``);
+* hybrid (Zamba2): one weight-shared :class:`SharedAttention` block
+  ([RMSNorm, GQA, residual]) applied before each of the ``n_layers //
+  attn_every`` groups of ``attn_every`` :class:`MambaLayer` modules
+  ([RMSNorm, Mamba2, residual]), and once more before the ``rem``
+  remaining layers, if any (the reference's ``_hybrid_stack`` /
+  ``_hybrid_decode``).
+
+The public functions keep the reference's names and layouts: tokens
+(B, S), logits (B, S, V) in the config's dtype.  The parameters are the
+"params" the functions take; :func:`params_from_jax` maps a reference tree
+onto them.
+
+MoE, xLSTM, VLM and audio models raise a ``ValueError`` that names their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -23,11 +35,14 @@ from torch import nn
 from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import MLP, Embed, RMSNorm
+
+FAMILIES = ("dense", "hybrid")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.arch_id}: the {cfg.family!r} family is not "
                          "ported yet (ROADMAP.md Queue 1 item 6: the rest of "
                          "the LM families)")
@@ -40,6 +55,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+# Every block (DenseLayer, SharedAttention, MambaLayer) is called alike:
+# block(x, window=, kernel=) on a whole sequence and block.decode(x, cache,
+# pos, window=) on one token; a Mamba2 layer has no window and no position.
 class DenseLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype=None, device=None):
         super().__init__()
@@ -61,10 +79,70 @@ class DenseLayer(nn.Module):
         return x + self.mlp(self.norm2(x)), cache
 
 
+class SharedAttention(nn.Module):
+    """The hybrid's weight-shared block: x + GQA(RMSNorm(x))."""
+
+    def __init__(self, cfg: ModelConfig, dtype=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.attn = attn.GQAttention(cfg, dtype, device)
+
+    def mix(self, x, *, window: int = 0, kernel: str = "flash"):
+        """The block's own output, before the residual add."""
+        return attn.gqa_forward(self.norm(x), self.attn, self.cfg,
+                                window=window, kernel=kernel)
+
+    def mix_decode(self, x, cache, pos: int, *, window: int = 0):
+        return attn.gqa_decode(self.norm(x), self.attn, cache, pos, self.cfg,
+                               window=window)
+
+    def forward(self, x, *, window: int = 0, kernel: str = "flash"):
+        return x + self.mix(x, window=window, kernel=kernel)
+
+    def decode(self, x, cache, pos: int, *, window: int = 0):
+        a, cache = self.mix_decode(x, cache, pos, window=window)
+        return x + a, cache
+
+
+class MambaLayer(nn.Module):
+    """x + Mamba2(RMSNorm(x))."""
+
+    def __init__(self, cfg: ModelConfig, dtype=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.ssm = ssm_mod.Mamba2(cfg, dtype, device)
+
+    def mix(self, x, *, window: int = 0, kernel: str = "flash"):
+        """The block's own output, before the residual add."""
+        return ssm_mod.ssm_forward(self.norm(x), self.ssm, self.cfg,
+                                   kernel=kernel)
+
+    def mix_decode(self, x, cache, pos: int, *, window: int = 0):
+        return ssm_mod.ssm_decode(self.norm(x), self.ssm, cache, self.cfg)
+
+    def forward(self, x, *, window: int = 0, kernel: str = "flash"):
+        return x + self.mix(x, kernel=kernel)
+
+    def decode(self, x, cache, pos: int, *, window: int = 0):
+        o, cache = self.mix_decode(x, cache, pos)
+        return x + o, cache
+
+
+def hybrid_layout(cfg: ModelConfig):
+    """(groups, attn_every, rem): the hybrid runs ``groups`` groups of
+    ``attn_every`` Mamba2 layers and ``rem`` more, the shared block before
+    each group and before the remainder."""
+    g = cfg.n_layers // cfg.attn_every
+    return g, cfg.attn_every, cfg.n_layers - g * cfg.attn_every
+
+
 class Transformer(nn.Module):
-    """Parameters of a dense decoder, in ``cfg.dtype``, left uninitialised:
-    :func:`init_params` draws them, ``load_state_dict(params_from_jax(tree))``
-    copies a reference tree."""
+    """Parameters of a dense or hybrid LM, in ``cfg.dtype`` (the hybrid's
+    dt_bias, A_log and D in float32), left uninitialised: :func:`init_params`
+    draws them, ``load_state_dict(params_from_jax(tree))`` copies a
+    reference tree."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -73,15 +151,36 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings,
                            dtype, device)
-        self.layers = nn.ModuleList(DenseLayer(cfg, dtype, device)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            g, k, rem = hybrid_layout(cfg)
+            self.shared_attn = SharedAttention(cfg, dtype, device)
+            self.groups = nn.ModuleList(
+                nn.ModuleList(MambaLayer(cfg, dtype, device)
+                              for _ in range(k)) for _ in range(g))
+            self.rem = nn.ModuleList(MambaLayer(cfg, dtype, device)
+                                     for _ in range(rem))
+        else:
+            self.layers = nn.ModuleList(DenseLayer(cfg, dtype, device)
+                                        for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+
+    def blocks(self):
+        """The blocks in the order the forward runs them: the dense layers;
+        or the shared block before each group of Mamba2 layers and before
+        the remainder."""
+        if self.cfg.family != "hybrid":
+            yield from self.layers
+            return
+        for group in [*self.groups, self.rem]:
+            if len(group):
+                yield self.shared_attn
+                yield from group
 
     def forward(self, tokens, *, window: int = 0, kernel: str = "flash"):
         """tokens (B, S) -> logits (B, S, V)."""
         x = self.embed.embed(tokens)
-        for layer in self.layers:
-            x = layer(x, window=window, kernel=kernel)
+        for block in self.blocks():
+            x = block(x, window=window, kernel=kernel)
         return self.embed.unembed(self.final_norm(x))
 
 
@@ -93,27 +192,33 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = "cuda") -> Transformer:
     """A :class:`Transformer` on ``device`` with weights drawn from a
     ``torch.Generator`` there, seeded with ``seed``: fan-in truncated
-    normals for every matrix, ones for every norm scale."""
+    normals for every matrix, ones for every norm scale (and the Mamba2
+    blocks' zeros and ones, as ``ssm_init``)."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model.embed.reset_parameters(gen)
-    for layer in model.layers:
-        layer.attn.reset_parameters(gen)
-        layer.mlp.reset_parameters(gen)
+    for module in model.modules():
+        if isinstance(module, (attn.GQAttention, MLP, ssm_mod.Mamba2)):
+            module.reset_parameters(gen)
     return model.eval()
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
-    """The reference's dense param tree (leaves as numpy arrays, ``layers``
-    stacked on a leading L axis) as a :class:`Transformer` state dict in
-    float32: ``embed``/``final_norm`` leaves by name, ``layers`` leaves
-    split along L into ``layers.<i>.<path>``.  The attention weights keep
-    their ``(d, H, hd)``/``(H, hd, d)`` layouts.  Raises on a tree with
-    other top-level entries (another family)."""
-    extra = set(tree) - {"embed", "final_norm", "layers"}
-    if extra:
-        raise ValueError(f"not a dense param tree: unexpected {sorted(extra)}")
+    """The reference's param tree (leaves as numpy arrays) as a
+    :class:`Transformer` state dict in float32, each leaf mapped once:
+    ``embed``/``final_norm``/``shared_attn`` leaves by name; the dense
+    ``layers`` (stacked on a leading L axis) split into
+    ``layers.<i>.<path>``; the hybrid's ``groups`` (stacked (g, attn_every,
+    ...)) into ``groups.<i>.<j>.ssm.<leaf>`` and ``groups.<i>.<j>.norm
+    .scale``, and its ``rem`` ((rem, ...), or None) into ``rem.<j>...``.
+    The attention weights keep their ``(d, H, hd)``/``(H, hd, d)`` layouts.
+    Raises on a tree with other top-level entries (another family)."""
+    dense = {"embed", "final_norm", "layers"}
+    hybrid = {"embed", "final_norm", "shared_attn", "groups", "rem"}
+    if set(tree) not in (dense, hybrid):
+        raise ValueError("not a dense or hybrid param tree: entries "
+                         f"{sorted(tree)}")
 
     def leaves(node, prefix=""):
         if isinstance(node, dict):
@@ -126,12 +231,23 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
         return torch.from_numpy(np.ascontiguousarray(a))
 
     out: Dict[str, torch.Tensor] = {}
-    for top in ("embed", "final_norm"):
-        for name, a in leaves(tree[top], f"{top}."):
+    for top in ("embed", "final_norm", "shared_attn"):
+        for name, a in leaves(tree.get(top) or {}, f"{top}."):
             out[name] = tensor(a)
-    for name, a in leaves(tree["layers"]):
+    for name, a in leaves(tree.get("layers") or {}):
         for i in range(a.shape[0]):
             out[f"layers.{i}.{name}"] = tensor(a[i])
+
+    def layer_name(name):          # ssm.<leaf> or norms.scale -> norm.scale
+        return "norm.scale" if name == "norms.scale" else name
+
+    for name, a in leaves(tree.get("groups") or {}):
+        for i in range(a.shape[0]):
+            for j in range(a.shape[1]):
+                out[f"groups.{i}.{j}.{layer_name(name)}"] = tensor(a[i, j])
+    for name, a in leaves(tree.get("rem") or {}):
+        for j in range(a.shape[0]):
+            out[f"rem.{j}.{layer_name(name)}"] = tensor(a[j])
     return out
 
 
@@ -141,8 +257,8 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
 def forward(params: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
             kernel: str = "flash") -> torch.Tensor:
     """batch {"tokens": (B, S)} -> logits (B, S, V) in the config's dtype.
-    (The dense family has no auxiliary loss; the reference's second return
-    value is always zero for it.)"""
+    (The dense and hybrid families have no auxiliary loss; the reference's
+    second return value is always zero for them.)"""
     return params(batch["tokens"], window=window, kernel=kernel)
 
 
@@ -155,15 +271,31 @@ def prefill(params: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                window: int = 0, device: DeviceLike = "cuda"):
-    """Zeroed KV cache: {"layers": [{"k", "v"}, ...]}, one (B, T, KV, hd)
-    pair per layer in the config's dtype, T = min(cache_len, window) with a
-    window (a ring buffer), else cache_len."""
+    """Zeroed cache in the config's dtype; T = min(cache_len, window) KV
+    slots with a window (a ring buffer), else cache_len.
+
+    dense: {"layers": [{"k", "v"}, ...]}, one (B, T, KV, hd) pair a layer.
+    hybrid: {"groups": [{"attn_kv": {"k", "v"}, "ssm": [{"state", "conv"},
+    ...]}, ...], "rem": {"attn_kv", "ssm"} or None}: one KV cache for each
+    application of the shared block and one Mamba2 cache a layer."""
     _check_supported(cfg)
     kv_len = min(cache_len, window) if window else cache_len
     dev = resolve_device(device)
-    return {"layers": [attn.gqa_init_cache(cfg, batch, kv_len, _dtype(cfg),
-                                           dev)
-                       for _ in range(cfg.n_layers)]}
+    dtype = _dtype(cfg)
+
+    def kv():
+        return attn.gqa_init_cache(cfg, batch, kv_len, dtype, dev)
+
+    if cfg.family == "hybrid":
+        g, k, rem = hybrid_layout(cfg)
+
+        def group(n):
+            return {"attn_kv": kv(),
+                    "ssm": [ssm_mod.ssm_init_cache(cfg, batch, dtype, dev)
+                            for _ in range(n)]}
+        return {"groups": [group(k) for _ in range(g)],
+                "rem": group(rem) if rem else None}
+    return {"layers": [kv() for _ in range(cfg.n_layers)]}
 
 
 def decode_step(params: Transformer, cache, batch, pos: int,
@@ -171,6 +303,17 @@ def decode_step(params: Transformer, cache, batch, pos: int,
     """One-token step.  batch {"tokens": (B, 1)}; pos the absolute position.
     Returns (logits (B, 1, V), cache), the cache written in place."""
     x = params.embed.embed(batch["tokens"])
-    for layer, c in zip(params.layers, cache["layers"]):
-        x, _ = layer.decode(x, c, pos, window=window)
+    for block, c in zip(params.blocks(), _block_caches(cache)):
+        x, _ = block.decode(x, c, pos, window=window)
     return params.embed.unembed(params.final_norm(x)), cache
+
+
+def _block_caches(cache):
+    """The cache's per-block entries in :meth:`Transformer.blocks` order."""
+    if "layers" in cache:
+        yield from cache["layers"]
+        return
+    for group in [*cache["groups"], cache["rem"]]:
+        if group is not None:
+            yield group["attn_kv"]
+            yield from group["ssm"]

@@ -129,20 +129,41 @@ def lm_params(cfg, seed):
     numpy in the shapes of ``jax.eval_shape(tf.init_params)``: matrices
     scaled by the fan-in the reference's ``dense_init`` uses (the first
     axis; ``H·hd`` for the attention output map, ``d`` for the embedding;
-    the layer-stacked leaves one axis later) and norm scales near 1, so
-    every leaf's mapping is exercised.  float32 numpy leaves, for both packages."""
+    a stacked leaf's axis after its stacking: one for ``layers`` and the
+    hybrid's ``rem``, two for its ``groups``), norm scales and the Mamba2
+    D near 1, A_log ~ 0.3·N(0, 1) and small biases, so every leaf's mapping
+    is exercised.  float32 numpy leaves, for both packages."""
     from repro.models import transformer as jtf
     shapes = jax.eval_shape(lambda k: jtf.init_params(k, cfg),
                             jax.random.PRNGKey(0))
+    return _fill_params(shapes, seed)
+
+
+def ssm_params(cfg, seed):
+    """Reference Mamba2 params (``ssm_init``'s shapes) for ``cfg``, drawn
+    as :func:`lm_params` draws a hybrid's Mamba2 leaves."""
+    from repro.models import ssm as jssm
+    shapes = jax.eval_shape(lambda k: jssm.ssm_init(k, cfg),
+                            jax.random.PRNGKey(0))
+    return _fill_params(shapes, seed)
+
+
+_STACKED = {"layers": 1, "groups": 2, "rem": 1}
+
+
+def _fill_params(shapes, seed):
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
         names = [str(getattr(p, "key", p)) for p in path]
         shape = leaf.shape
-        stacked = names[0] == "layers"
-        core = shape[1:] if stacked else shape
-        if names[-1] == "scale":
+        core = shape[_STACKED.get(names[0], 0):]
+        if names[-1] in ("scale", "norm_scale", "D"):
             a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif names[-1] == "A_log":
+            a = 0.3 * rng.standard_normal(shape)
+        elif names[-1] in ("dt_bias", "conv_b"):
+            a = 0.1 * rng.standard_normal(shape)
         else:
             fan_in = {"wo": core[0] * core[1],
                       "embedding": core[-1]}.get(names[-1], core[0])

@@ -101,6 +101,9 @@ def _attn_inputs(b, s, h, kv, hd, dtype, seed=0, skv=None):
     (2, 256, 4, 2, 64, 200),      # tile holds only masked keys
     (1, 200, 32, 4, 128, 0),      # ragged tiles, Yi's heads
     (1, 1024, 32, 4, 128, 100),
+    (1, 300, 32, 32, 112, 0),     # Zamba2's shared block: hd 112, MHA,
+    (2, 256, 8, 8, 112, 64),      # ragged, and windowed
+    (1, 256, 4, 2, 112, 200),     # GQA at hd 112
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_matches_plain_on_cuda(b, s, h, kv, hd, window,
@@ -142,3 +145,89 @@ def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take():
                             v[:, :, :1].expand(-1, -1, 3, -1).contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(1, 2), k, v)
+
+
+def _ssm_inputs(b, s, nh, p, n, dtype, dt_dtype=None, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, s, nh, p), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, nh), generator=g))
+    a = -torch.exp(0.3 * torch.randn(nh, generator=g))
+    bm = torch.randn((b, s, n), generator=g)
+    cm = torch.randn((b, s, n), generator=g)
+    return (x.to(dtype).cuda(), dt.to(dt_dtype or dtype).cuda(), a.cuda(),
+            bm.to(dtype).cuda(), cm.to(dtype).cuda())
+
+
+def _ssm_rel_err(y, ref):
+    return float((y.float() - ref.float()).abs().max()) / (
+        float(ref.float().abs().max()) + 1e-6)
+
+
+SSM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # test_kernels.py
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,nh,p,n,chunk,hb", [
+    (1, 64, 4, 16, 8, 16, 4),        # tests/test_kernels.py:77-82
+    (2, 128, 8, 32, 16, 32, 8),
+    (2, 96, 6, 16, 8, 32, 2),
+    (1, 256, 16, 64, 64, 128, 8),
+    (1, 200, 4, 64, 64, 128, 8),     # a ragged last chunk
+    (96, 128, 12, 64, 64, 128, 4),   # a grid big enough for 4 heads a block
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_matches_plain_on_cuda(b, s, nh, p, n, chunk, hb,
+                                               dtype):
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    args = _ssm_inputs(b, s, nh, p, n, dt, seed=s + nh)
+    before = ops.ssm_scan.launches
+    y = ops.ssm_scan(*args, chunk=chunk, head_block=hb)
+    ref = kref.ssm_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.ssm_scan.launches == before + 1
+    assert y.dtype == dt and y.shape == args[0].shape
+    assert bool(torch.isfinite(y).all())
+    assert _ssm_rel_err(y, ref) < SSM_TOL[dt]
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_float32_dt_with_bfloat16_x_on_cuda():
+    """ssm_forward's mix with a bf16 model keeps dt in float32."""
+    _require_cuda()
+    args = _ssm_inputs(2, 320, 8, 64, 64, torch.bfloat16, torch.float32)
+    y = ops.ssm_scan(*args)
+    ref = kref.ssm_scan_ref(*args)
+    assert y.dtype == torch.bfloat16
+    assert _ssm_rel_err(y, ref) < SSM_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_at_full_length_and_any_chunk_on_cuda():
+    """S = 2048 (32 chunks of the kernel): the scan's fixed-order cumsum
+    feeds every decay; and the caller's chunk changes nothing."""
+    _require_cuda()
+    args = _ssm_inputs(1, 2048, 8, 64, 64, torch.float32, seed=9)
+    y = ops.ssm_scan(*args, chunk=128)
+    assert _ssm_rel_err(y, kref.ssm_scan_ref(*args)) < SSM_TOL[torch.float32]
+    assert torch.equal(y, ops.ssm_scan(*args, chunk=16))
+    assert torch.equal(y, ops.ssm_scan(*args, chunk=256, head_block=1))
+
+
+@pytest.mark.cuda
+def test_ssm_scan_wrapper_raises_on_what_the_kernel_does_not_take():
+    _require_cuda()
+    x, dt, a, bm, cm = _ssm_inputs(1, 64, 4, 16, 8, torch.float32)
+    with pytest.raises(ValueError, match="state"):
+        wide = torch.zeros((1, 64, 80), device="cuda")
+        ops.ssm_scan(x, dt, a, wide, wide)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.ssm_scan(x.half(), dt, a, bm.half(), cm.half())
+    with pytest.raises(ValueError, match="dt must be"):
+        ops.ssm_scan(x, dt.bfloat16(), a, bm, cm)
+    with pytest.raises(ValueError, match="a float32"):
+        ops.ssm_scan(x, dt, a.double(), bm, cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssm_scan(x.transpose(2, 3), dt, a, bm, cm)
+    with pytest.raises(ValueError, match="needs dt"):
+        ops.ssm_scan(x, dt[:, :32], a, bm, cm)

@@ -130,10 +130,14 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     q = torch.empty((1, 8, 4, 32), device="meta")
     with pytest.raises(ValueError, match="runs on CUDA"):
         ops.flash_attention(q, q, q)
+    bm = torch.empty((1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        ops.ssm_scan(q, torch.empty((1, 8, 4), device="meta"),
+                     torch.empty(4, device="meta"), bm, bm)
 
 
 def test_reset_launch_counts():
     ops.ddpm_step.launches = 3
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"ddpm_step": 0, "traj_masked_step": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "ssm_scan": 0}
