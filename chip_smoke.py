@@ -10,7 +10,8 @@ Phases, each printing its own lines:
 1. device — the card's name and power limit, as nvidia-smi gives them;
 2. build — the kernels built from this checkout's sources (one nvcc per
    CUDA source, all started together; the Triton one compiled by its
-   first launch), timed;
+   first launch), timed; ptxas's registers and spills of each bf16
+   ``flash_attention`` instance, with its dynamic shared memory;
 3. kernels — each step kernel held against its plain PyTorch version on
    the card at the serving shapes (S ∈ {8, 32} lanes of 128x128x1, f32 and
    bf16): inactive lanes bitwise, active lanes within the stated bound;
@@ -19,8 +20,10 @@ Phases, each printing its own lines:
    ``flash_attention`` against ``attention_ref`` at one Yi-6B layer's
    prefill shape (q 4x2048x32x128, k and v 4x2048x4x128), causal in bf16
    and f32 and with a 1024 window, with its time, the plain version's, the
-   bound and ``scaled_dot_product_attention``'s time; and at the Zamba2-7B
-   shared block's shape (q, k, v 4x2048x32x112, causal, bf16 and f32).
+   bound, the FLOP it executes in whole tiles beside the visible ones, and
+   ``scaled_dot_product_attention``'s time, timed in turns with the
+   kernel; and at the Zamba2-7B shared block's shape (q, k, v
+   4x2048x32x112, causal, bf16 and f32).
    Then ``ssm_scan`` against ``ssm_scan_ref`` at one Zamba2-7B Mamba2
    layer's prefill shape (x 4x2048x112x64, N 64; float32 as
    ``ssm_forward`` feeds it, and bf16 x with float32 dt), with its time,
@@ -53,6 +56,7 @@ import functools
 import io
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -244,6 +248,15 @@ def phase_build(dev) -> None:
               f"{t_cuda:.1f}s", flush=True)
     print(f"[build] CUDA sources built in parallel in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    instances = ptxas_bf16_attention(build.LOGS.get("flash_attention", ""))
+    if not instances:
+        print("[build] flash_attention: library already built, no ptxas "
+              "output to show", flush=True)
+    for hd, regs, spills in instances:
+        print(f"[build] flash_attention bf16 kernel, hd {hd}: {regs} "
+              f"registers at launch (setmaxnreg: producer 24, consumers "
+              f"240), {spills}, {kfa.bf16_smem_bytes(hd)} bytes of dynamic "
+              "shared memory", flush=True)
     t0 = time.perf_counter()
     for dt in (torch.float32, torch.bfloat16):
         x = torch.zeros((8,) + IMG, dtype=dt, device=dev)
@@ -255,6 +268,23 @@ def phase_build(dev) -> None:
     torch.cuda.synchronize()
     print(f"[build] ddpm_step: triton compile + first launches (f32, bf16) "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def ptxas_bf16_attention(log: str):
+    """(hd, registers, spill line) of each bf16 flash_attention instance in
+    ``nvcc -Xptxas -v``'s output."""
+    rows, hd = [], None
+    for ln in log.splitlines():
+        m = re.search(r"flash_attention_bf16_kernelILi(\d+)E", ln)
+        if m and "Compiling entry function" in ln:
+            hd = int(m.group(1))
+        elif hd is not None and "spill" in ln:
+            spills = ln.strip()
+        elif hd is not None and "Used" in ln:
+            rows.append((hd, int(re.search(r"Used (\d+) registers",
+                                           ln).group(1)), spills))
+            hd = None
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -601,14 +631,17 @@ def attention_case(q, k, v, window, card):
         raise AssertionError(f"flash_attention {tag}: max_abs_err "
                              f"{err:.3e} > {ATTN_TOL[dtype]}")
     del ref
-    t_k = cuda_time_ms(lambda: ops.flash_attention(
-        q, k, v, causal=True, window=window), iters=10, warmup=2)
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=True, window=window)
+
     t_p = cuda_time_ms(lambda: kref.attention_ref(
         q, k, v, causal=True, window=window), iters=3, warmup=1)
     bound, by = attention_bound_ms(q, k, v, window, card)
     flops = kfa.attention_flops(q, k, causal=True, window=window)
     lib = None
-    if not window:
+    if window:
+        t_ks = [cuda_time_ms(kernel, iters=10, warmup=2)]
+    else:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa():
@@ -616,17 +649,33 @@ def attention_case(q, k, v, window, card):
                 qt, kt, vt, is_causal=True, enable_gqa=True)
         lib_err = float((sdpa().transpose(1, 2).float() -
                          out.float()).abs().max())
-        lib = cuda_time_ms(sdpa, iters=10, warmup=2)
+        # in turns: kernel, library, kernel, library
+        t_ks, t_ls = [], []
+        for _ in range(2):
+            t_ks.append(cuda_time_ms(kernel, iters=10, warmup=2))
+            t_ls.append(cuda_time_ms(sdpa, iters=10, warmup=2))
+        lib = sum(t_ls) / len(t_ls)
+    t_k = sum(t_ks) / len(t_ks)
     torch.cuda.empty_cache()
-    print(f"[kernels] flash_attention {tag} q {tuple(q.shape)} k "
-          f"{tuple(k.shape)}: max_abs_err {err:.3e} (tolerance "
-          f"{ATTN_TOL[dtype]}) | kernel {t_k:.3f} ms "
-          f"({flops / t_k / 1e9:.1f} TFLOP/s on {flops:.3e} FLOP) "
-          f"plain {t_p:.3f} ms bound {bound:.3f} ms ({by}, share "
-          f"{bound / t_k:.1%})"
-          + (f" | library sdpa {lib:.3f} ms (vs kernel max "
-             f"{lib_err:.3e})" if lib is not None else ""),
-          flush=True)
+    turns = " ".join(f"{x:.3f}" for x in t_ks)
+    line = (f"[kernels] flash_attention {tag} q {tuple(q.shape)} k "
+            f"{tuple(k.shape)}: max_abs_err {err:.3e} (tolerance "
+            f"{ATTN_TOL[dtype]}) | kernel {t_k:.3f} ms (runs {turns}; "
+            f"{flops / t_k / 1e9:.1f} TFLOP/s on the {flops:.3e} FLOP of "
+            f"the visible pairs")
+    if dtype == torch.bfloat16:
+        done = kfa.attention_flops_executed(q, k, causal=True, window=window)
+        line += (f"; executes {done:.3e} FLOP in whole tiles, "
+                 f"{done / t_k / 1e9:.1f} TFLOP/s, {1 - flops / done:.1%} "
+                 "of it masked or padding")
+    line += (f") plain {t_p:.3f} ms bound {bound:.3f} ms ({by}, share "
+             f"{bound / t_k:.1%})")
+    if lib is not None:
+        line += (f" | library sdpa {lib:.3f} ms (runs "
+                 + " ".join(f"{x:.3f}" for x in t_ls)
+                 + f"; kernel/sdpa {t_k / lib:.2f}x; vs kernel max "
+                 f"{lib_err:.3e})")
+    print(line, flush=True)
     return err, t_k, t_p, bound, by, lib
 
 

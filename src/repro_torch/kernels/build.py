@@ -33,6 +33,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCE_FLAGS: Dict[str, List[str]] = {"traj_masked_step": ["-fmad=false"]}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# nvcc's output (ptxas's registers, spills and shared memory) of each source
+# this process built
+LOGS: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -76,8 +79,9 @@ def build(name: str, verbose: bool = False) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{' '.join(cmd)}\n"
                                f"{proc.stdout}{proc.stderr}")
-        if verbose and (proc.stdout or proc.stderr):
-            print(proc.stdout + proc.stderr, flush=True)
+        LOGS[name] = proc.stdout + proc.stderr
+        if verbose and LOGS[name]:
+            print(LOGS[name], flush=True)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

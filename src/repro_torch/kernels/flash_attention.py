@@ -17,11 +17,17 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["DTYPES", "HEAD_DIMS", "launch_flash_attention", "visible_pairs",
-           "attention_flops", "attention_bytes"]
+__all__ = ["DTYPES", "HEAD_DIMS", "BLOCK_Q", "BLOCK_K", "MAX_WORK_ITEMS",
+           "launch_flash_attention", "bf16_smem_bytes", "visible_pairs",
+           "key_tiles", "attention_flops", "attention_flops_executed",
+           "attention_bytes"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 112, 128)
+BLOCK_Q = 128       # bf16: query positions of one q head an item (kBM)
+BLOCK_K = 128       # bf16: keys a tile (kBN)
+MAX_WORK_ITEMS = 2 ** 31 - 1  # bf16: (q tile, head) items, an int
+TENSOR_MAP_ERROR = 10000  # the source's kTensorMapError
 
 
 def _lib():
@@ -32,6 +38,14 @@ def _lib():
                        p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def bf16_smem_bytes(hd: int) -> int:
+    """The bfloat16 kernel's dynamic shared memory at head dim ``hd``: q, the
+    ring of K and V stages, the mbarriers (from the built library)."""
+    fn = build.load("flash_attention").flash_attention_bf16_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(hd)
 
 
 def launch_flash_attention(q, k, v, out, *, scale: float, causal: bool,
@@ -49,6 +63,9 @@ def launch_flash_attention(q, k, v, out, *, scale: float, causal: bool,
         err = fn(DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh,
                  float(scale), int(bool(causal)), int(window), stream)
+    if err >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
+                           f"with CUresult {err - TENSOR_MAP_ERROR}")
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA launch failed with "
                            f"cudaError {err}")
@@ -69,6 +86,35 @@ def attention_flops(q, k, *, causal: bool = True, window: int = 0) -> int:
     q·k and 2·hd for p·v, per pair and query head."""
     b, sq, h, hd = q.shape
     return 4 * hd * b * h * visible_pairs(sq, k.shape[1], causal, window)
+
+
+def key_tiles(pos0: int, sq: int, skv: int, causal: bool, window: int,
+              rows: int, keys: int):
+    """[begin, end): the key tiles of ``keys`` keys that the kernel visits
+    for the q tile of ``rows`` positions starting at ``pos0`` (the source's
+    ``key_tiles`` with G = 1)."""
+    pos_hi = min(pos0 + rows, sq) - 1
+    end = -(-skv // keys)
+    if causal:
+        end = min(end, pos_hi // keys + 1)
+    begin = (pos0 - window + 1) // keys if window and pos0 - window + 1 > 0 \
+        else 0
+    return begin, end
+
+
+def attention_flops_executed(q, k, *, causal: bool = True, window: int = 0,
+                             rows: int = BLOCK_Q, keys: int = BLOCK_K) -> int:
+    """Operations the bf16 kernel executes: the (q tile, key tile) pairs it
+    visits, times 2·rows·keys·(hd + N) a pair: q·kᵀ at depth hd and p·v at
+    width N = max(hd, 64) over whole tiles, masked entries included (hd 32
+    runs p·v at 64).  Its achieved rate is read against this count;
+    :func:`attention_flops` is the least work."""
+    b, sq, h, hd = q.shape
+    pairs = 0
+    for pos0 in range(0, sq, rows):
+        lo, hi = key_tiles(pos0, sq, k.shape[1], causal, window, rows, keys)
+        pairs += max(0, hi - lo)
+    return 2 * rows * keys * (hd + max(hd, 64)) * b * h * pairs
 
 
 def attention_bytes(q, k, v) -> int:

@@ -173,3 +173,37 @@ def test_attention_bound_counts():
     k = torch.empty((4, 2048, 4, 128), dtype=torch.bfloat16, device="meta")
     assert tfa.attention_flops(q, k) == 4 * 128 * 4 * 32 * 2048 * 2049 // 2
     assert tfa.attention_bytes(q, k, k) == 2 * 2 * 4 * 2048 * 128 * (32 + 4)
+
+
+def _brute_tile_pairs(sq, skv, causal, window, rows, keys):
+    """(q tile, key tile) pairs holding at least one visible pair."""
+    i = np.arange(sq)[:, None]
+    j = np.arange(skv)[None, :]
+    vis = np.ones((sq, skv), bool)
+    if causal:
+        vis &= j <= i
+    if window:
+        vis &= j > i - window
+    return sum(bool(vis[a:a + rows, c:c + keys].any())
+               for a in range(0, sq, rows) for c in range(0, skv, keys))
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,rows,keys", [
+    (64, 64, True, 0, 16, 8), (67, 67, True, 0, 16, 16),
+    (100, 100, True, 24, 16, 8), (50, 90, False, 0, 16, 32),
+    (90, 50, True, 0, 32, 16), (128, 128, True, 200, 32, 32),
+    (2085, 2085, True, 0, 128, 128), (520, 520, True, 1024, 128, 128)])
+@pytest.mark.parametrize("hd", [32, 112])
+def test_attention_flops_executed_counts_the_visited_tiles(
+        sq, skv, causal, window, rows, keys, hd):
+    """The kernel visits exactly the tiles with a visible pair; each costs
+    2·rows·keys·(hd + max(hd, 64)) (p·v at 64 columns for hd 32), never less
+    than the least work."""
+    q = torch.empty((2, sq, 6, hd), device="meta")
+    k = torch.empty((2, skv, 3, hd), device="meta")
+    got = tfa.attention_flops_executed(q, k, causal=causal, window=window,
+                                       rows=rows, keys=keys)
+    want = 2 * rows * keys * (hd + max(hd, 64)) * 2 * 6 * _brute_tile_pairs(
+        sq, skv, causal, window, rows, keys)
+    assert got == want
+    assert got >= tfa.attention_flops(q, k, causal=causal, window=window)

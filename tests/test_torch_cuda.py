@@ -94,6 +94,9 @@ def _attn_inputs(b, s, h, kv, hd, dtype, seed=0, skv=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kv,hd,window", [
     (1, 128, 4, 4, 32, 0),        # MHA
+    (1, 130, 4, 1, 32, 50),       # hd 32 (a TMA box past hd, p v at N = 64
+    (2, 300, 8, 2, 32, 0),        # over zero columns): several tiles, a
+                                  # window, ragged ends
     (2, 256, 8, 2, 64, 0),        # GQA G=4
     (1, 512, 4, 1, 64, 0),        # MQA
     (1, 384, 6, 3, 64, 0),        # non-pow2 heads
@@ -104,6 +107,10 @@ def _attn_inputs(b, s, h, kv, hd, dtype, seed=0, skv=None):
     (1, 300, 32, 32, 112, 0),     # Zamba2's shared block: hd 112, MHA,
     (2, 256, 8, 8, 112, 64),      # ragged, and windowed
     (1, 256, 4, 2, 112, 200),     # GQA at hd 112
+    (1, 2048 + 37, 32, 4, 128, 0),   # Yi's and Zamba2's full tile geometry
+    (2, 520, 32, 32, 112, 0),        # with ragged ends: TMA's zero fill
+    (16, 512, 32, 4, 128, 0),     # B*H*Sq/128 = 2048 blocks: many waves of
+                                  # the longest-first launch order
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_matches_plain_on_cuda(b, s, h, kv, hd, window,
@@ -122,13 +129,60 @@ def test_flash_attention_kernel_matches_plain_on_cuda(b, s, h, kv, hd, window,
 
 
 @pytest.mark.cuda
-def test_flash_attention_kernel_non_causal_and_shorter_queries_on_cuda():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_non_causal_and_shorter_queries_on_cuda(dtype):
     _require_cuda()
-    q, _, _ = _attn_inputs(2, 96, 8, 2, 64, torch.float32, seed=1)
-    _, k, v = _attn_inputs(2, 96, 8, 2, 64, torch.float32, seed=2, skv=160)
+    dt = getattr(torch, dtype)
+    q, _, _ = _attn_inputs(2, 96, 8, 2, 64, dt, seed=1)
+    _, k, v = _attn_inputs(2, 96, 8, 2, 64, dt, seed=2, skv=160)
     out = ops.flash_attention(q, k, v, causal=False)
     ref = kref.attention_ref(q, k, v, causal=False)
-    torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,window", [(128, 0), (64, 40)])
+def test_flash_attention_kernel_negative_scale_on_cuda(hd, window, dtype):
+    """A negative softmax scale reverses the order of the raw scores: the
+    bf16 kernel must not take the row max on them unscaled."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_inputs(2, 300, 8, 2, hd, dt, seed=6)
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              softmax_scale=-0.2)
+    ref = kref.attention_ref(q, k, v, causal=True, window=window,
+                             softmax_scale=-0.2)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_items_without_visible_keys_on_cuda():
+    """Sq > Skv with a window: whole q tiles see no key (an empty key-tile
+    range), and the ring of stages must not lose step over them."""
+    _require_cuda()
+    q, _, _ = _attn_inputs(1, 1000, 4, 2, 64, torch.bfloat16, seed=4)
+    _, k, v = _attn_inputs(1, 1000, 4, 2, 64, torch.bfloat16, seed=5, skv=100)
+    out = ops.flash_attention(q, k, v, causal=True, window=10)
+    ref = kref.attention_ref(q, k, v, causal=True, window=10)
+    torch.cuda.synchronize()
+    seen = 100 + 10 - 1           # rows below see at least one key
+    torch.testing.assert_close(out[:, :seen].float(), ref[:, :seen].float(),
+                               rtol=0, atol=2e-2)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,kv", [(128, 4), (112, 32)])
+def test_flash_attention_kernel_is_deterministic_on_cuda(hd, kv):
+    """No atomics, a fixed order of tiles: two calls give the same bits."""
+    _require_cuda()
+    q, k, v = _attn_inputs(2, 1000, 32, kv, hd, torch.bfloat16, seed=3)
+    a = ops.flash_attention(q, k, v, causal=True)
+    b = ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
