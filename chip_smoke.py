@@ -26,8 +26,10 @@ Phases, each printing its own lines:
    4x2048x32x112, causal, bf16 and f32).
    Then ``ssm_scan`` against ``ssm_scan_ref`` at one Zamba2-7B Mamba2
    layer's prefill shape (x 4x2048x112x64, N 64; float32 as
-   ``ssm_forward`` feeds it, and bf16 x with float32 dt), with its time,
-   the plain version's and the bound;
+   ``ssm_forward`` feeds it, and bf16 x with float32 dt), two calls bitwise
+   equal, with ptxas's registers and spills, its grid, rounds of the SMs
+   and shared memory, its time beside the earlier design's, the plain
+   version's, and the bounds on the float32 units and in 3xTF32;
 4. slice — the paper U-Net (random weights from a seed) serving 8 requests
    through ``ServeEngine.serve()`` with each step backend: finite outputs,
    backends agree, each kernel launched on its own run, one lane replayed
@@ -90,6 +92,7 @@ from repro_torch.serve import (EngineConfig, Request, ServeEngine,  # noqa: E402
 # bandwidth, float32 rate outside the tensor cores, bf16 tensor-core rate.
 CARD_RATES = {"SXM": (3.35e12, 67e12, 989e12),
               "PCIe": (2.0e12, 51e12, 756e12)}
+TF32_RATES = {"SXM": 495e12, "PCIe": 378e12}   # dense TF32 tensor cores
 CUDA_SOURCES = ("traj_masked_step", "flash_attention", "ssm_scan")
 # one Yi-6B layer's prefill: q (B, S, H, hd), k and v (B, S, KV, hd)
 ATTN_SHAPE = (4, 2048, 32, 4, 128)
@@ -97,8 +100,14 @@ ATTN_SHAPE = (4, 2048, 32, 4, 128)
 HYBRID_ATTN_SHAPE = (4, 2048, 32, 32, 112)
 # one Zamba2-7B Mamba2 layer's prefill: x (B, S, nh, P), bm and cm (B, S, N)
 SSM_SHAPE = (4, 2048, 112, 64, 64)
+# the device kernels each wrapper launches, as a profiler names them
+KERNEL_SYMBOLS = {"ssm_scan": ("ssd_scan_kernel", "ssd_gram_kernel"),
+                  "flash_attention": ("flash_attention",)}
 SSM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # test_kernels.py,
 #                                        relative to the plain version's max
+# ssm_scan's float32 time at SSM_SHAPE before the Hopper redesign (the
+# SIMT kernel; NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel table)
+SSM_EARLIER_MS = 1.507
 ATTN_WINDOW = 1024
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # test_kernels.py
 # Yi-6B logits in bf16, prefill through the kernel against blockwise
@@ -682,13 +691,53 @@ def attention_case(q, k, v, window, card):
 # ---------------------------------------------------------------------------
 # phase 3c: ssm_scan at one Zamba2-7B Mamba2 layer's prefill shape
 # ---------------------------------------------------------------------------
+def ptxas_ssm(log: str):
+    """(kernel, its types, registers, spill line) of each ``ssm_scan``
+    instance in ``nvcc -Xptxas -v``'s output."""
+    types = {"f": "float32", "ff": "float32, dt float32",
+             "13__nv_bfloat16": "bf16", "13__nv_bfloat16S1_": "bf16, dt bf16",
+             "13__nv_bfloat16f": "bf16, dt float32"}
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(ssd_(?:scan|gram)_kernel)I(\w+?)EEv", ln)
+        if m and "Compiling entry function" in ln:
+            cur = (m.group(1), types.get(m.group(2), m.group(2)))
+        elif cur is not None and "spill" in ln:
+            spills = ln.split(":", 1)[-1].strip()
+        elif cur is not None and "Used" in ln:
+            rows.append(cur + (int(re.search(r"Used (\d+) registers",
+                                             ln).group(1)), spills))
+            cur = None
+    return rows
+
+
+def ssm_bounds_ms(x, dt, a, bm, cm, card: str):
+    """(bytes, SIMT float32, 3xTF32) lower bounds in ms of one call: the
+    bytes over the memory rate; the least FLOP (``ssd_flops``) over the
+    float32 SIMT peak; and the same FLOP as three TF32 tensor-core products
+    each over the TF32 peak."""
+    bw, f32_peak, _ = card_rates(card)
+    tf32_peak = TF32_RATES["PCIe" if "PCIe" in card else "SXM"]
+    flops = kssm.ssd_flops(x, bm)
+    return (kssm.ssd_bytes(x, dt, a, bm, cm) / bw * 1e3,
+            flops / f32_peak * 1e3, 3 * flops / tf32_peak * 1e3)
+
+
 def phase_ssm(dev, card: str):
     """``ssm_scan`` against ``ssm_scan_ref``: float32 x, dt, bm and cm, as
     ``ssm_forward`` feeds the kernel (the path), and bf16 x, bm and cm with
-    float32 dt.  Returns {dtype: (max abs err, ms, plain ms, bound ms,
-    bound by)}."""
-    bw, f32_peak, _ = card_rates(card)
+    float32 dt.  Prints the grid, its rounds of the card's block slots, the
+    shared memory and ptxas's registers and spills, and the time beside the
+    earlier design's and both bounds.  Returns {dtype: (max abs err, ms,
+    plain ms, bound ms, bound by)}, the bound under the kernel's 3xTF32
+    contract."""
     b, s, nh, p, n = SSM_SHAPE
+    for kern, types, regs, spills in ptxas_ssm(build.LOGS.get("ssm_scan",
+                                                              "")):
+        print(f"[kernels] ssm_scan ptxas: {kern} ({types}): {regs} "
+              f"registers, {spills}", flush=True)
+    grid = kssm.grid_for(b, nh)
+    n_sm = kssm.sm_count(dev)
     g = torch.Generator(device=dev).manual_seed(5)
     base = (torch.randn((b, s, nh, p), generator=g, device=dev),
             torch.nn.functional.softplus(
@@ -711,6 +760,8 @@ def phase_ssm(dev, card: str):
         if err > SSM_TOL[dtype] * scale:
             raise AssertionError(f"ssm_scan {tag}: max_abs_err {err:.3e} > "
                                  f"{SSM_TOL[dtype]} x max |y| {scale:.3f}")
+        if not torch.equal(y, ops.ssm_scan(x, dt, a, bm, cm)):
+            raise AssertionError(f"ssm_scan {tag}: two calls differ")
         del y, ref
         args = (x, dt, a, bm, cm)
         t_k = cuda_time_ms(lambda: ops.ssm_scan(*args), iters=10, warmup=2)
@@ -718,20 +769,27 @@ def phase_ssm(dev, card: str):
                            warmup=1)
         flops = kssm.ssd_flops(x, bm)          # the least the function needs
         done = kssm.ssd_flops_executed(x, bm)  # what the kernel executes
-        t_bytes = kssm.ssd_bytes(x, dt, a, bm, cm) / bw
-        t_ops = flops / f32_peak
-        bound = max(t_bytes, t_ops) * 1e3
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        hb = kssm.head_block_for(b, nh, 8, kssm.sm_count(x.device))
+        t_bytes, t_simt, t_3x = ssm_bounds_ms(x, dt, a, bm, cm, card)
+        bound = max(t_bytes, t_3x)
+        by = "bytes" if t_bytes >= t_3x else "operations"
+        per_sm = kssm.blocks_per_sm(dtype, dt.dtype)
+        n_blocks = grid[0] * grid[1]
+        was = (f"the SIMT design {SSM_EARLIER_MS} ms, "
+               f"{SSM_EARLIER_MS / t_k:.2f}x faster; "
+               if dtype == torch.float32 else "")
         torch.cuda.empty_cache()
         print(f"[kernels] ssm_scan {tag} x {tuple(x.shape)} N {n}: "
               f"max_abs_err {err:.3e} (max |y| {scale:.3f}, tolerance "
-              f"{SSM_TOL[dtype]} of it) | kernel {t_k:.3f} ms "
-              f"({done / t_k / 1e9:.1f} TFLOP/s on the {done:.3e} FLOP it "
-              f"executes, {hb} head(s) a block) plain {t_p:.3f} ms bound "
-              f"{bound:.3f} ms on the least {flops:.3e} FLOP "
-              f"({by}, share {bound / t_k:.1%}) | library none",
-              flush=True)
+              f"{SSM_TOL[dtype]} of it), two calls bitwise equal | grid "
+              f"{grid} = {n_blocks} blocks of {kssm.smem_bytes()} bytes of "
+              f"shared memory, {per_sm} a SM, {n_blocks / (per_sm * n_sm):.2f}"
+              f" rounds of {per_sm * n_sm} slots | kernel {t_k:.3f} ms "
+              f"({was}{done / t_k / 1e9:.1f} TFLOP/s on the {done:.3e} FLOP "
+              f"it executes) plain {t_p:.3f} ms | bounds on the least "
+              f"{flops:.3e} FLOP: bytes {t_bytes:.3f} ms, SIMT float32 "
+              f"{t_simt:.3f} ms, 3xTF32 {t_3x:.3f} ms; the products are "
+              f"3xTF32, so bound {bound:.3f} ms ({by}, share "
+              f"{bound / t_k:.1%}) | library none", flush=True)
         rows[dtype] = (err, t_k, t_p, bound, by)
     del base
     torch.cuda.empty_cache()
@@ -987,8 +1045,9 @@ def phase_hybrid(dev, card: str):
                           lambda: prefill(model, batch), reps=1)
     if prof:
         total = sum(prof.values())
-        for name in ("ssm_scan", "flash_attention"):
-            ms = sum(v for key, v in prof.items() if name in key)
+        for name, symbols in KERNEL_SYMBOLS.items():
+            ms = sum(v for key, v in prof.items()
+                     if any(sym in key for sym in symbols))
             print(f"[hybrid] {name} {ms:.1f} ms of {total:.1f} ms device "
                   f"time in a prefill ({ms / total:.1%})", flush=True)
 

@@ -184,12 +184,15 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     kernel).  x: (B, S, nh, P); dt: (B, S, nh) softplus'd step sizes;
     a: (nh,) float32 decay rates; bm, cm: (B, S, N) (n_groups = 1).  x, bm
     and cm share one dtype, float32 or bfloat16; dt is float32 or x's dtype;
-    P, N <= 64.  Returns y (B, S, nh, P) in x's dtype.
+    P, N <= 64.  Returns y (B, S, nh, P) in x's dtype, bitwise the same from
+    call to call.
 
-    ``chunk`` is the reference's argument: chunking is exact in arithmetic,
-    and the kernel scans in chunks of its own (64), any S.  ``head_block``
-    bounds the heads one block takes (see
-    :func:`~repro_torch.kernels.ssm_scan.head_block_for`)."""
+    ``chunk`` and ``head_block`` are the reference's arguments, kept for its
+    signature and checked, but the kernel ignores them: chunking is exact
+    in arithmetic, and the kernel scans in chunks of its own (64), any S,
+    one block per (head, batch) (see :mod:`repro_torch.kernels.ssm_scan`).
+    A call runs the record kernel (G = C·Bᵀ, C and B per chunk) and the
+    scan on the current stream, and counts as one launch."""
     if chunk < 1 or head_block < 1:
         raise ValueError(f"ssm_scan: chunk {chunk} and head_block "
                          f"{head_block} must be positive")
@@ -223,8 +226,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    hb = _ssm.head_block_for(b, nh, head_block, _ssm.sm_count(x.device))
-    _ssm.launch_ssm_scan(x, dt, a, bm, cm, y, head_block=hb)
+    _ssm.launch_ssm_scan(x, dt, a, bm, cm, y)
     ssm_scan.launches += 1
     return y
 

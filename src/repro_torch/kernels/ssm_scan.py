@@ -1,14 +1,19 @@
 """Mamba2 (SSD) chunked scan for Hopper: the ctypes binding of
-``csrc/ssm_scan.cu``, its raw launcher, its head-block choice and its
-operation and byte counts.
+``csrc/ssm_scan.cu``, its raw launcher, its grid and its operation and
+byte counts.
 
 Counterpart of ``repro/kernels/ssm_scan.py``.  The kernel replaces the
 Pallas ``ssm_scan`` (``repro/kernels/ssm_scan.py:84``, body
 ``_ssd_kernel``); its source's header gives the contract, the design and
-the bound.  Call it through :func:`repro_torch.kernels.ops.ssm_scan`, which
-checks its inputs, runs the plain version
+the bound.  A call runs two kernels on the current stream: one that writes
+a record per (chunk, batch) into a float32 scratch (G = C·Bᵀ, once for
+every head, with C and B, padded to the scan's layout), and the scan, one
+block per (head, batch), each walking its head's chunks in order with its
+four products on the tensor cores in 3xTF32 (float32 accuracy; never
+plain TF32).  Call it through :func:`repro_torch.kernels.ops.ssm_scan`,
+which checks its inputs, runs the plain version
 (:func:`repro_torch.kernels.ref.ssm_scan_ref`) for CPU tensors, and counts
-each launch.
+each call.
 """
 from __future__ import annotations
 
@@ -18,53 +23,77 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["CHUNK", "DTYPES", "MAX_WIDTH", "launch_ssm_scan", "head_block_for",
-           "sm_count", "ssd_flops", "ssd_flops_executed", "ssd_bytes"]
+__all__ = ["CHUNK", "DTYPES", "MAX_WIDTH", "blocks_per_sm",
+           "grid_for", "launch_ssm_scan", "scratch_numel", "sm_count",
+           "smem_bytes", "ssd_flops", "ssd_flops_executed", "ssd_bytes"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = 64          # the kernel's own chunk (kL in the source)
 MAX_WIDTH = 64      # the widest N and P a block's tiles hold (kD)
+WARP_ROWS = 16      # the chunk rows of one warp's band in W·X
 
 
 def _lib():
-    fn = build.load("ssm_scan").ssm_scan
+    lib = build.load("ssm_scan")
+    fn = lib.ssm_scan
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.ssm_scan_smem_bytes.restype = ctypes.c_int
+        lib.ssm_scan_blocks_per_sm.argtypes = [i, i]
+        lib.ssm_scan_blocks_per_sm.restype = ctypes.c_int
+    return lib
 
 
-def head_block_for(b: int, nh: int, head_block: int, n_sm: int) -> int:
-    """The heads a block of the kernel takes: the largest divisor of nh not
-    above ``head_block`` that still gives the grid two blocks per SM (1 when
-    none does).  More heads a block share more of G = C·Bᵀ; more blocks
-    fill the card."""
-    hb = max(1, min(head_block, nh))
-    while hb > 1 and (nh % hb or b * (nh // hb) < 2 * n_sm):
-        hb -= 1
-    return hb
+def grid_for(b: int, nh: int):
+    """The scan kernel's grid: (heads, batch), one block a head."""
+    return (nh, b)
+
+
+def scratch_numel(b: int, s: int) -> int:
+    """float32 elements of the scratch of one call: a record per (batch,
+    chunk) of G, C and B, each CHUNK rows padded to 68, 68 and 72 floats
+    (``kRec`` in the source)."""
+    return b * -(-s // CHUNK) * CHUNK * (68 + 68 + 72)
 
 
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch_ssm_scan(x, dt, a, bm, cm, y, *, head_block: int) -> None:
-    """Launch the kernel on the current stream (built on first use); raises
-    if the launch fails.  The tensors are as :func:`repro_torch.kernels.ops
-    .ssm_scan` checks them: CUDA, contiguous; x and y (B, S, nh, P) in one
-    dtype of :data:`DTYPES`, bm and cm (B, S, N) in x's dtype, dt (B, S, nh)
-    in float32 or x's dtype, a (nh,) float32; P, N <= :data:`MAX_WIDTH`;
-    ``head_block`` divides nh."""
+def smem_bytes() -> int:
+    """Dynamic shared memory of one scan block (built on first use)."""
+    return _lib().ssm_scan_smem_bytes()
+
+
+def blocks_per_sm(dtype, dt_dtype) -> int:
+    """Scan blocks resident on one SM, from the CUDA occupancy API, for
+    x's and dt's dtypes."""
+    n = _lib().ssm_scan_blocks_per_sm(DTYPES[dtype], DTYPES[dt_dtype])
+    if n <= 0:
+        raise RuntimeError(f"ssm_scan: occupancy query failed with "
+                           f"cudaError {-n}")
+    return n
+
+
+def launch_ssm_scan(x, dt, a, bm, cm, y) -> None:
+    """Launch the kernels on the current stream (built on first use);
+    raises if a launch fails.  The tensors are as :func:`repro_torch.kernels
+    .ops.ssm_scan` checks them: CUDA, contiguous; x and y (B, S, nh, P) in
+    one dtype of :data:`DTYPES`, y 16-byte aligned, bm and cm (B, S, N) in
+    x's dtype, dt (B, S, nh) in float32 or x's dtype, a (nh,) float32; P,
+    N <= :data:`MAX_WIDTH`."""
     b, s, nh, p = x.shape
     n = bm.shape[-1]
-    fn = _lib()
+    fn = _lib().ssm_scan
+    g = torch.empty(scratch_numel(b, s), dtype=torch.float32,
+                    device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(DTYPES[x.dtype], DTYPES[dt.dtype], x.data_ptr(),
                  dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                 y.data_ptr(), b, s, nh, p, n, head_block, stream)
+                 g.data_ptr(), y.data_ptr(), b, s, nh, p, n, stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan: CUDA launch failed with cudaError "
                            f"{err}")
@@ -106,11 +135,21 @@ def ssd_flops(x, bm) -> int:
 
 
 def ssd_flops_executed(x, bm) -> int:
-    """The operations the kernel executes: the chunked form at its own
-    chunk (:data:`CHUNK`), every term in every chunk.  Its achieved rate is
-    read against this count."""
-    b, s, nh, p = x.shape
-    return b * _chunked_flops(s, nh, p, bm.shape[-1], CHUNK, least=False)
+    """The operations the kernels execute, counted as float32 multiply-adds
+    (2 each; the tensor cores run each product three times, in 3xTF32),
+    padding included: per (batch, chunk of :data:`CHUNK`) the 136
+    lower-triangle 4x4 tiles of G (2·N a product); per head and chunk, on
+    P and N padded to :data:`MAX_WIDTH`, W·X over whole 16-row bands (band
+    w sees 16(w + 1) keys), C·state, the state update over every step of
+    the chunk, and the state's decay.  Its achieved rate is read against
+    this count."""
+    b, s, nh, _ = x.shape
+    n = bm.shape[-1]
+    d = MAX_WIDTH
+    bands = sum(WARP_ROWS * WARP_ROWS * (w + 1)
+                for w in range(CHUNK // WARP_ROWS))
+    per_head = d * (2 * bands + 4 * CHUNK * d + d)
+    return b * -(-s // CHUNK) * (136 * 16 * 2 * n + nh * per_head)
 
 
 def ssd_bytes(x, dt, a, bm, cm) -> int:

@@ -268,6 +268,93 @@ def test_ssm_scan_kernel_at_full_length_and_any_chunk_on_cuda():
     assert torch.equal(y, ops.ssm_scan(*args, chunk=256, head_block=1))
 
 
+SSM_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
+              ("bfloat16", "float32")]      # (x, bm, cm) and dt
+
+
+def _ssm_check(args, dtype):
+    before = ops.ssm_scan.launches
+    y = ops.ssm_scan(*args)
+    ref = kref.ssm_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.ssm_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == args[0].shape
+    assert bool(torch.isfinite(y).all())
+    assert _ssm_rel_err(y, ref) < SSM_TOL[dtype]
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 65, 2047])
+@pytest.mark.parametrize("dtype,dt_dtype", SSM_DTYPES)
+def test_ssm_scan_kernel_ragged_lengths_on_cuda(s, dtype, dt_dtype):
+    """S around the chunk (64) and the 16-row bands: a lone step, one short
+    chunk, one step past it, one short of 32 chunks."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    _ssm_check(_ssm_inputs(2, s, 6, 64, 64, dt, getattr(torch, dt_dtype),
+                           seed=s), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,nh,p,n", [
+    (2, 130, 4, 24, 40),     # P and N zero-padded, 16-byte rows (f32)
+    (1, 100, 3, 7, 5),       # rows of no 16-byte multiple: the load path
+    (3, 96, 5, 48, 64),      # a warp's column half part-empty, nh = 5
+    (2, 70, 7, 64, 8),       # a narrow state
+])
+@pytest.mark.parametrize("dtype,dt_dtype", SSM_DTYPES)
+def test_ssm_scan_kernel_narrow_widths_on_cuda(b, s, nh, p, n, dtype,
+                                               dt_dtype):
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    _ssm_check(_ssm_inputs(b, s, nh, p, n, dt, getattr(torch, dt_dtype),
+                           seed=b * s + p), dt)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_many_waves_on_cuda():
+    """64 batch rows x 16 heads = 1,024 blocks, several rounds of the
+    card's block slots."""
+    _require_cuda()
+    _ssm_check(_ssm_inputs(64, 256, 16, 64, 64, torch.float32, seed=3),
+               torch.float32)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_unaligned_float32_on_cuda():
+    """Inputs that are contiguous but not 16-byte aligned take the
+    synchronous load path and give the aligned path's y bit for bit."""
+    _require_cuda()
+    x, dt, a, bm, cm = _ssm_inputs(2, 200, 4, 64, 64, torch.float32, seed=4)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    y = ops.ssm_scan(x, dt, a, bm, cm)
+    y_off = ops.ssm_scan(shifted(x), dt, a, shifted(bm), shifted(cm))
+    assert torch.equal(y, y_off)
+    assert _ssm_rel_err(y, kref.ssm_scan_ref(x, dt, a, bm, cm)) < \
+        SSM_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dt_dtype", SSM_DTYPES)
+def test_ssm_scan_kernel_is_bitwise_repeatable_on_cuda(dtype, dt_dtype):
+    """No atomics and fixed-order sums: two calls, and any chunk or
+    head_block argument, give the same bits."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    args = _ssm_inputs(2, 512, 16, 64, 64, dt, getattr(torch, dt_dtype),
+                       seed=8)
+    y = _ssm_check(args, dt)
+    assert torch.equal(y, ops.ssm_scan(*args))
+    assert torch.equal(y, ops.ssm_scan(*args, chunk=32, head_block=3))
+
+
 @pytest.mark.cuda
 def test_ssm_scan_wrapper_raises_on_what_the_kernel_does_not_take():
     _require_cuda()

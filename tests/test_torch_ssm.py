@@ -113,14 +113,22 @@ def test_chunk_loop_is_independent_of_the_chunk(chunk):
 def test_ssm_scan_counts_and_helpers():
     x = torch.zeros((4, 2048, 112, 64))
     bm = torch.zeros((4, 2048, 64))
-    # executed, at the kernel's chunk: G once per (batch, chunk); per head
-    # the causal W·X, C·state, the update and the decay
-    per_chunk = 2 * 64 * 64 * 64 + 112 * (64 * 65 * 64 + 4 * 64 * 64 * 64
-                                          + 64 * 64)
+    # executed, at the kernel's chunk: the 136 lower-triangle 4x4 tiles of
+    # G once per (batch, chunk); per head, on P and N padded to 64, W·X over
+    # four 16-row bands that see 16, 32, 48 and 64 keys, C·state, the update
+    # over every step of the chunk, and the decay
+    gram = 136 * 16 * 2 * 64
+    bands = 2 * 64 * 16 * (16 + 32 + 48 + 64)
+    per_chunk = gram + 112 * (bands + 2 * 64 * 64 * 64 + 2 * 64 * 64 * 64
+                              + 64 * 64)
     assert tssm_k.ssd_flops_executed(x, bm) == 4 * 32 * per_chunk
-    assert tssm_k.ssd_flops_executed(x[:, :100], bm[:, :100]) == 4 * (
-        per_chunk + 2 * 36 * 36 * 64
-        + 112 * (36 * 37 * 64 + 4 * 36 * 64 * 64 + 64 * 64))
+    # a ragged last chunk runs whole
+    assert tssm_k.ssd_flops_executed(x[:, :100], bm[:, :100]) == \
+        4 * 2 * per_chunk
+    # narrow P and N run at the padded width; G's tiles take N as it is
+    x24, bm5 = torch.zeros((1, 64, 3, 24)), torch.zeros((1, 64, 5))
+    assert tssm_k.ssd_flops_executed(x24, bm5) == 136 * 16 * 2 * 5 + 3 * (
+        bands + 4 * 64 * 64 * 64 + 64 * 64)
     # least: the chunked form at L = 8 (256 chunks), without C·state in
     # the first chunk and the update and decay in the last
     def chunk8(reads, writes):
@@ -137,14 +145,97 @@ def test_ssm_scan_counts_and_helpers():
     a = torch.zeros(112)
     assert tssm_k.ssd_bytes(x, dt, a, bm, bm) == 4 * (
         2 * x.numel() + dt.numel() + 112 + 2 * bm.numel())
-    # the head block: a divisor of nh, at most head_block, two blocks an SM
-    assert tssm_k.head_block_for(4, 112, 8, 132) == 1
-    assert tssm_k.head_block_for(64, 112, 8, 132) == 8
-    assert tssm_k.head_block_for(12, 112, 8, 132) == 4
-    assert tssm_k.head_block_for(200, 6, 4, 132) == 3
+    # the grid: one block a (head, batch), whatever head_block the caller
+    # names; and the scratch, a record of G, C and B (64 padded rows each)
+    # per (batch, chunk)
+    assert tssm_k.grid_for(4, 112) == (112, 4)
+    assert tssm_k.grid_for(3, 5) == (5, 3)
+    assert tssm_k.scratch_numel(4, 2048) == 4 * 32 * 64 * (68 + 68 + 72)
+    assert tssm_k.scratch_numel(2, 65) == 2 * 2 * 64 * (68 + 68 + 72)
     with pytest.raises(ValueError, match="positive"):
         ops.ssm_scan(x[:1, :4], dt[:1, :4], a, bm[:1, :4], bm[:1, :4],
                      chunk=0)
+
+
+def _rna_tf32(v):
+    """cvt.rna.tf32.f32 of a float32 tensor, as the kernel computes it on
+    the integer units: 10 mantissa bits, ties away from zero."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's three TF32 products (a_lo b_hi + a_hi b_lo,
+    then a_hi b_hi) with float32 sums; a_lo b_lo dropped."""
+    ah, bh = _rna_tf32(a), _rna_tf32(b)
+    al, bl = _rna_tf32(a - ah), _rna_tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _mm_tf32(a, b):
+    """a @ b as one plain TF32 product, which the kernel never uses."""
+    return _rna_tf32(a) @ _rna_tf32(b)
+
+
+def _ssd_chunked(x, dt, a, bm, cm, mm, chunk=64):
+    """The kernel's chunked form at its chunk, in x's dtype, with its four
+    products (W·X, C·state, (u B)ᵀ·X; G = C·Bᵀ stays a plain product, as
+    the record kernel forms it on the float32 units) through ``mm``."""
+    b, s, nh, _ = x.shape
+    state = x.new_zeros((b, nh, bm.shape[-1], x.shape[-1]))
+    ys = []
+    for lo in range(0, s, chunk):
+        xc = x[:, lo:lo + chunk].permute(0, 2, 1, 3)          # (b, nh, l, p)
+        dtc = dt[:, lo:lo + chunk].permute(0, 2, 1)            # (b, nh, l)
+        bc, cc = bm[:, lo:lo + chunk], cm[:, lo:lo + chunk]   # (b, l, n)
+        ln = xc.shape[2]
+        cum = torch.cumsum(dtc * a[None, :, None], dim=-1)
+        causal = torch.ones(ln, ln, dtype=torch.bool).tril()
+        diff = torch.where(causal, cum[..., :, None] - cum[..., None, :], 0)
+        g = (cc @ bc.transpose(1, 2))[:, None]
+        w = torch.where(causal, g * torch.exp(diff) * dtc[..., None, :], 0)
+        cs = mm(cc[:, None].expand(-1, nh, -1, -1), state)
+        ys.append((mm(w, xc) + torch.exp(cum)[..., None] * cs)
+                  .permute(0, 2, 1, 3))
+        u = dtc * torch.exp(cum[..., -1:] - cum)
+        ub = (bc[:, None] * u[..., None]).transpose(-1, -2)    # (b, nh, n, l)
+        state = state * torch.exp(cum[..., -1])[..., None, None] + mm(ub, xc)
+    return torch.cat(ys, dim=1)
+
+
+def test_tf32_rna_split_rounds_ties_away_and_keeps_2_22():
+    """The split the kernel feeds its mma: hi rounds to 10 mantissa bits,
+    ties away from zero, and hi + lo is within 2^-22 of v."""
+    tie = 1.0 + 2.0 ** -11                 # half a TF32 ulp above 1
+    v = torch.tensor([tie, -tie, tie - 2.0 ** -23, 3.0, 0.0],
+                     dtype=torch.float32)
+    want = [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0, 0.0]
+    assert _rna_tf32(v).tolist() == want
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        100_000).astype(np.float32)) * 1e3
+    hi = _rna_tf32(r)
+    lo = _rna_tf32(r - hi)
+    assert float(((hi.double() + lo.double() - r.double()).abs()
+                  / r.double().abs()).max()) <= 2.0 ** -22
+    assert float(((hi.double() - r.double()).abs()
+                  / r.double().abs()).max()) > 2.0 ** -12
+
+
+@pytest.mark.parametrize("b,s,nh,p,n", [(1, 192, 4, 64, 64),
+                                        (2, 130, 3, 24, 40)])
+def test_ssd_3xtf32_chunked_form_within_float32_tolerance(b, s, nh, p, n):
+    """The kernel's arithmetic, emulated in plain torch on the chunked form
+    at a reduced Zamba2-like shape, against the same form in float64: the
+    3xTF32 products hold the float32 tolerance; one plain TF32 product
+    would not."""
+    ins = _scan_inputs(b, s, nh, p, n, seed=s + n)
+    f32 = [torch.from_numpy(v) for v in ins]
+    f64 = [v.double() for v in f32]
+    want = _ssd_chunked(*f64, mm=torch.matmul)
+    assert _rel_err(want, tref.ssm_scan_ref(*f32)) < TOL["float32"]
+    assert _rel_err(_ssd_chunked(*f32, mm=_mm_3xtf32), want) < \
+        TOL["float32"]
+    assert _rel_err(_ssd_chunked(*f32, mm=_mm_tf32), want) > TOL["float32"]
 
 
 # ---------------------------------------------------------------------------
