@@ -10,8 +10,8 @@ Phases, each printing its own lines:
 1. device — the card's name and power limit, as nvidia-smi gives them;
 2. build — the kernels built from this checkout's sources (one nvcc per
    CUDA source, all started together; the Triton one compiled by its
-   first launch), timed; ptxas's registers and spills of each bf16
-   ``flash_attention`` instance, with its dynamic shared memory;
+   first launch), timed; ptxas's registers and spills of each bf16 and
+   float32 ``flash_attention`` instance, with its dynamic shared memory;
 3. kernels — each step kernel held against its plain PyTorch version on
    the card at the serving shapes (S ∈ {8, 32} lanes of 128x128x1, f32 and
    bf16): inactive lanes bitwise, active lanes within the stated bound;
@@ -20,10 +20,12 @@ Phases, each printing its own lines:
    ``flash_attention`` against ``attention_ref`` at one Yi-6B layer's
    prefill shape (q 4x2048x32x128, k and v 4x2048x4x128), causal in bf16
    and f32 and with a 1024 window, with its time, the plain version's, the
-   bound, the FLOP it executes in whole tiles beside the visible ones, and
-   ``scaled_dot_product_attention``'s time, timed in turns with the
+   bound (for f32 both the SIMT and the 3xTF32 one, the share against the
+   latter), the FLOP it executes in whole tiles beside the visible ones,
+   and ``scaled_dot_product_attention``'s time, timed in turns with the
    kernel; and at the Zamba2-7B shared block's shape (q, k, v
-   4x2048x32x112, causal, bf16 and f32).
+   4x2048x32x112, causal, bf16 and f32); the f32 time beside the SIMT
+   design's before it.
    Then ``ssm_scan`` against ``ssm_scan_ref`` at one Zamba2-7B Mamba2
    layer's prefill shape (x 4x2048x112x64, N 64; float32 as
    ``ssm_forward`` feeds it, and bf16 x with float32 dt), two calls bitwise
@@ -109,6 +111,10 @@ SSM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # test_kernels.py,
 # SIMT kernel; NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel table)
 SSM_EARLIER_MS = 1.507
 ATTN_WINDOW = 1024
+# flash_attention's float32 time, causal, at ATTN_SHAPE (hd 128) and at
+# HYBRID_ATTN_SHAPE (hd 112) before the 3xTF32 redesign (the SIMT kernel;
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md's kernel table)
+ATTN_F32_EARLIER_MS = {128: 4.723, 112: 5.458}
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # test_kernels.py
 # Yi-6B logits in bf16, prefill through the kernel against blockwise
 # PyTorch attention and against the cached decode chain.  Logits of these
@@ -257,15 +263,18 @@ def phase_build(dev) -> None:
               f"{t_cuda:.1f}s", flush=True)
     print(f"[build] CUDA sources built in parallel in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    instances = ptxas_bf16_attention(build.LOGS.get("flash_attention", ""))
+    instances = ptxas_attention(build.LOGS.get("flash_attention", ""))
     if not instances:
         print("[build] flash_attention: library already built, no ptxas "
               "output to show", flush=True)
-    for hd, regs, spills in instances:
-        print(f"[build] flash_attention bf16 kernel, hd {hd}: {regs} "
-              f"registers at launch (setmaxnreg: producer 24, consumers "
-              f"240), {spills}, {kfa.bf16_smem_bytes(hd)} bytes of dynamic "
-              "shared memory", flush=True)
+    regs_split = {"bf16": "producer 24, consumers 240",
+                  "f32": "producers 88, consumers 168"}
+    smem = {"bf16": kfa.bf16_smem_bytes, "f32": kfa.f32_smem_bytes}
+    for kind, hd, regs, spills in instances:
+        print(f"[build] flash_attention {kind} kernel, hd {hd}: {regs} "
+              f"registers at launch (setmaxnreg: {regs_split[kind]}), "
+              f"{spills}, {smem[kind](hd)} bytes of dynamic shared memory",
+              flush=True)
     t0 = time.perf_counter()
     for dt in (torch.float32, torch.bfloat16):
         x = torch.zeros((8,) + IMG, dtype=dt, device=dev)
@@ -279,20 +288,20 @@ def phase_build(dev) -> None:
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
 
 
-def ptxas_bf16_attention(log: str):
-    """(hd, registers, spill line) of each bf16 flash_attention instance in
-    ``nvcc -Xptxas -v``'s output."""
-    rows, hd = [], None
+def ptxas_attention(log: str):
+    """(kind, hd, registers, spill line) of each flash_attention instance,
+    kind "bf16" or "f32", in ``nvcc -Xptxas -v``'s output."""
+    rows, cur = [], None
     for ln in log.splitlines():
-        m = re.search(r"flash_attention_bf16_kernelILi(\d+)E", ln)
+        m = re.search(r"flash_attention_(bf16|f32)_kernelILi(\d+)E", ln)
         if m and "Compiling entry function" in ln:
-            hd = int(m.group(1))
-        elif hd is not None and "spill" in ln:
-            spills = ln.strip()
-        elif hd is not None and "Used" in ln:
-            rows.append((hd, int(re.search(r"Used (\d+) registers",
-                                           ln).group(1)), spills))
-            hd = None
+            cur = (m.group(1), int(m.group(2)))
+        elif cur is not None and "spill" in ln:
+            spills = ln.split(":", 1)[-1].strip()
+        elif cur is not None and "Used" in ln:
+            rows.append(cur + (int(re.search(r"Used (\d+) registers",
+                                             ln).group(1)), spills))
+            cur = None
     return rows
 
 
@@ -595,13 +604,20 @@ def profile_device(label: str, fn, reps: int = 3):
 def attention_bound_ms(q, k, v, window, card):
     """The least time the card could take: the larger of the bytes (q, k,
     v read once, out written once) at the HBM rate and the FLOP on the
-    visible pairs at the dtype's peak (bf16 tensor cores; f32 SIMT)."""
+    visible pairs at the kernel's peak: bf16 on the tensor cores; float32
+    as three TF32 tensor-core products (the kernel's 3xTF32).  Returns (ms,
+    bound by, the float32 bound on the SIMT units in ms or None)."""
     bw, f32_peak, bf16_peak = card_rates(card)
-    peak = bf16_peak if q.dtype == torch.bfloat16 else f32_peak
+    flops = kfa.attention_flops(q, k, causal=True, window=window)
     t_bytes = kfa.attention_bytes(q, k, v) / bw
-    t_ops = kfa.attention_flops(q, k, causal=True, window=window) / peak
+    simt = None
+    if q.dtype == torch.bfloat16:
+        t_ops = flops / bf16_peak
+    else:
+        t_ops = 3 * flops / TF32_RATES["PCIe" if "PCIe" in card else "SXM"]
+        simt = max(t_bytes, flops / f32_peak) * 1e3
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+                                       else "operations"), simt
 
 
 def phase_attention(dev, card: str):
@@ -645,7 +661,7 @@ def attention_case(q, k, v, window, card):
 
     t_p = cuda_time_ms(lambda: kref.attention_ref(
         q, k, v, causal=True, window=window), iters=3, warmup=1)
-    bound, by = attention_bound_ms(q, k, v, window, card)
+    bound, by, simt = attention_bound_ms(q, k, v, window, card)
     flops = kfa.attention_flops(q, k, causal=True, window=window)
     lib = None
     if window:
@@ -672,13 +688,21 @@ def attention_case(q, k, v, window, card):
             f"{ATTN_TOL[dtype]}) | kernel {t_k:.3f} ms (runs {turns}; "
             f"{flops / t_k / 1e9:.1f} TFLOP/s on the {flops:.3e} FLOP of "
             f"the visible pairs")
-    if dtype == torch.bfloat16:
-        done = kfa.attention_flops_executed(q, k, causal=True, window=window)
-        line += (f"; executes {done:.3e} FLOP in whole tiles, "
-                 f"{done / t_k / 1e9:.1f} TFLOP/s, {1 - flops / done:.1%} "
-                 "of it masked or padding")
-    line += (f") plain {t_p:.3f} ms bound {bound:.3f} ms ({by}, share "
-             f"{bound / t_k:.1%})")
+    executed = (kfa.attention_flops_executed if dtype == torch.bfloat16
+                else kfa.attention_flops_executed_f32)
+    done = executed(q, k, causal=True, window=window)
+    line += (f"; executes {done:.3e} FLOP in whole tiles, "
+             f"{done / t_k / 1e9:.1f} TFLOP/s, {1 - flops / done:.1%} of it "
+             "masked or padding")
+    hd = q.shape[-1]
+    if dtype == torch.float32 and not window and hd in ATTN_F32_EARLIER_MS:
+        was = ATTN_F32_EARLIER_MS[hd]
+        line += f"; the SIMT design {was} ms, {was / t_k:.2f}x faster"
+    line += f") plain {t_p:.3f} ms bound {bound:.3f} ms ({by}"
+    if simt is not None:
+        line += (f", 3xTF32 at the TF32 peak; on the SIMT units "
+                 f"{simt:.3f} ms, {simt / t_k:.1%}")
+    line += f", share {bound / t_k:.1%})"
     if lib is not None:
         line += (f" | library sdpa {lib:.3f} ms (runs "
                  + " ".join(f"{x:.3f}" for x in t_ls)

@@ -4,10 +4,11 @@ Each source under ``kernels/csrc/`` has a plain C interface.  It is compiled
 by ``nvcc`` for ``sm_90a`` into a shared library and loaded with ``ctypes``:
 seconds to build, against minutes for a source that includes PyTorch's
 headers.  Libraries go to ``build/repro_torch_kernels/`` at the repository
-root, keyed by a hash of the source and of the flags it is built with
-(:func:`nvcc_flags`), so a changed source or flag rebuilds and an unchanged
-one loads at once.  Nothing is built when a module is imported: the first
-call that launches a kernel builds it.
+root, keyed by a hash of the source, of the headers under ``csrc/`` and of
+the flags it is built with (:func:`nvcc_flags`), so a changed source,
+header or flag rebuilds and an unchanged one loads at once.  Nothing is
+built when a module is imported: the first call that launches a kernel
+builds it.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # flags one source adds to NVCC_FLAGS.  traj_masked_step's float32 output
 # equals its plain version bit for bit only if no product and sum contract
-# into an FMA; flash_attention wants the FMAs (half its SIMT rate without).
+# into an FMA; the other sources keep nvcc's default contraction.
 SOURCE_FLAGS: Dict[str, List[str]] = {"traj_masked_step": ["-fmad=false"]}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -53,9 +54,12 @@ def nvcc_flags(name: str) -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = src + " ".join(nvcc_flags(name)).encode()
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, every header
+    under ``csrc/`` (a source may include any of them) and the flags."""
+    key = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        key += header.name.encode() + header.read_bytes()
+    key += " ".join(nvcc_flags(name)).encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -31,14 +31,14 @@
 // a float32.  Each is converted to float32 as it is read; y is rounded to
 // x's type once, when it is stored.
 //
-// 3xTF32.  Every product operand v is split into two TF32 values, v_hi =
-// rna(v) and v_lo = rna(v - v_hi), where rna rounds to 10 mantissa bits,
-// ties away from zero: the bits of cvt.rna.tf32.f32, computed on the
-// integer units ((bits + 0x1000) & ~0x1fff), which issue at full rate
-// where the conversion does not.  Each product a b then runs as three
-// mma.sync.m16n8k8 TF32 products with float32 sums, a_lo b_hi + a_hi b_lo
-// into one accumulator and a_hi b_hi into another; a_lo b_lo (~2^-22
-// relative) is dropped.  No product runs as plain TF32 (one mma, ~2^-11
+// 3xTF32 (tf32.cuh).  Every product operand v is split into two TF32
+// values, v_hi = rna(v) and v_lo = rna(v - v_hi), where rna rounds to 10
+// mantissa bits, ties away from zero: the bits of cvt.rna.tf32.f32,
+// computed on the integer units ((bits + 0x1000) & ~0x1fff), which issue at
+// full rate where the conversion does not.  Each product a b then runs as
+// three mma.sync.m16n8k8 TF32 products with float32 sums, a_lo b_hi +
+// a_hi b_lo into one accumulator and a_hi b_hi into another; a_lo b_lo
+// (~2^-22 relative) is dropped.  No product runs as plain TF32 (one mma, ~2^-11
 // relative).  The weights stay on the float32 units: dt, the cumsum, the
 // causal select, and the exponentials (exp2 on the special-function unit
 // of (cum_t - cum_s) log2(e) inside W, relative error ~2^-21 for the
@@ -101,6 +101,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tf32.cuh"   // rna_tf32, split, split4, mma_tf32
 
 namespace {
 
@@ -205,18 +207,6 @@ __device__ __forceinline__ float ex2(float x) {
   return r;
 }
 
-// cvt.rna.tf32.f32 on the integer units: round the magnitude to 10
-// mantissa bits, ties away from zero (the same bits for every finite x)
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// the 3xTF32 split: x = hi + lo + O(2^-22 x), hi and lo TF32
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = rna_tf32(x);
-  lo = rna_tf32(x - __uint_as_float(hi));
-}
-
 // A quarter (part 0..3) of X's kL x kD tile by synchronous loads into
 // shared memory with row stride ld (elements): element (r, k) from
 // src[r * stride + k] for r < rows and k < valid, zero elsewhere; four
@@ -233,15 +223,6 @@ __device__ __forceinline__ void load_x_part(T* dst, int ld, const T* src,
     dst[r * ld + k] =
         r < rows && k < valid ? src[r * stride + k] : from_f32<T>(0.0f);
   }
-}
-
-// d += a b, a 16 x 8 (row) and b 8 x 8 (col) TF32 fragments, f32 sums
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One k-step (8) of a warp's 16 x 32 product in 3xTF32: A's fragment
@@ -265,12 +246,6 @@ __device__ __forceinline__ void mma3_pre(float (&big)[4][4],
     mma_tf32(small[j], ah, bl0, bl1);
     mma_tf32(big[j], ah, bh0, bh1);
   }
-}
-
-__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(v[i], hi[i], lo[i]);
 }
 
 // The record of every (chunk, batch): G = C B^T (rows t, columns s, n

@@ -17,16 +17,20 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["DTYPES", "HEAD_DIMS", "BLOCK_Q", "BLOCK_K", "MAX_WORK_ITEMS",
-           "launch_flash_attention", "bf16_smem_bytes", "visible_pairs",
-           "key_tiles", "attention_flops", "attention_flops_executed",
-           "attention_bytes"]
+__all__ = ["DTYPES", "HEAD_DIMS", "BLOCK_Q", "BLOCK_K", "F32_BLOCK_K",
+           "F32_WARP_ROWS", "MAX_WORK_ITEMS", "launch_flash_attention",
+           "bf16_smem_bytes", "f32_smem_bytes", "visible_pairs", "key_tiles",
+           "attention_flops", "attention_flops_executed",
+           "attention_flops_executed_f32", "attention_bytes"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 112, 128)
-BLOCK_Q = 128       # bf16: query positions of one q head an item (kBM)
+BLOCK_Q = 128       # query positions of one q head an item (kBM), both dtypes
 BLOCK_K = 128       # bf16: keys a tile (kBN)
-MAX_WORK_ITEMS = 2 ** 31 - 1  # bf16: (q tile, head) items, an int
+F32_BLOCK_K = 32    # f32: keys a tile (kF32Keys)
+F32_WARP_ROWS = 16  # f32: query rows a consumer warp
+MAX_WORK_ITEMS = 2 ** 31 - 1  # (q tile, head) items, an int: the bf16
+#                               instance's persistent walk, the f32 grid.x
 TENSOR_MAP_ERROR = 10000  # the source's kTensorMapError
 
 
@@ -44,6 +48,15 @@ def bf16_smem_bytes(hd: int) -> int:
     """The bfloat16 kernel's dynamic shared memory at head dim ``hd``: q, the
     ring of K and V stages, the mbarriers (from the built library)."""
     fn = build.load("flash_attention").flash_attention_bf16_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(hd)
+
+
+def f32_smem_bytes(hd: int) -> int:
+    """The float32 kernel's dynamic shared memory at head dim ``hd``: q's
+    fragments, the ring of K and V hi/lo planes and its mbarriers (from
+    the built library)."""
+    fn = build.load("flash_attention").flash_attention_f32_smem
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(hd)
 
@@ -102,6 +115,14 @@ def key_tiles(pos0: int, sq: int, skv: int, causal: bool, window: int,
     return begin, end
 
 
+def _tile_pairs(sq: int, skv: int, causal: bool, window: int, rows: int,
+                keys: int) -> int:
+    """(query tile of ``rows``, key tile of ``keys``) pairs in range."""
+    return sum(max(0, hi - lo) for lo, hi in (
+        key_tiles(pos0, sq, skv, causal, window, rows, keys)
+        for pos0 in range(0, sq, rows)))
+
+
 def attention_flops_executed(q, k, *, causal: bool = True, window: int = 0,
                              rows: int = BLOCK_Q, keys: int = BLOCK_K) -> int:
     """Operations the bf16 kernel executes: the (q tile, key tile) pairs it
@@ -110,11 +131,22 @@ def attention_flops_executed(q, k, *, causal: bool = True, window: int = 0,
     runs p·v at 64).  Its achieved rate is read against this count;
     :func:`attention_flops` is the least work."""
     b, sq, h, hd = q.shape
-    pairs = 0
-    for pos0 in range(0, sq, rows):
-        lo, hi = key_tiles(pos0, sq, k.shape[1], causal, window, rows, keys)
-        pairs += max(0, hi - lo)
+    pairs = _tile_pairs(sq, k.shape[1], causal, window, rows, keys)
     return 2 * rows * keys * (hd + max(hd, 64)) * b * h * pairs
+
+
+def attention_flops_executed_f32(q, k, *, causal: bool = True,
+                                 window: int = 0) -> int:
+    """Operations the float32 kernel executes: each consumer warp's
+    :data:`F32_WARP_ROWS` rows (inside Sq) visit the tiles of
+    :data:`F32_BLOCK_K` keys in their causal and window range
+    (:func:`key_tiles`), at 2·rows·keys·2·hd a tile (q·kᵀ at depth hd, p·v
+    at width hd), masked entries included; each runs as three TF32
+    products."""
+    b, sq, h, hd = q.shape
+    rows, keys = F32_WARP_ROWS, F32_BLOCK_K
+    pairs = _tile_pairs(sq, k.shape[1], causal, window, rows, keys)
+    return 2 * rows * keys * 2 * hd * b * h * pairs
 
 
 def attention_bytes(q, k, v) -> int:

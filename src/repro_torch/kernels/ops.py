@@ -157,11 +157,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{v.dtype}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: tensors must be 16-byte aligned")
-    if q.dtype == torch.float32 and b * kvh > 65535:
-        raise ValueError(f"flash_attention: B*KV = {b * kvh} > 65535 "
-                         "(grid.y)")
-    if q.dtype == torch.bfloat16 and \
-            b * h * -(-sq // _fa.BLOCK_Q) > _fa.MAX_WORK_ITEMS:
+    if b * h * -(-sq // _fa.BLOCK_Q) > _fa.MAX_WORK_ITEMS:
         raise ValueError(f"flash_attention: B*H*ceil(Sq/{_fa.BLOCK_Q}) "
                          f"work items > {_fa.MAX_WORK_ITEMS}")
     out = torch.empty_like(q)

@@ -21,6 +21,27 @@ def set_torch_cpu():
     torch.set_num_threads(2)
 
 
+def rna_tf32(v):
+    """cvt.rna.tf32.f32 of a float32 tensor, as the port's 3xTF32 kernels
+    compute it on the integer units: 10 mantissa bits, ties away from
+    zero."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a, b):
+    """a @ b as three TF32 products (a_lo b_hi + a_hi b_lo, then a_hi b_hi)
+    with float32 sums; a_lo b_lo dropped."""
+    ah, bh = rna_tf32(a), rna_tf32(b)
+    al, bl = rna_tf32(a - ah), rna_tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm_tf32(a, b):
+    """a @ b as one plain TF32 product, which no port kernel uses."""
+    return rna_tf32(a) @ rna_tf32(b)
+
+
 def np_tree(tree):
     """A JAX pytree with every leaf as a numpy array (None kept)."""
     if tree is None:

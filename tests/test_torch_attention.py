@@ -11,7 +11,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from _torch_parity import set_torch_cpu  # noqa: E402
+from _torch_parity import rna_tf32, set_torch_cpu  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E402
@@ -207,3 +207,193 @@ def test_attention_flops_executed_counts_the_visited_tiles(
         sq, skv, causal, window, rows, keys)
     assert got == want
     assert got >= tfa.attention_flops(q, k, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (2085, 2085, True, 0), (300, 300, True, 40), (96, 160, False, 0),
+    (1000, 1000, True, 10), (37, 37, True, 0)])
+@pytest.mark.parametrize("hd", [32, 112, 128])
+def test_attention_flops_executed_f32_counts_each_warps_visible_tiles(
+        sq, skv, causal, window, hd):
+    """The float32 kernel's warps (16 rows) execute exactly the 32-key tiles
+    that hold a visible pair for one of their rows, at 2·16·32·2·hd each."""
+    q = torch.empty((2, sq, 4, hd), device="meta")
+    k = torch.empty((2, skv, 2, hd), device="meta")
+    got = tfa.attention_flops_executed_f32(q, k, causal=causal,
+                                           window=window)
+    want = 2 * 16 * 32 * 2 * hd * 2 * 4 * _brute_tile_pairs(
+        sq, skv, causal, window, tfa.F32_WARP_ROWS, tfa.F32_BLOCK_K)
+    assert got == want
+    assert got >= tfa.attention_flops(q, k, causal=causal, window=window)
+
+
+# The float32 kernel's arithmetic (csrc/flash_attention.cu, float32
+# instance), emulated in plain torch on the CPU: 32-key tiles in ascending
+# order; q * scale rounded to float32, then every product operand split
+# into TF32 hi and lo (rna_tf32) and each product a b run k-step by k-step
+# (8 wide) as three TF32 products: for q·kᵀ a_hi b_hi into one float32
+# accumulator and a_lo b_hi + a_hi b_lo into another, summed at the tile's
+# end; for p·v a_lo b_hi, a_hi b_lo and a_hi b_hi added in turn to o.  The
+# online softmax in float32 and log2 units, masked scores the finite
+# -2^30, keys past Skv -inf; p·v with the keys of each 8-key step in the
+# kernel's order (k-column c is key 2c for c < 4 and key 2(c - 4) + 1
+# after: the accumulator's pairs, unshuffled).
+_LOG2E = float(np.float32(1.4426950408889634))
+_NEG_INF = -2.0 ** 30
+_PV_ORDER = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _k_steps(a, b):
+    """(a, b) cut into the kernel's k-steps of 8."""
+    return [(a[..., k0:k0 + 8], b[..., k0:k0 + 8, :])
+            for k0 in range(0, a.shape[-1], 8)]
+
+
+def _qk_3xtf32(a, b):
+    """a @ b as q·kᵀ's k-steps: hi·hi and the two small terms in two
+    accumulators."""
+    ah, bh = rna_tf32(a), rna_tf32(b)
+    al, bl = rna_tf32(a - ah), rna_tf32(b - bh)
+    big = small = 0
+    for (xh, yh), (xl, yl) in zip(_k_steps(ah, bh), _k_steps(al, bl)):
+        small = small + xl @ yh
+        small = small + xh @ yl
+        big = big + xh @ yh
+    return big + small
+
+
+def _pv_3xtf32(acc, a, b):
+    """acc + a @ b as p·v's k-steps: the three products added in turn."""
+    ah, bh = rna_tf32(a), rna_tf32(b)
+    al, bl = rna_tf32(a - ah), rna_tf32(b - bh)
+    for (xh, yh), (xl, yl) in zip(_k_steps(ah, bh), _k_steps(al, bl)):
+        acc = acc + xl @ yh
+        acc = acc + xh @ yl
+        acc = acc + xh @ yh
+    return acc
+
+
+def _qk_tf32(a, b):
+    """a @ b as one plain TF32 product a k-step."""
+    acc = 0
+    for x, y in _k_steps(rna_tf32(a), rna_tf32(b)):
+        acc = acc + x @ y
+    return acc
+
+
+def _pv_tf32(acc, a, b):
+    return acc + _qk_tf32(a, b)
+
+
+def _flash_f32_emulated(q, k, v, *, causal=True, window=0, scale=None,
+                        qk=_qk_3xtf32, pv=_pv_3xtf32, ex2_rel=0.0,
+                        seed=0):
+    """The float32 kernel's result from float32 CPU tensors q (B, Sq, H,
+    hd), k and v (B, Skv, KV, hd).  ``ex2_rel`` perturbs every exp2 by a
+    relative error drawn from ±ex2_rel, a model of the MUFU's ex2.approx.
+    Every row visits every tile: a tile that masks all of a row's keys
+    leaves its m, l and o as the kernel's skip does, or adds garbage that
+    the next alpha = 0 wipes."""
+    b, sq, h, hd = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    scale = 1.0 / np.sqrt(hd) if scale is None else scale
+    qs = (q * np.float32(scale)).permute(0, 2, 1, 3)          # (b, h, sq, hd)
+    kh = k.repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vh = v.repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    gen = torch.Generator().manual_seed(seed)
+    pos = torch.arange(sq)[:, None]
+
+    def ex2(x):
+        y = torch.exp2(x)
+        return y * (1 + ex2_rel * (2 * torch.rand(y.shape, generator=gen) - 1)
+                    ).to(torch.float32)
+
+    m = torch.full((b, h, sq, 1), _NEG_INF)
+    l = torch.zeros((b, h, sq, 1))
+    o = torch.zeros((b, h, sq, hd))
+    for k_lo in range(0, skv, 32):
+        pad = (0, 0, 0, max(0, k_lo + 32 - skv))
+        kt = torch.nn.functional.pad(kh[:, :, k_lo:k_lo + 32], pad)
+        vt = torch.nn.functional.pad(vh[:, :, k_lo:k_lo + 32], pad)
+        s = qk(qs, kt.transpose(-1, -2))
+        s = s * _LOG2E
+        key = k_lo + torch.arange(32)[None, :]
+        masked = torch.zeros((sq, 32), dtype=torch.bool)
+        if causal:
+            masked |= key > pos
+        if window:
+            masked |= key <= pos - window
+        s = torch.where(masked, torch.tensor(_NEG_INF), s)
+        s = torch.where(key >= skv, torch.tensor(float("-inf")), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = ex2(m - m_new)
+        p = ex2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        order = torch.cat([j + _PV_ORDER for j in range(0, 32, 8)])
+        o = pv(o * alpha, p[..., order], vt[:, :, order])
+        m = m_new
+    return (o / torch.clamp_min(l, 1e-37)).permute(0, 2, 1, 3)
+
+
+def _attention_f64(q, k, v, *, causal=True, window=0, scale=None):
+    """attention_ref's definition evaluated in float64."""
+    b, sq, h, hd = q.shape
+    g = h // k.shape[2]
+    scale = 1.0 / np.sqrt(hd) if scale is None else scale
+    qd = q.double().permute(0, 2, 1, 3)
+    kd = k.double().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vd = v.double().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    s = (qd @ kd.transpose(-1, -2)) * scale
+    i = torch.arange(sq)[:, None]
+    j = torch.arange(k.shape[1])[None, :]
+    ok = torch.ones((sq, k.shape[1]), dtype=torch.bool)
+    if causal:
+        ok &= j <= i
+    if window:
+        ok &= j > i - window
+    p = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
+    return (p @ vd).permute(0, 2, 1, 3)
+
+
+_EMULATED = [
+    # b, s, h, kv, hd, window, scale: hd 128 with GQA (G 4) and a ragged
+    # 32-key tile; hd 112, MHA; a window whose rows see only masked keys in
+    # their first tile; a negative scale
+    (1, 200, 8, 2, 128, 0, None),
+    (2, 96, 2, 2, 112, 0, None),
+    (1, 300, 4, 2, 64, 40, None),
+    (1, 130, 4, 1, 32, 0, -0.2),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window,scale", _EMULATED)
+def test_flash_f32_kernel_arithmetic_holds_the_f32_tolerance(
+        b, s, h, kv, hd, window, scale):
+    """The float32 kernel's arithmetic (3xTF32 products, the permuted p·v
+    key order, exp2 with the MUFU's error ~2^-22 modelled as twice that)
+    against the definition in float64: within the float32 tolerance."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, s, h, kv, hd, seed=s))
+    want = _attention_f64(q, k, v, causal=True, window=window, scale=scale)
+    got = _flash_f32_emulated(q, k, v, causal=True, window=window,
+                              scale=scale, ex2_rel=2.0 ** -21)
+    assert got.dtype == torch.float32
+    err = float((got.double() - want).abs().max())
+    assert err <= TOL["float32"], err
+    ref = tref.attention_ref(q, k, v, causal=True, window=window,
+                             softmax_scale=scale)
+    assert float((ref.double() - want).abs().max()) <= TOL["float32"]
+
+
+@pytest.mark.parametrize("product", ["qk", "pv"])
+@pytest.mark.parametrize("b,s,h,kv,hd,window,scale", _EMULATED[:2])
+def test_flash_f32_one_plain_tf32_product_misses_the_f32_tolerance(
+        b, s, h, kv, hd, window, scale, product):
+    """With either product as plain TF32 (one mma a k-step) the same
+    emulation misses 2e-5: the kernel needs the 3xTF32 split in both."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, s, h, kv, hd, seed=s))
+    want = _attention_f64(q, k, v, causal=True, window=window, scale=scale)
+    plain = {"qk": _qk_tf32, "pv": _pv_tf32}[product]
+    got = _flash_f32_emulated(q, k, v, causal=True, window=window,
+                              scale=scale, **{product: plain})
+    assert float((got.double() - want).abs().max()) > TOL["float32"]
+

@@ -159,30 +159,48 @@ def test_flash_attention_kernel_negative_scale_on_cuda(hd, window, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_attention_kernel_items_without_visible_keys_on_cuda():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_items_without_visible_keys_on_cuda(dtype):
     """Sq > Skv with a window: whole q tiles see no key (an empty key-tile
-    range), and the ring of stages must not lose step over them."""
+    range), and the ring of stages must not lose step over them; the f32
+    instance's warps skip the tiles that mask all their rows."""
     _require_cuda()
-    q, _, _ = _attn_inputs(1, 1000, 4, 2, 64, torch.bfloat16, seed=4)
-    _, k, v = _attn_inputs(1, 1000, 4, 2, 64, torch.bfloat16, seed=5, skv=100)
+    dt = getattr(torch, dtype)
+    q, _, _ = _attn_inputs(1, 1000, 4, 2, 64, dt, seed=4)
+    _, k, v = _attn_inputs(1, 1000, 4, 2, 64, dt, seed=5, skv=100)
     out = ops.flash_attention(q, k, v, causal=True, window=10)
     ref = kref.attention_ref(q, k, v, causal=True, window=10)
     torch.cuda.synchronize()
     seen = 100 + 10 - 1           # rows below see at least one key
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out[:, :seen].float(), ref[:, :seen].float(),
-                               rtol=0, atol=2e-2)
+                               rtol=0, atol=tol)
     assert bool(torch.isfinite(out).all())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd,kv", [(128, 4), (112, 32)])
-def test_flash_attention_kernel_is_deterministic_on_cuda(hd, kv):
+def test_flash_attention_kernel_is_deterministic_on_cuda(hd, kv, dtype):
     """No atomics, a fixed order of tiles: two calls give the same bits."""
     _require_cuda()
-    q, k, v = _attn_inputs(2, 1000, 32, kv, hd, torch.bfloat16, seed=3)
+    q, k, v = _attn_inputs(2, 1000, 32, kv, hd, getattr(torch, dtype), seed=3)
     a = ops.flash_attention(q, k, v, causal=True)
     b = ops.flash_attention(q, k, v, causal=True)
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
+def test_flash_attention_f32_kernel_shared_memory_on_cuda(hd):
+    """The float32 kernel's shared memory (8 warps' q fragments, a ring of
+    2 stages of K and V hi/lo planes, 4 mbarriers) fits a block's 232,448
+    bytes."""
+    _require_cuda()
+    from repro_torch.kernels import flash_attention as kfa
+    q_frags = 16 * 8 * (hd // 8) * 32
+    stage = 16 * (32 * (hd // 2 + 4) + 16 * (hd + 2))
+    assert kfa.f32_smem_bytes(hd) == q_frags + 2 * stage + 32 <= 232448
 
 
 @pytest.mark.cuda

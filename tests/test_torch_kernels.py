@@ -220,3 +220,22 @@ def test_nvcc_flags_are_per_source_and_keyed_into_the_library_path(
     assert build.library_path("traj_masked_step") == tm
     monkeypatch.setitem(build.SOURCE_FLAGS, "traj_masked_step", [])
     assert build.library_path("traj_masked_step") != tm
+
+
+def test_library_path_follows_the_headers(tmp_path, monkeypatch):
+    """A source's library is keyed by every header under csrc/ too, so a
+    changed tf32.cuh rebuilds ssm_scan and flash_attention."""
+    import shutil
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = ("flash_attention", "ssm_scan", "traj_masked_step")
+    before = [build.library_path(n) for n in names]
+    assert before == [build.library_path(n) for n in names]
+    (csrc / "tf32.cuh").write_text((csrc / "tf32.cuh").read_text() + "\n")
+    after = [build.library_path(n) for n in names]
+    assert all(a != b for a, b in zip(after, before))
+    assert '#include "tf32.cuh"' in (csrc / "flash_attention.cu").read_text()
+    assert '#include "tf32.cuh"' in (csrc / "ssm_scan.cu").read_text()
+

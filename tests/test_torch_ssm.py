@@ -15,7 +15,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from _torch_parity import set_torch_cpu, ssm_params  # noqa: E402
+from _torch_parity import (mm_3xtf32, mm_tf32, rna_tf32,  # noqa: E402
+                           set_torch_cpu, ssm_params)
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.ssm_scan import ssm_scan as jssm_scan  # noqa: E402
@@ -157,26 +158,6 @@ def test_ssm_scan_counts_and_helpers():
                      chunk=0)
 
 
-def _rna_tf32(v):
-    """cvt.rna.tf32.f32 of a float32 tensor, as the kernel computes it on
-    the integer units: 10 mantissa bits, ties away from zero."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _mm_3xtf32(a, b):
-    """a @ b as the kernel's three TF32 products (a_lo b_hi + a_hi b_lo,
-    then a_hi b_hi) with float32 sums; a_lo b_lo dropped."""
-    ah, bh = _rna_tf32(a), _rna_tf32(b)
-    al, bl = _rna_tf32(a - ah), _rna_tf32(b - bh)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
-def _mm_tf32(a, b):
-    """a @ b as one plain TF32 product, which the kernel never uses."""
-    return _rna_tf32(a) @ _rna_tf32(b)
-
-
 def _ssd_chunked(x, dt, a, bm, cm, mm, chunk=64):
     """The kernel's chunked form at its chunk, in x's dtype, with its four
     products (W·X, C·state, (u B)ᵀ·X; G = C·Bᵀ stays a plain product, as
@@ -210,11 +191,11 @@ def test_tf32_rna_split_rounds_ties_away_and_keeps_2_22():
     v = torch.tensor([tie, -tie, tie - 2.0 ** -23, 3.0, 0.0],
                      dtype=torch.float32)
     want = [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0, 0.0]
-    assert _rna_tf32(v).tolist() == want
+    assert rna_tf32(v).tolist() == want
     r = torch.from_numpy(np.random.default_rng(0).standard_normal(
         100_000).astype(np.float32)) * 1e3
-    hi = _rna_tf32(r)
-    lo = _rna_tf32(r - hi)
+    hi = rna_tf32(r)
+    lo = rna_tf32(r - hi)
     assert float(((hi.double() + lo.double() - r.double()).abs()
                   / r.double().abs()).max()) <= 2.0 ** -22
     assert float(((hi.double() - r.double()).abs()
@@ -233,9 +214,9 @@ def test_ssd_3xtf32_chunked_form_within_float32_tolerance(b, s, nh, p, n):
     f64 = [v.double() for v in f32]
     want = _ssd_chunked(*f64, mm=torch.matmul)
     assert _rel_err(want, tref.ssm_scan_ref(*f32)) < TOL["float32"]
-    assert _rel_err(_ssd_chunked(*f32, mm=_mm_3xtf32), want) < \
+    assert _rel_err(_ssd_chunked(*f32, mm=mm_3xtf32), want) < \
         TOL["float32"]
-    assert _rel_err(_ssd_chunked(*f32, mm=_mm_tf32), want) > TOL["float32"]
+    assert _rel_err(_ssd_chunked(*f32, mm=mm_tf32), want) > TOL["float32"]
 
 
 # ---------------------------------------------------------------------------
