@@ -218,14 +218,16 @@ def cold_time_ms(fn, args) -> float:
     against ``bound_ms``: the tensor arguments are cloned into as many sets
     as make one pass over them and their outputs move more than
     ``COLD_BYTES``, and each call of the graph takes the next set, so every
-    call reads its inputs from device memory."""
+    call reads its inputs from device memory.  The median of three graphs
+    captured on the copies: now and then one reads ~0.35 us low for a 3 us
+    kernel on an H100, most often a process's first (PERF.md)."""
     out = fn(*args)
     per_set = out.numel() * out.element_size() + sum(
         a.numel() * a.element_size() for a in args if torch.is_tensor(a))
     n = max(8, -(-COLD_BYTES // per_set))
     sets = [[a.clone() if torch.is_tensor(a) else a for a in args]
             for _ in range(n)]
-    ms = graph_time_ms(fn, sets, replays=5)
+    ms = sorted(graph_time_ms(fn, sets, replays=5) for _ in range(3))[1]
     del sets
     torch.cuda.empty_cache()
     return ms
@@ -362,12 +364,18 @@ def check_pair(name, out, ref, x, active, bound):
     return float(diff.max()), bool(torch.equal(out[a], ref[a]))
 
 
+def kernel_tables(dev):
+    """The (5, 120) table phase 3 steps from: dense DDPM T=100, then DDIM
+    K=20 eta=0.3, as the engine concatenates its menu."""
+    sched = cosine_schedule(T)
+    return torch.cat([make_sampler(T).tables(sched),
+                      make_sampler(T, "ddim", 20, eta=0.3).tables(sched)],
+                     dim=1).to(dev)
+
+
 def phase_kernels(dev, card: str):
     bw, f32_peak, _ = card_rates(card)
-    sched = cosine_schedule(T)
-    tables = torch.cat([make_sampler(T).tables(sched),
-                        make_sampler(T, "ddim", 20, eta=0.3).tables(sched)],
-                       dim=1).to(dev)
+    tables = kernel_tables(dev)
     C = tables.shape[1]
     print(f"[kernels] table (5, {C}): dense DDPM T={T} + DDIM K=20 eta=0.3; "
           f"DDIM column 0 ar={float(tables[1, T]):.3e}", flush=True)
@@ -409,6 +417,8 @@ def phase_kernels(dev, card: str):
             w_s = warm_time_ms(ops.ddpm_step, s_args)
             e_m = cuda_time_ms(lambda: ops.traj_masked_step(*m_args))
             e_s = cuda_time_ms(lambda: ops.ddpm_step(*s_args))
+            block_s = kds.step_shape(x)
+            blocks_s = -(-(x.numel() // S) // block_s[0]) * S
             b_m = max(m_bytes / bw, m_ops / f32_peak) * 1e3
             b_s = max(s_bytes / bw, s_ops / f32_peak) * 1e3
             by_m = "bytes" if m_bytes / bw >= m_ops / f32_peak else "operations"
@@ -423,8 +433,8 @@ def phase_kernels(dev, card: str):
                   f"bitwise {bit_s} | cold L2: kernel {t_s * 1e3:.3f}us "
                   f"plain {t_sp * 1e3:.3f}us bound {b_s * 1e3:.3f}us "
                   f"({s_bytes} B, share {b_s / t_s:.1%}) | warm L2 kernel "
-                  f"{w_s * 1e3:.3f}us | eager call {e_s * 1e3:.2f}us",
-                  flush=True)
+                  f"{w_s * 1e3:.3f}us | eager call {e_s * 1e3:.2f}us | "
+                  f"{blocks_s} programs of {block_s[1]} warps", flush=True)
             rows[(S, dtype)] = {
                 "traj_masked_step": (err_m, t_m, t_mp, b_m, by_m),
                 "ddpm_step": (err_s, t_s, t_sp, b_s, by_s)}
@@ -434,11 +444,11 @@ def phase_kernels(dev, card: str):
 # ---------------------------------------------------------------------------
 # phase 4: the slice at full width
 # ---------------------------------------------------------------------------
-def slice_requests():
+def slice_requests(n: int = 8):
     return [Request(req_id=i, seed=1000 + i, batch=1 + i % 2,
                     cut_ratio=(0.25, 0.5, 0.75)[i % 3], client_idx=i % 2,
                     arrival_tick=2 * i, sampler=("ddpm", "ddim")[i % 2])
-            for i in range(8)]
+            for i in range(n)]
 
 
 def max_diff(a, b, attr):

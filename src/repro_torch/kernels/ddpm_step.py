@@ -10,9 +10,9 @@ Counterpart of ``repro/kernels/ddpm_step.py``.  Two kernels:
   streams 3 tensors into 1 (16 bytes and 5 flops per f32 element), with no
   tensor-core work, no reuse and no state across blocks — a pure elementwise
   pass, for which Triton serves as well as CUDA C++.  Each program loads its
-  sample's four coefficients as scalars and one 1024-element block of each
-  stream; floating-point contraction is off so products and sums round as
-  in the plain version.
+  sample's four coefficients as scalars and one block of each stream
+  (:func:`step_shape`); floating-point contraction is off so products and
+  sums round as in the plain version.
 * ``traj_masked_step`` — the serving engine's whole masked tick
   (column gather, update, clip, active select) in one pass.  CUDA C++ in
   ``csrc/traj_masked_step.cu`` (see its header for the design), replacing
@@ -27,6 +27,7 @@ launch.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -35,9 +36,31 @@ from repro_torch.kernels import build
 
 __all__ = ["launch_ddpm_step", "launch_traj_masked_step", "ddpm_step_coefs",
            "masked_step_tables", "index_step_coefs", "masked_step_bytes",
-           "lane_meta"]
+           "lane_meta", "step_shape"]
 
-STEP_BLOCK = 1024           # elements per Triton program of ddpm_step
+# ddpm_step's launch shape: (elements a program, warps a program).  1024
+# elements on 4 warps, one 16-byte vector a stream a thread in bf16, two in
+# float32.  Where that grid is smaller than the card (S = 8 lanes of 16,384:
+# 128 programs on 132 SMs), float32 takes one warp of 512 elements (four
+# vectors a thread, 256 programs), which reaches the stream floor; two warps
+# of 512 do not, and bf16 is at its stream floor already (PERF.md).
+STEP_SHAPE = (1024, 4)
+STEP_SHAPE_SMALL_F32 = (512, 1)
+_SM_COUNT: Dict[torch.device, int] = {}
+
+
+def step_shape(x: torch.Tensor) -> Tuple[int, int]:
+    """(elements a program, warps a program) of ddpm_step over (B, ...) x,
+    a CUDA tensor."""
+    b = x.shape[0]
+    d = x.numel() // b
+    if x.dtype == torch.float32:
+        if x.device not in _SM_COUNT:
+            _SM_COUNT[x.device] = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+        if -(-d // STEP_SHAPE[0]) * b < _SM_COUNT[x.device]:
+            return STEP_SHAPE_SMALL_F32
+    return STEP_SHAPE
 
 
 # ---------------------------------------------------------------------------
@@ -137,10 +160,11 @@ def launch_ddpm_step(x_t, eps_hat, noise, coefs, out) -> None:
     .ddpm_step` checks."""
     b = x_t.shape[0]
     d = x_t.numel() // b
+    block, warps = step_shape(x_t)
     triton, kernel = _triton_step_kernel()
-    grid = (triton.cdiv(d, STEP_BLOCK), b)
-    kernel[grid](x_t, eps_hat, noise, coefs, out, d, BLOCK=STEP_BLOCK,
-                 num_warps=4, enable_fp_fusion=False)
+    kernel[(triton.cdiv(d, block), b)](x_t, eps_hat, noise, coefs, out, d,
+                                       BLOCK=block, num_warps=warps,
+                                       enable_fp_fusion=False)
 
 
 # -- traj_masked_step: CUDA C++ ---------------------------------------------

@@ -97,8 +97,9 @@ def traj_masked_step(x: torch.Tensor, cols: torch.Tensor,
     if active.dtype != torch.bool or active.shape != (s,):
         raise ValueError(f"traj_masked_step: active must be ({s},) bool")
     if tables.dtype != torch.float32 or tables.ndim != 2 \
-            or tables.shape[0] < 4:
-        raise ValueError("traj_masked_step: tables must be (4|5, C) float32")
+            or tables.shape[0] < 4 or tables.shape[1] < 1:
+        raise ValueError("traj_masked_step: tables must be (4|5, C) float32, "
+                         "C >= 1")
     if s > 65535:
         raise ValueError(f"traj_masked_step: {s} lanes > 65535 (grid.y)")
     out = torch.empty_like(x)

@@ -83,6 +83,191 @@ def test_ddpm_step_kernel_matches_plain_on_cuda(dtype):
                                    atol=2 ** -7)
 
 
+def _masked_case(S, shape, dtype, tables, seed=0, active=None, offset=0):
+    """(x, cols, eps, z, active) for S lanes of ``shape``: columns over the
+    whole table and out of range, every fourth lane inactive unless
+    ``active`` is given; x, eps and z are views ``offset`` elements into
+    larger buffers (16-byte vectors off when that is not aligned)."""
+    g = torch.Generator().manual_seed(seed)
+    C = tables.shape[1]
+    cols = torch.randint(0, C, (S,), generator=g, dtype=torch.int32)
+    cols[: min(S, 4)] = torch.tensor([C - 1, 0, -7, C + 50],
+                                     dtype=torch.int32)[: min(S, 4)]
+    if active is None:
+        active = torch.ones(S, dtype=torch.bool)
+        active[3::4] = False
+    n = S * int(torch.tensor(shape).prod())
+
+    def stream():
+        buf = torch.randn(n + offset, generator=g).to(dtype).cuda()
+        return buf[offset:].view((S,) + tuple(shape))
+    x, eps, z = stream(), stream(), stream()
+    return x, cols.cuda(), eps, z, active.cuda()
+
+
+def _check_masked(out, ref, x, active):
+    """Inactive lanes x bit for bit; float32 bitwise equal to the plain
+    version, bf16 within 2^-7."""
+    torch.cuda.synchronize()
+    assert torch.equal(out[~active], x[~active])
+    if out.dtype == torch.float32:   # -fmad=false: the plain arithmetic
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+def _tables(kind):
+    """The phase-3 (5, 120) table staged in shared memory; 40 of them side
+    by side (4,800 columns, past the 32 KB staging budget), gathered from
+    device memory; or the small one as a view 4 bytes into a buffer (not
+    16-byte aligned), gathered too."""
+    sched = tsch.cosine_schedule(100)
+    tables = torch.cat([tsm.make_sampler(100).tables(sched),
+                        tsm.make_sampler(100, "ddim", 20, 0.3).tables(sched)],
+                       dim=1).cuda()
+    if kind == "over_budget":
+        return torch.cat([tables * (1 + 0.01 * i) for i in range(40)], dim=1)
+    if kind == "unaligned":
+        buf = torch.empty(tables.numel() + 1, device="cuda")
+        view = buf[1:].view(tables.shape)
+        view.copy_(tables)
+        return view
+    return tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["staged", "over_budget", "unaligned"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_traj_masked_step_kernel_both_table_paths_on_cuda(kind, dtype):
+    _require_cuda()
+    tables = _tables(kind)
+    x, cols, eps, z, active = _masked_case(16, (128, 128, 1),
+                                           getattr(torch, dtype), tables)
+    out = ops.traj_masked_step(x, cols, eps, z, active, tables)
+    ref = kref.traj_masked_step_ref(x, cols, eps, z, active, tables)
+    _check_masked(out, ref, x, active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("on", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_traj_masked_step_kernel_all_lanes_inactive_or_active_on_cuda(
+        on, dtype):
+    _require_cuda()
+    tables = _tables("staged")
+    act = torch.full((8,), on, dtype=torch.bool)
+    x, cols, eps, z, active = _masked_case(8, (128, 128, 1),
+                                           getattr(torch, dtype), tables,
+                                           active=act)
+    out = ops.traj_masked_step(x, cols, eps, z, active, tables)
+    ref = kref.traj_masked_step_ref(x, cols, eps, z, active, tables)
+    _check_masked(out, ref, x, active)
+    if not on:
+        assert torch.equal(out, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_traj_masked_step_kernel_lane_counts_on_cuda(S, dtype):
+    _require_cuda()
+    tables = _tables("staged")
+    x, cols, eps, z, active = _masked_case(S, (128, 128, 1),
+                                           getattr(torch, dtype), tables,
+                                           seed=S)
+    out = ops.traj_masked_step(x, cols, eps, z, active, tables)
+    ref = kref.traj_masked_step_ref(x, cols, eps, z, active, tables)
+    _check_masked(out, ref, x, active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((127, 129, 1), 0),
+                                          ((128, 128, 1), 1)],
+                         ids=["ragged", "offset_view"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_traj_masked_step_kernel_without_vectors_on_cuda(shape, offset,
+                                                         dtype):
+    """vec_ok = 0: D·size not a multiple of 16 bytes, or views 4 bytes
+    (bf16: 2 elements, one f32) into larger buffers."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    tables = _tables("staged")
+    x, cols, eps, z, active = _masked_case(
+        8, shape, dt, tables, offset=offset * 32 // torch.finfo(dt).bits)
+    assert offset == 0 or x.data_ptr() % 16 == 4
+    out = ops.traj_masked_step(x, cols, eps, z, active, tables)
+    ref = kref.traj_masked_step_ref(x, cols, eps, z, active, tables)
+    _check_masked(out, ref, x, active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_traj_masked_step_kernel_nan_in_eps_on_cuda(dtype):
+    """A NaN in ε̂: an inactive lane returns x bit for bit, an active lane
+    what the plain version gives (NaN, which the clip leaves as it is)."""
+    _require_cuda()
+    tables = _tables("staged")
+    x, cols, eps, z, active = _masked_case(8, (128, 128, 1),
+                                           getattr(torch, dtype), tables)
+    assert bool(active[0]) and not bool(active[3])
+    eps[0, 5, 7, 0] = float("nan")
+    eps[3, 5, 7, 0] = float("nan")
+    out = ops.traj_masked_step(x, cols, eps, z, active, tables)
+    ref = kref.traj_masked_step_ref(x, cols, eps, z, active, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(out[~active], x[~active])
+    assert bool(torch.isnan(out[0, 5, 7, 0]))
+    tol = 0.0 if out.dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_traj_masked_step_kernel_is_bitwise_repeatable_on_cuda(dtype):
+    _require_cuda()
+    tables = _tables("staged")
+    args = _masked_case(32, (128, 128, 1), getattr(torch, dtype), tables)
+    a = ops.traj_masked_step(*args, tables)
+    b = ops.traj_masked_step(*args, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_traj_masked_step_wrapper_raises_on_an_empty_table_on_cuda():
+    """A (5, 0) table has no column to clamp into: the plain version
+    raises on it, and the kernel would read outside it."""
+    _require_cuda()
+    x, cols, eps, z, active = _masked_case(2, (8, 8, 1), torch.float32,
+                                           _tables("staged"))
+    with pytest.raises(ValueError, match="C >= 1"):
+        ops.traj_masked_step(x, cols, eps, z, active,
+                             torch.zeros((5, 0), device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ddpm_step_kernel_ragged_lanes_on_cuda(dtype):
+    """The Triton kernel's launch shape over lanes of 127x129x1 (ragged
+    blocks, 16-byte vectors off) and one lane."""
+    _require_cuda(triton=True)
+    dt = getattr(torch, dtype)
+    tables = _tables("staged")
+    for S, shape in ((8, (127, 129, 1)), (1, (128, 128, 1))):
+        x, cols, eps, z, _ = _masked_case(S, shape, dt, tables, seed=S)
+        coefs = tds.index_step_coefs(tables, torch.clamp(cols, 0, 119))
+        out = ops.ddpm_step(x, eps, z, coefs)
+        ref = kref.ddpm_step_ref(x, eps, z, coefs)
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            assert torch.equal(out, ref)
+        else:
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       rtol=2 ** -7, atol=2 ** -7)
+
+
 def _attn_inputs(b, s, h, kv, hd, dtype, seed=0, skv=None):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((b, s, h, hd), generator=g).to(dtype)
