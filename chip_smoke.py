@@ -36,6 +36,21 @@ Phases, each printing its own lines:
    through ``ServeEngine.serve()`` with each step backend: finite outputs,
    backends agree, each kernel launched on its own run, one lane replayed
    by ``split_sample_lane``, window depth k=4 against k=1, throughput;
+4b. train — CollaFuse split training of the paper U-Net at full width
+   (``UNetConfig()``, cosine T = 100, c = 0.8, 3 clients of 16 synthetic
+   images, lr 1e-3, clip 1.0; random initial weights from a seed): (a) the
+   batched trainer, a warm-up round and 8 timed rounds, each round's server
+   and mean client loss, wall time and step times (CUDA events), the
+   steps' rate against the f32 peak (3x ``flops_per_image`` an image),
+   peak memory, a profiled round; the losses must fall; (b) the looped
+   trainer from the same models and draws: round 0's losses against (a)'s
+   within the CPU tests' tolerance, its round and step times and memory;
+   (c) one round at ``reduced()`` on the card and on the CPU: losses and
+   parameters within the stated bounds; (d) the trained server and 3
+   client models served through ``ServeEngine.serve()`` on phase 4's
+   request mix (client i % 3) with each backend, backends agreeing, each
+   kernel launched, and ``trainer.sample`` through ``ddpm_step``; (e) each
+   client's disclosed x at the cut against its real images: MSE and KID;
 5. LM slice — Yi-6B at full width and depth in bf16 (random weights from a
    seed): (a) prefill of 4x2048 tokens through the flash kernel, 32
    launches a call, timed and profiled; (b) the same batch through
@@ -56,6 +71,7 @@ non-zero, without the last line, when CUDA is absent or any phase fails.
 Imports nothing of ``jax`` and nothing of the JAX package.
 """
 import contextlib
+import dataclasses
 import functools
 import io
 import itertools
@@ -75,6 +91,12 @@ import torch  # noqa: E402
 
 from repro_torch.configs import UNetConfig, get_config  # noqa: E402
 from repro_torch.core.collafuse import CutPlan, split_sample_lane  # noqa: E402
+from repro_torch.core.privacy import (disclosure_report,  # noqa: E402
+                                      feature_params)
+from repro_torch.core.trainer import (CollaFuseTrainer,  # noqa: E402
+                                      TrainerConfig)
+from repro_torch.data.synthetic import (ClientDataConfig,  # noqa: E402
+                                        image_batches, make_client_datasets)
 from repro_torch.diffusion.sampler import make_sampler  # noqa: E402
 from repro_torch.diffusion.schedule import cosine_schedule  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -151,6 +173,23 @@ LM_TOL_MAX, LM_TOL_MEAN = 0.25, 0.03
 # a decode mean of 1.3.
 HYBRID_TOL_MEAN = 0.6
 BLOCK_TOL_MAX, BLOCK_TOL_MEAN = 2.0 ** -4, 2.0 ** -6
+# phase 4b: CollaFuse split training of the paper U-Net (its §4 setup: cosine
+# T = 100, c = 0.8, 3 clients, lr 1e-3, grad clip 1.0).  The paper's 150
+# images a client do not fit: at 16 a client (48 pooled) the allocator's
+# peak reaches 62 GB of an H100's 80 in f32 (PERF.md), so the batch is cut
+# to 16.
+TRAIN_CLIENTS, TRAIN_CUT, TRAIN_BATCH, TRAIN_ROUNDS = 3, 0.8, 16, 8
+# batched against looped on the card: the CPU tests' loss tolerance
+# (tests/test_torch_train.py)
+TRAIN_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+# the card against the CPU, one round at reduced(): the losses of round 0
+# depend only on the shared weights and draws, but cuDNN may pick FFT or
+# Winograd convolutions, whose f32 error exceeds a direct sum's: rtol 1e-4.
+# AdamW's first step moves each parameter by ±lr by its gradient's sign, so
+# a gradient near 0 can put one entry 2·lr apart: every entry within
+# 2.002·lr, each model's mean |Δ| within 1 % of lr (tests/test_torch_cuda.py)
+CPU_LOSS_RTOL = 1e-4
+TRAIN_PARAM_MAX, TRAIN_PARAM_MEAN = 2 * 1.001 * 1e-3, 1e-5
 T = 100
 IMG = (128, 128, 1)
 # bytes one pass of a cold-L2 timing moves: over 5x the H100's 50 MB L2
@@ -444,11 +483,72 @@ def phase_kernels(dev, card: str):
 # ---------------------------------------------------------------------------
 # phase 4: the slice at full width
 # ---------------------------------------------------------------------------
-def slice_requests(n: int = 8):
+def slice_requests(n: int = 8, n_clients: int = 2):
     return [Request(req_id=i, seed=1000 + i, batch=1 + i % 2,
-                    cut_ratio=(0.25, 0.5, 0.75)[i % 3], client_idx=i % 2,
-                    arrival_tick=2 * i, sampler=("ddpm", "ddim")[i % 2])
+                    cut_ratio=(0.25, 0.5, 0.75)[i % 3],
+                    client_idx=i % n_clients, arrival_tick=2 * i,
+                    sampler=("ddpm", "ddim")[i % 2])
             for i in range(n)]
+
+
+def slice_samplers():
+    return {"ddpm": make_sampler(T), "ddim": make_sampler(T, "ddim", 20)}
+
+
+def slice_engine(server, backend, k, dev):
+    """Phase 4's engine: 8 slots, the cut-ratio scheduler, window depth
+    ``k``, the {DDPM, DDIM K = 20} menu."""
+    samplers = slice_samplers()
+    return ServeEngine(EngineConfig(
+        sched=cosine_schedule(T), image_shape=IMG, slots=8,
+        scheduler=make_scheduler("cut_ratio", T, samplers=samplers),
+        step_backend=backend, samplers=samplers, ticks_per_dispatch=k,
+        device=dev), server)
+
+
+def serve_backends(server, clients, dev, requests, tag):
+    """Serve ``requests`` with each step backend, the launch counts set to
+    0 just before each run and read just after; hold finite outputs and
+    each kernel launched on its own run.  Returns (results, counts)."""
+    runs, counts = {}, {}
+    for backend in ("cuda_masked", "triton", "torch"):
+        ops.reset_launch_counts()
+        res = slice_engine(server, backend, 4, dev).serve(requests, clients)
+        counts[backend] = ops.launch_counts()
+        runs[backend] = res
+        for comp in res.completions.values():
+            if not (np.isfinite(comp.x_mid).all() and
+                    np.isfinite(comp.x0).all()):
+                raise AssertionError(f"{backend}: non-finite output for "
+                                     f"request {comp.request.req_id}")
+        s = res.summary
+        print(f"[{tag}] {backend} k=4: {s['requests']} requests "
+              f"({s['images']} images), {s['ticks']} ticks, wall "
+              f"{res.wall_s:.3f}s | {s['ticks_per_s']:.2f} ticks/s "
+              f"({1e3 / s['ticks_per_s']:.2f} ms/tick) | "
+              f"{s['images_per_s']:.3f} images/s | finish "
+              f"{s['finish_s']:.3f}s | launches {counts[backend]}",
+              flush=True)
+    if counts["cuda_masked"]["traj_masked_step"] == 0:
+        raise AssertionError("traj_masked_step never launched on its run")
+    if counts["triton"]["ddpm_step"] == 0:
+        raise AssertionError("ddpm_step never launched on its run")
+    return runs, counts
+
+
+def check_backends_agree(runs, tag, tol=1e-2):
+    """The kernels reproduce the plain arithmetic (f32), and a 1-ulp
+    difference per step (x·(1/√ar) against x/√ar in the Triton path) is
+    amplified through the chain, hence the bound."""
+    base = runs["torch"]
+    for backend in ("cuda_masked", "triton"):
+        dm = max_diff(runs[backend], base, "x_mid")
+        d0 = max_diff(runs[backend], base, "x0")
+        print(f"[{tag}] {backend} vs torch: max |dx_mid| {dm:.3e} max |dx0| "
+              f"{d0:.3e} bitwise {bitwise(runs[backend], base)} "
+              f"(tolerance {tol})", flush=True)
+        if max(dm, d0) > tol:
+            raise AssertionError(f"{backend} disagrees with torch")
 
 
 def max_diff(a, b, attr):
@@ -474,60 +574,20 @@ def phase_slice(dev):
           f"MB f32) x 3 models, built in {time.perf_counter() - t0:.1f}s",
           flush=True)
     sched = cosine_schedule(T)
-    samplers = {"ddpm": make_sampler(T), "ddim": make_sampler(T, "ddim", 20)}
-
-    def engine(backend, k):
-        return ServeEngine(EngineConfig(
-            sched=sched, image_shape=IMG, slots=8,
-            scheduler=make_scheduler("cut_ratio", T, samplers=samplers),
-            step_backend=backend, samplers=samplers, ticks_per_dispatch=k,
-            device=dev), server)
+    samplers = slice_samplers()
 
     # warm-up: cuDNN heuristics and allocator, on two short ddim requests
     warm = [Request(req_id=i, seed=i, cut_ratio=0.75, sampler="ddim")
             for i in range(2)]
     with torch.inference_mode():
-        engine("cuda_masked", 4).serve(warm, clients)
-        engine("triton", 4).serve(warm, clients)
+        slice_engine(server, "cuda_masked", 4, dev).serve(warm, clients)
+        slice_engine(server, "triton", 4, dev).serve(warm, clients)
     torch.cuda.synchronize()
 
-    runs, counts = {}, {}
-    for backend in ("cuda_masked", "triton", "torch"):
-        ops.reset_launch_counts()
-        res = engine(backend, 4).serve(slice_requests(), clients)
-        counts[backend] = ops.launch_counts()
-        runs[backend] = res
-        for comp in res.completions.values():
-            if not (np.isfinite(comp.x_mid).all() and
-                    np.isfinite(comp.x0).all()):
-                raise AssertionError(f"{backend}: non-finite output for "
-                                     f"request {comp.request.req_id}")
-        s = res.summary
-        print(f"[slice] {backend} k=4: {s['requests']} requests "
-              f"({s['images']} images), {s['ticks']} ticks, wall "
-              f"{res.wall_s:.3f}s | {s['ticks_per_s']:.2f} ticks/s "
-              f"({1e3 / s['ticks_per_s']:.2f} ms/tick) | "
-              f"{s['images_per_s']:.3f} images/s | finish "
-              f"{s['finish_s']:.3f}s | launches {counts[backend]}",
-              flush=True)
-    if counts["cuda_masked"]["traj_masked_step"] == 0:
-        raise AssertionError("traj_masked_step never launched on its run")
-    if counts["triton"]["ddpm_step"] == 0:
-        raise AssertionError("ddpm_step never launched on its run")
-
-    # backends agree: the kernels reproduce the plain arithmetic (f32), and
-    # a 1-ulp difference per step (x·(1/√ar) against x/√ar in the Triton
-    # path) is amplified through the chain, hence the bound
+    runs, counts = serve_backends(server, clients, dev, slice_requests(),
+                                  "slice")
     tol = 1e-2
-    base = runs["torch"]
-    for backend in ("cuda_masked", "triton"):
-        dm = max_diff(runs[backend], base, "x_mid")
-        d0 = max_diff(runs[backend], base, "x0")
-        print(f"[slice] {backend} vs torch: max |dx_mid| {dm:.3e} max |dx0| "
-              f"{d0:.3e} bitwise {bitwise(runs[backend], base)} "
-              f"(tolerance {tol})", flush=True)
-        if max(dm, d0) > tol:
-            raise AssertionError(f"{backend} disagrees with torch")
+    check_backends_agree(runs, "slice", tol)
 
     # one lane against split_sample_lane (batch 1 instead of 8 lanes: other
     # convolution algorithms, so a tolerance)
@@ -550,7 +610,8 @@ def phase_slice(dev):
                                  "split_sample_lane")
 
     # window depth: k=4 against k=1
-    res1 = engine("cuda_masked", 1).serve(slice_requests(), clients)
+    res1 = slice_engine(server, "cuda_masked", 1, dev).serve(
+        slice_requests(), clients)
     dm = max_diff(res, res1, "x_mid")
     d0 = max_diff(res, res1, "x0")
     print(f"[slice] k=4 vs k=1: max |dx_mid| {dm:.3e} max |dx0| {d0:.3e} "
@@ -574,14 +635,228 @@ def phase_slice(dev):
     return counts
 
 
-def profile_device(label: str, fn, reps: int = 3):
+# ---------------------------------------------------------------------------
+# phase 4b: CollaFuse split training of the paper U-Net, then serving it
+# ---------------------------------------------------------------------------
+def event_ms(pair) -> float:
+    start, stop = pair
+    return start.elapsed_time(stop)
+
+
+def timed_method(obj, name: str, pairs: list) -> None:
+    """Wrap ``obj.name`` so each call is bracketed by CUDA events, appended
+    to ``pairs`` (read after a synchronize)."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        stop.record()
+        pairs.append((start, stop))
+        return out
+    setattr(obj, name, wrapped)
+
+
+def param_gap(a, b):
+    """(max, mean) |a - b| over every entry of two parameter dicts."""
+    d = torch.cat([(a[k].cpu() - b[k].cpu()).abs().ravel() for k in a])
+    return float(d.max()), float(d.mean())
+
+
+def check_losses(got, want, tol, what):
+    pairs = [(got["server_loss"], want["server_loss"])] + list(
+        zip(got["client_losses"], want["client_losses"]))
+    worst = max(abs(g - w) / abs(w) for g, w in pairs)
+    ok = all(abs(g - w) <= tol["atol"] + tol["rtol"] * abs(w)
+             for g, w in pairs)
+    print(f"[train] {what}: losses max rel |d| {worst:.3e} (rtol "
+          f"{tol['rtol']}, atol {tol['atol']})", flush=True)
+    if not ok:
+        raise AssertionError(f"{what}: losses disagree")
+
+
+def phase_train(dev, card: str):
+    t_phase = time.perf_counter()
+    ucfg = UNetConfig()
+    fpi = flops_per_image(ucfg)
+    f32_peak = card_rates(card)[1]
+    data, _ = make_client_datasets(ClientDataConfig(
+        n_clients=TRAIN_CLIENTS, per_client=4 * TRAIN_BATCH,
+        image_size=IMG[0], holdout=2))
+    streams = [image_batches(d, TRAIN_BATCH, seed=k)
+               for k, d in enumerate(data)]
+    # warm-up, the timed rounds, one profiled round
+    batches = [[next(st) for st in streams] for _ in range(TRAIN_ROUNDS + 2)]
+    cfg = TrainerConfig(n_clients=TRAIN_CLIENTS, T=T, cut_ratio=TRAIN_CUT,
+                        step_backend="triton")
+
+    def factory(seed):
+        return UNet(ucfg, seed=seed)
+
+    t0 = time.perf_counter()
+    tr = CollaFuseTrainer(cfg, factory, device=dev, flops_per_call=fpi)
+    n_img = TRAIN_CLIENTS * TRAIN_BATCH
+    print(f"[train] paper U-Net x {TRAIN_CLIENTS + 1} (server + "
+          f"{TRAIN_CLIENTS} clients), {tr.plan.describe()}, cosine T={T}, "
+          f"lr {cfg.lr}, clip {cfg.grad_clip}; {TRAIN_BATCH} images a client "
+          f"(paper 150: cut to fit), pooled server batch {n_img}; built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    steps = {"server": [], "client": []}
+    timed_method(tr, "_server_update", steps["server"])
+    timed_method(tr, "_client_round", steps["client"])
+    # FLOP of a step, counted as 3x the forward's (forward + backward)
+    step_flop = 3 * fpi * n_img
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist, walls = [], []
+    for r in range(TRAIN_ROUNDS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_round(batches[r])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        s_ms, c_ms = (event_ms(steps[k][-1]) for k in ("server", "client"))
+        hist.append(m)
+        losses = [m["server_loss"]] + m["client_losses"]
+        if not all(np.isfinite(v) for v in losses):
+            raise AssertionError(f"round {r}: non-finite loss {losses}")
+        print(f"[train] round {r}{' (warm-up)' if r == 0 else ''}: server "
+              f"loss {m['server_loss']:.5f}, client loss mean "
+              f"{m['client_loss_mean']:.5f} | round {walls[-1]:.1f} ms | "
+              f"server step {s_ms:.1f} ms ({step_flop / s_ms / 1e9:.1f} "
+              f"TFLOP/s, {step_flop / s_ms / 1e9 / (f32_peak / 1e12):.1%} "
+              f"of {f32_peak / 1e12:.0f}) | client step {c_ms:.1f} ms "
+              f"({step_flop / c_ms / 1e9:.1f} TFLOP/s)", flush=True)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    timed = slice(1, TRAIN_ROUNDS + 1)
+    s_ms = float(np.mean([event_ms(p) for p in steps["server"][timed]]))
+    c_ms = float(np.mean([event_ms(p) for p in steps["client"][timed]]))
+    w_ms = float(np.mean(walls[timed]))
+    print(f"[train] {TRAIN_ROUNDS} timed rounds: round {w_ms:.1f} ms, server "
+          f"step {s_ms:.1f} ms, client step {c_ms:.1f} ms, the rest "
+          f"{w_ms - s_ms - c_ms:.1f} ms; a step's FLOP counted as 3x "
+          f"flops_per_image ({fpi / 1e9:.2f} GFLOP) x {n_img} images = "
+          f"{step_flop / 1e12:.2f} TFLOP: server "
+          f"{step_flop / s_ms / 1e9:.1f} TFLOP/s, client "
+          f"{step_flop / c_ms / 1e9:.1f} TFLOP/s against the "
+          f"{f32_peak / 1e12:.0f} TFLOP/s f32 peak | peak memory "
+          f"{peak_gb:.2f} GB (max_memory_allocated)", flush=True)
+    print("[train] loss curve: server "
+          f"{[round(m['server_loss'], 5) for m in hist]} client mean "
+          f"{[round(m['client_loss_mean'], 5) for m in hist]}", flush=True)
+    for key in ("server_loss", "client_loss_mean"):
+        if not hist[-1][key] < hist[0][key]:
+            raise AssertionError(f"{key} did not fall: {hist[0][key]} -> "
+                                 f"{hist[-1][key]}")
+    profile_device("training round (batched)",
+                   lambda: tr.train_round(batches[-1]), reps=1,
+                   mode=contextlib.nullcontext)
+
+    # (b) batched against looped: the same initial models and draws
+    lt = CollaFuseTrainer(dataclasses.replace(cfg, batched=False), factory,
+                          device=dev, flops_per_call=fpi)
+    lsteps = {"server": [], "client": []}
+    timed_method(lt, "_server_update", lsteps["server"])
+    timed_method(lt, "_client_update", lsteps["client"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    lwalls, lhist = [], []
+    for r in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lhist.append(lt.train_round(batches[r]))
+        torch.cuda.synchronize()
+        lwalls.append((time.perf_counter() - t0) * 1e3)
+    check_losses(lhist[0], hist[0], TRAIN_LOSS_TOL, "looped vs batched, "
+                 "round 0")
+    ls_ms = float(np.mean([event_ms(p) for p in lsteps["server"][1:]]))
+    lc_ms = float(np.mean([
+        sum(event_ms(p) for p in lsteps["client"][i:i + TRAIN_CLIENTS])
+        for i in range(TRAIN_CLIENTS, 3 * TRAIN_CLIENTS, TRAIN_CLIENTS)]))
+    lw_ms = float(np.mean(lwalls[1:]))
+    print(f"[train] looped engine, rounds 1-2: round {lw_ms:.1f} ms "
+          f"(batched {w_ms:.1f}: batched {lw_ms / w_ms:.2f}x the looped "
+          f"speed), server step {ls_ms:.1f} ms, {TRAIN_CLIENTS} client "
+          f"steps {lc_ms:.1f} ms ({step_flop / lc_ms / 1e9:.1f} TFLOP/s; "
+          f"vmapped {c_ms:.1f}) | peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB | round 1-2 "
+          f"loss |d| server "
+          f"{max(abs(a['server_loss'] - b['server_loss']) for a, b in zip(lhist[1:], hist[1:3])):.2e}",
+          flush=True)
+    profile_device("training round (looped)",
+                   lambda: lt.train_round(batches[-1]), reps=1,
+                   mode=contextlib.nullcontext)
+    del lt
+    torch.cuda.empty_cache()
+
+    # (c) the card against the CPU, one round at reduced() from the same
+    # weights and draws
+    rcfg = UNetConfig().reduced()
+    rdata, _ = make_client_datasets(ClientDataConfig(
+        n_clients=TRAIN_CLIENTS, per_client=4, image_size=rcfg.image_size,
+        holdout=2))
+    red = []
+    for d in (dev, torch.device("cpu")):
+        rt = CollaFuseTrainer(
+            TrainerConfig(n_clients=TRAIN_CLIENTS, T=T, cut_ratio=TRAIN_CUT),
+            lambda seed: UNet(rcfg, seed=seed), device=d)
+        red.append((rt, rt.train_round(rdata)))
+    (gt, gm), (ct, cm) = red
+    check_losses(gm, cm, dict(rtol=CPU_LOSS_RTOL, atol=0.0),
+                 "card vs CPU at reduced()")
+    gaps = [param_gap(gt.server_params, ct.server_params)] + [
+        param_gap(a, b) for a, b in zip(gt.client_params, ct.client_params)]
+    gmax, gmean = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    print(f"[train] card vs CPU parameters after one step: max |d| "
+          f"{gmax:.3e} (bound {TRAIN_PARAM_MAX:.4g}), worst model's mean "
+          f"|d| {gmean:.3e} (bound {TRAIN_PARAM_MEAN:.0e})", flush=True)
+    if gmax > TRAIN_PARAM_MAX or gmean > TRAIN_PARAM_MEAN:
+        raise AssertionError("card and CPU parameters disagree")
+
+    # (d) serve the trained weights through the engine and the kernels
+    server = tr.server_model()
+    clients = [tr.client_model(k) for k in range(TRAIN_CLIENTS)]
+    runs, _ = serve_backends(server, clients, dev,
+                             slice_requests(n_clients=TRAIN_CLIENTS),
+                             "train-serve")
+    check_backends_agree(runs, "train-serve")
+    ops.reset_launch_counts()
+    x = tr.sample(7, (2,) + IMG, client_idx=2)
+    n_step = ops.launch_counts()["ddpm_step"]
+    finite = bool(torch.isfinite(x).all())
+    print(f"[train] trainer.sample (triton backend): {tuple(x.shape)} finite "
+          f"{finite}, ddpm_step launches {n_step}, x0 in "
+          f"[{float(x.min()):.3f}, {float(x.max()):.3f}]", flush=True)
+    if not finite or n_step == 0:
+        raise AssertionError("trainer.sample did not run ddpm_step to a "
+                             "finite output")
+
+    # (e) what the server can reconstruct of each client's images
+    fp = feature_params()
+    for k in range(TRAIN_CLIENTS):
+        real = data[k][:TRAIN_BATCH]
+        disc = tr.disclosed(100 + k, real, client_idx=k)
+        rep = disclosure_report(fp, real, disc)
+        print(f"[train] client {k} disclosure at c={TRAIN_CUT}: MSE "
+              f"{rep['mse']:.5f} KID {rep['kid']:.5f} ({TRAIN_BATCH} real "
+              f"images against their disclosed x at t={tr.plan.t_split})",
+              flush=True)
+    del tr, server, clients
+    torch.cuda.empty_cache()
+    print(f"[train] phase wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
+def profile_device(label: str, fn, reps: int = 3,
+                   mode=torch.inference_mode):
     """Device time of ``fn()`` by kernel, from ``torch.profiler``: the
     kernels' summed time against the wall time (the device's busy share)
-    and the largest kernels.  Returns {kernel name: ms per call}, empty when
-    the profiler saw no device time."""
+    and the largest kernels.  ``fn`` runs under ``mode()`` (training needs
+    ``contextlib.nullcontext``).  Returns {kernel name: ms per call}, empty
+    when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode():
+    with mode():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -1165,6 +1440,7 @@ def main():
     attn_rows = phase_attention(dev, card)
     ssm_rows = phase_ssm(dev, card)
     c = phase_slice(dev)
+    phase_train(dev, card)
     lm_counts = phase_lm(dev, card)
     hybrid_counts = phase_hybrid(dev, card)
     counts = {"traj_masked_step": c["cuda_masked"]["traj_masked_step"],

@@ -1,6 +1,6 @@
 """CollaFuse: cut-ratio governed split of the DDPM denoising chain
-(counterpart of ``repro/core/collafuse.py``; the training losses arrive
-with the training slice).
+(counterpart of ``repro/core/collafuse.py``): the split losses and upload
+builders of training, and split inference.
 
 Counting denoising steps (s = 1 is the noisiest, at t = T), the server runs
 the first (1-c)·T steps and the client the remaining c·T on its private
@@ -18,6 +18,13 @@ position (0 for the x_T draw).  A *noise source* is any callable
 draws (the parity tests feed it the reference's threefry noise).  Because a
 draw never depends on the slot, the tick or the window depth, an engine
 lane is replayed by :func:`split_sample_lane`.
+
+Training draws follow the same rule: each is a function of (seed, round,
+client, role) alone, with role one of server-t, server-ε, server label
+drop, client-t, client-ε and client label drop (:class:`TrainDraws`;
+:class:`InjectedTrainDraws` replays given ones).  So the batched and the
+looped trainer see the same draws by construction, whatever the order
+they ask in.
 """
 from __future__ import annotations
 
@@ -95,10 +102,15 @@ ROLES = {"init": 0, "server": 1, "client": 2}
 NoiseSource = Callable[[int, int, str, int, Tuple[int, ...]], torch.Tensor]
 
 
+def hash_seed(*values: int) -> int:
+    """A 63-bit generator seed hashed from non-negative ``values``."""
+    ss = np.random.SeedSequence(list(values))
+    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
 def lane_seed(seed: int, image: int, role: str, step: int) -> int:
     """The generator seed of one draw: a hash of (seed, image, role, step)."""
-    ss = np.random.SeedSequence([seed, image, ROLES[role], step])
-    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+    return hash_seed(seed, image, ROLES[role], step)
 
 
 def lane_normal(seed: int, image: int, role: str, step: int,
@@ -127,6 +139,151 @@ def _batch_noise(source: NoiseSource, seed: int, images, role: str,
     """Step-noise function of a batch of a request's images."""
     return lambda step: torch.stack(
         [source(seed, i, role, step, shape) for i in images])
+
+
+# ---------------------------------------------------------------------------
+# training draws (the counterpart of the trainer's key chain)
+# ---------------------------------------------------------------------------
+TRAIN_ROLES = {"server_t": 0, "server_eps": 1, "server_drop": 2,
+               "client_t": 3, "client_eps": 4, "client_drop": 5}
+_TRAIN_TAG = 0x747261696E          # keeps training seeds apart from lanes'
+
+
+def train_seed(seed: int, rnd: int, client: int, role: str) -> int:
+    """The generator seed of one training draw: a hash of (seed, round,
+    client, role)."""
+    return hash_seed(_TRAIN_TAG, seed, rnd, client, TRAIN_ROLES[role])
+
+
+class TrainDraws:
+    """The default training draw source: each draw comes from a CPU
+    ``torch.Generator`` seeded by :func:`train_seed`, so every device gets
+    the same numbers.  ``side`` is "server" or "client"."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def _gen(self, rnd, client, role) -> torch.Generator:
+        return torch.Generator().manual_seed(
+            train_seed(self.seed, rnd, client, role))
+
+    def timesteps(self, rnd, client, side, b, lo, hi) -> torch.Tensor:
+        """(b,) int64 uniform on {lo..hi}."""
+        return torch.randint(lo, hi + 1, (b,),
+                             generator=self._gen(rnd, client, side + "_t"))
+
+    def noise(self, rnd, client, side, shape) -> torch.Tensor:
+        return torch.randn(tuple(shape), dtype=torch.float32,
+                           generator=self._gen(rnd, client, side + "_eps"))
+
+    def drop(self, rnd, client, side, b, p) -> torch.Tensor:
+        """(b,) bool, each True with probability ``p``."""
+        return torch.rand((b,), generator=self._gen(
+            rnd, client, side + "_drop")) < p
+
+
+class InjectedTrainDraws:
+    """A training draw source that replays given draws, keyed by (round,
+    client, role); a missing key raises ``KeyError``."""
+
+    def __init__(self, draws: Mapping[tuple, np.ndarray]):
+        self.draws = draws
+
+    def _get(self, rnd, client, role, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.array(self.draws[(rnd, client, role)],
+                                         dtype))
+
+    def timesteps(self, rnd, client, side, b, lo, hi) -> torch.Tensor:
+        return self._get(rnd, client, side + "_t", np.int64).reshape(b)
+
+    def noise(self, rnd, client, side, shape) -> torch.Tensor:
+        return self._get(rnd, client, side + "_eps",
+                         np.float32).reshape(tuple(shape))
+
+    def drop(self, rnd, client, side, b, p) -> torch.Tensor:
+        return self._get(rnd, client, side + "_drop", bool).reshape(b)
+
+
+def side_draws(source, plan: CutPlan, rnd: int, client: int, side: str,
+               shape, labeled: bool, label_drop: float):
+    """One client's draws for one side of a round: (t, eps, drop) as CPU
+    tensors, t held to the side's range ({t_split+1..T} for the server,
+    {1..t_split} for the client).  ``drop`` is None unless the round is
+    labeled and ``label_drop`` > 0."""
+    lo, hi = plan.server_range if side == "server" else plan.client_range
+    b = shape[0]
+    t = source.timesteps(rnd, client, side, b, lo, hi)
+    if t.shape != (b,) or int(t.min()) < lo or int(t.max()) > hi:
+        raise ValueError(f"{side} timesteps {t.tolist()} outside "
+                         f"[{lo}, {hi}] or not of shape ({b},)")
+    eps = source.noise(rnd, client, side, shape)
+    drop = (source.drop(rnd, client, side, b, label_drop)
+            if labeled and label_drop > 0.0 else None)
+    return t, eps, drop
+
+
+# ---------------------------------------------------------------------------
+# split losses and uploads (training)
+# ---------------------------------------------------------------------------
+def server_loss_fn(model_fn: Callable):
+    """DDPM loss over the samples clients uploaded (protocol steps 3-4): the
+    server never touches x_0.  ``model_fn(params, x_t, t[, y]) -> eps_hat``;
+    the server range is enforced where the uploads are drawn."""
+    def loss(params, x_t, t, eps, y=None):
+        eps_hat = (model_fn(params, x_t, t) if y is None
+                   else model_fn(params, x_t, t, y))
+        return torch.mean(torch.square(eps_hat - eps))
+    return loss
+
+
+def client_loss_fn(sched: DiffusionSchedule, model_fn: Callable,
+                   num_classes: int = 0):
+    """DDPM loss over the client's private range, from local x_0 and the
+    given draws.  With labels ``y`` it trains classifier-free: where
+    ``drop`` is True the label becomes the null index ``num_classes``."""
+    def loss(params, x0, t, noise, y=None, drop=None):
+        if y is None:
+            return ddpm.ddpm_loss(
+                sched, lambda x_t, tt: model_fn(params, x_t, tt), x0, t,
+                noise)[0]
+        yd = drop_labels(y, drop, num_classes)
+        return ddpm.ddpm_loss(
+            sched, lambda x_t, tt: model_fn(params, x_t, tt, yd), x0, t,
+            noise)[0]
+    return loss
+
+
+def drop_labels(y, drop, num_classes: int):
+    """Classifier-free label dropout: the null index ``num_classes`` where
+    ``drop``; ``drop=None`` keeps every label."""
+    if drop is None:
+        return y
+    return torch.where(drop, torch.full_like(y, num_classes), y)
+
+
+def make_server_batch(sched: DiffusionSchedule, x0, t, eps, y=None,
+                      drop=None, num_classes: int = 0):
+    """Client-side protocol steps 2-3: noise locally at server-range t and
+    emit only (x_t, t, eps) — never x_0 — plus the labels, dropped
+    client-side, when there are any."""
+    up = {"x_t": ddpm.q_sample(sched, x0, t, eps), "t": t, "eps": eps}
+    if y is not None:
+        up["y"] = drop_labels(y, drop, num_classes)
+    return up
+
+
+def make_pooled_server_batch(sched: DiffusionSchedule, x0_stack, t_stack,
+                             eps_stack, y_stack=None, drop_stack=None,
+                             num_classes: int = 0):
+    """Protocol steps 2-3 for all clients at once: [n, b, ...] inputs
+    flattened client-major to the pooled [n·b, ...] server batch, which is
+    the concatenation of the per-client :func:`make_server_batch` uploads
+    (the noising is per image)."""
+    def flat(a):
+        return None if a is None else a.reshape((-1,) + a.shape[2:])
+    return make_server_batch(sched, flat(x0_stack), flat(t_stack),
+                             flat(eps_stack), flat(y_stack),
+                             flat(drop_stack), num_classes)
 
 
 # ---------------------------------------------------------------------------

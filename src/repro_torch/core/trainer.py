@@ -1,0 +1,420 @@
+"""CollaFuse collaborative trainer — the paper's 6-step protocol (Fig. 2);
+counterpart of ``repro/core/trainer.py``.
+
+Roles:
+* ``server``: ONE shared backbone ε_s, trained on noised samples from ALL
+  clients, timesteps t ∈ (t_split, T].
+* ``clients[k]``: private model ε_k per client, trained on local data only,
+  timesteps t ∈ [1, t_split].
+
+One ``train_round``:
+  (1) server triggers each client                      [control flow]
+  (2) client runs forward diffusion on a local batch   [cheap, local]
+  (3) client uploads (x_t, t, ε) for server-range t    [network hop]
+  (4) server takes a gradient step on the shared model [heavy, shared]
+  (5) server returns partially-denoised x_{t_split}    [network hop]
+  (6) client takes a gradient step on its local model  [local]
+
+Engine modes (``TrainerConfig.batched``):
+
+* **batched** (default): client parameters and optimizer state are stacks
+  along a leading client axis ([n_clients, ...] leaves).  Steps 2-4 are one
+  pooled server step: every client's upload noised at once and flattened
+  client-major into the pooled batch.  Step 6 is one ``torch.func.vmap`` of
+  ``grad_and_value`` over ``functional_call`` of the backbone, then the
+  stacked AdamW (each client clips on its own norm).
+* **looped**: one update per client and host-side pooling; the equivalence
+  baseline.  Ragged per-client batches, which cannot stack, always take it.
+
+Draws: every t, ε and label-drop mask is a function of (seed, round,
+client, role) (``collafuse.TrainDraws``), so both engines see the same
+draws by construction.  Parameters are ``{name: tensor}`` dicts on the
+trainer's device; ``model_factory(seed) -> nn.Module`` supplies the
+backbone (built on the CPU, its parameters copied to the device; the module
+itself stays the CPU template ``functional_call`` runs).  The reference's
+``obs`` hooks wait for the port of ``repro.obs``; its ``mesh`` has no
+counterpart on one card.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+from torch.func import functional_call, grad_and_value, vmap
+
+from repro_torch.core import collafuse
+from repro_torch.core.collafuse import CutPlan, NoiseSource, TrainDraws
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.diffusion.backend import get_backend
+from repro_torch.diffusion.sampler import make_sampler
+from repro_torch.diffusion.schedule import DiffusionSchedule, get_schedule
+from repro_torch.optim import adamw
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    n_clients: int = 3
+    T: int = 50
+    cut_ratio: float = 0.8
+    schedule: str = "cosine"             # paper: cosine variance schedule
+    lr: float = 1e-3                     # paper: 0.001
+    grad_clip: float = 1.0
+    seed: int = 0
+    batched: bool = True                 # vmapped multi-client engine
+    step_backend: str = "torch"          # denoise-tick StepBackend (sampling)
+    # sampling trajectory: "ddpm" walks the dense chain; "ddim" with
+    # sampler_steps = K a strided K-step subsequence at stochasticity eta.
+    # Only sample()/disclosed() read these.
+    sampler: str = "ddpm"                # "ddpm" | "ddim"
+    sampler_steps: int = 0               # 0 = dense (T steps)
+    eta: float = 1.0                     # DDIM stochasticity in [0, 1]
+    # classifier-free guidance training: num_classes > 0 switches the
+    # backbone call to ``model(x_t, t, y)`` and drops each label to the
+    # null index ``num_classes`` with probability ``label_drop``
+    num_classes: int = 0
+    label_drop: float = 0.1              # ignored when num_classes == 0
+
+
+def member_seed(seed: int, member: int) -> int:
+    """The seed ``model_factory`` gets for member 0 (the server) and 1 + k
+    (client k)."""
+    return collafuse.hash_seed(seed, member)
+
+
+class CollaFuseTrainer:
+    """Holds the server's parameters and the clients' (stacked or listed)
+    parameters and AdamW states, and runs protocol rounds."""
+
+    def __init__(self, cfg: TrainerConfig,
+                 model_factory: Callable[[int], torch.nn.Module],
+                 device: DeviceLike = "cuda",
+                 flops_per_call: Optional[float] = None,
+                 draws: Any = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if cfg.num_classes < 0:
+            raise ValueError("num_classes must be >= 0")
+        if not 0.0 <= cfg.label_drop < 1.0:
+            raise ValueError("label_drop must be in [0, 1)")
+        self._conditional = cfg.num_classes > 0
+        self.sched: DiffusionSchedule = get_schedule(cfg.schedule, cfg.T)
+        self.plan = CutPlan(cfg.T, cfg.cut_ratio)
+        self.step_backend = get_backend(cfg.step_backend)
+        self.sampler = (None if cfg.sampler == "ddpm" and not cfg.sampler_steps
+                        else make_sampler(cfg.T, cfg.sampler,
+                                          cfg.sampler_steps, cfg.eta))
+        self.opt_cfg = adamw.AdamWConfig(lr=cfg.lr, grad_clip=cfg.grad_clip)
+        self.draws = draws if draws is not None else TrainDraws(cfg.seed)
+
+        modules = [model_factory(member_seed(cfg.seed, m))
+                   for m in range(cfg.n_clients + 1)]
+        self.template = modules[0]
+        self.server_params = self._params_of(modules[0])
+        self.server_opt = adamw.init_state(self.server_params, self.opt_cfg)
+        # per-client state follows the engine: stacked for the batched
+        # engine, a list for the looped one; the accessors convert
+        clients = [self._params_of(m) for m in modules[1:]]
+        if cfg.batched:
+            self._client_stack = adamw.tree_stack(clients)
+            self._client_opt_stack = adamw.init_stacked_state(
+                self._client_stack, self.opt_cfg)
+            self._client_list = self._client_opt_list = None
+        else:
+            self._client_list = clients
+            self._client_opt_list = [adamw.init_state(p, self.opt_cfg)
+                                     for p in clients]
+            self._client_stack = self._client_opt_stack = None
+        n_params = sum(p.numel() for p in self.server_params.values())
+        # forward+backward proxy when no analytic estimate is supplied
+        self.flops_per_call = (flops_per_call if flops_per_call is not None
+                               else 6.0 * n_params)
+        self.metrics_history: List[Dict] = []
+        self._server_loss = collafuse.server_loss_fn(self._apply)
+        self._client_loss = collafuse.client_loss_fn(
+            self.sched, self._apply, num_classes=cfg.num_classes)
+
+    def _params_of(self, module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+        return {k: v.detach().to(self.device, torch.float32, copy=True)
+                for k, v in module.named_parameters()}
+
+    def _apply(self, params, x_t, t, y=None):
+        args = (x_t, t) if y is None else (x_t, t, y)
+        return functional_call(self.template, params, args)
+
+    # ------------------------------------------------------------------
+    # per-client views
+    # ------------------------------------------------------------------
+    @property
+    def client_params(self) -> List[Dict[str, torch.Tensor]]:
+        """List view of the per-client parameters; assigning into it does
+        not write back (use :meth:`set_client_params`)."""
+        if self._client_list is not None:
+            return list(self._client_list)
+        return [adamw.tree_unstack(self._client_stack, k)
+                for k in range(self.cfg.n_clients)]
+
+    def set_client_params(self, client_idx: int, params) -> None:
+        """Replace one client's parameters in whichever representation is
+        live (e.g. to inject a restored private model)."""
+        if self._client_list is not None:
+            self._client_list[client_idx] = {
+                k: v.to(self.device, torch.float32) for k, v in params.items()}
+            return
+        stack = {}
+        for k, s in self._client_stack.items():
+            s = s.clone()
+            s[client_idx] = params[k]
+            stack[k] = s
+        self._client_stack = stack
+
+    @property
+    def client_opts(self) -> List[Any]:
+        if self._client_opt_list is not None:
+            return list(self._client_opt_list)
+        return [adamw.tree_unstack(self._client_opt_stack, k)
+                for k in range(self.cfg.n_clients)]
+
+    @property
+    def client_stack(self):
+        """[n_clients, ...] stacked view of the client parameters."""
+        if self._client_stack is not None:
+            return self._client_stack
+        return adamw.tree_stack(self._client_list)
+
+    @property
+    def client_opt_stack(self):
+        if self._client_opt_stack is not None:
+            return self._client_opt_stack
+        return adamw.tree_stack(self._client_opt_list)
+
+    def _client_param(self, client_idx: int):
+        if self._client_list is not None:
+            return self._client_list[client_idx]
+        return adamw.tree_unstack(self._client_stack, client_idx)
+
+    # ------------------------------------------------------------------
+    # draws
+    # ------------------------------------------------------------------
+    def _side_draws(self, side: str, rnd: int, batches, labels):
+        """Per-client (t, eps, drop) of one side of round ``rnd``, on the
+        device."""
+        out = []
+        for k, x0 in enumerate(batches):
+            t, eps, drop = collafuse.side_draws(
+                self.draws, self.plan, rnd, k, side, tuple(x0.shape),
+                labels is not None, self.cfg.label_drop)
+            out.append((t.to(self.device), eps.to(self.device),
+                        None if drop is None else drop.to(self.device)))
+        return out
+
+    # ------------------------------------------------------------------
+    # updates
+    # ------------------------------------------------------------------
+    def _server_update(self, x_t, t, eps, y):
+        grads, loss = grad_and_value(self._server_loss)(
+            self.server_params, x_t, t, eps, y)
+        self.server_params, self.server_opt, m = adamw.apply_updates(
+            self.server_params, grads, self.server_opt, self.opt_cfg)
+        return loss, m["grad_norm"]
+
+    def _client_round(self, x0_stack, t, eps, y_stack, drop):
+        """Step 6 for every client at once: one vmapped loss and gradient
+        over the stacked state, then the stacked AdamW.  Returns the [n]
+        losses."""
+        # labels and drop masks ride along only where they exist
+        extra = tuple(a for a in (y_stack, drop) if a is not None)
+        grads, losses = vmap(grad_and_value(self._client_loss))(
+            self.client_stack, x0_stack, t, eps, *extra)
+        (self._client_stack, self._client_opt_stack,
+         _) = adamw.apply_updates_stacked(self.client_stack, grads,
+                                          self.client_opt_stack, self.opt_cfg)
+        self._client_list = self._client_opt_list = None
+        return losses
+
+    def _client_update(self, params, opt, x0, t, eps, y, drop):
+        grads, loss = grad_and_value(self._client_loss)(params, x0, t, eps,
+                                                         y, drop)
+        params, opt, _ = adamw.apply_updates(params, grads, opt,
+                                             self.opt_cfg)
+        return params, opt, loss
+
+    # ------------------------------------------------------------------
+    # engines
+    # ------------------------------------------------------------------
+    def train_round(self, client_batches: List[torch.Tensor],
+                    client_labels: Optional[List[torch.Tensor]] = None
+                    ) -> Dict:
+        """One full protocol round over all clients.
+
+        ``client_labels``: per-client int label tensors of shape [b], only
+        on a conditional trainer; omitted there, every image trains under
+        the null label.
+        """
+        n = self.cfg.n_clients
+        if len(client_batches) != n:
+            raise ValueError(f"{len(client_batches)} batches for {n} clients")
+        batches = [torch.as_tensor(b).to(self.device, torch.float32)
+                   for b in client_batches]
+        if client_labels is not None:
+            if not self._conditional:
+                raise ValueError("labels supplied but "
+                                 "TrainerConfig.num_classes == 0")
+            if len(client_labels) != n:
+                raise ValueError(f"{len(client_labels)} label sets for {n} "
+                                 "clients")
+            labels = [torch.as_tensor(y).to(self.device, torch.int64)
+                      for y in client_labels]
+        elif self._conditional:
+            labels = [torch.full((b.shape[0],), self.cfg.num_classes,
+                                 dtype=torch.int64, device=self.device)
+                      for b in batches]
+        else:
+            labels = None
+        uniform = len({tuple(b.shape) for b in batches}) == 1
+        if self.cfg.batched and uniform:
+            metrics = self._train_round_batched(batches, labels)
+        else:
+            # ragged batches cannot stack on a client axis: the looped
+            # engine pools them by concatenation (same results)
+            metrics = self._train_round_looped(batches, labels)
+        metrics.update(collafuse.flops_split(self.plan, self.flops_per_call,
+                                             batches[0].shape[0]))
+        self.metrics_history.append(metrics)
+        return metrics
+
+    def _train_round_batched(self, batches, labels) -> Dict:
+        rnd = len(self.metrics_history)
+        x0_stack = torch.stack(batches)
+        y_stack = None if labels is None else torch.stack(labels)
+        metrics: Dict[str, Any] = {}
+        if self.plan.n_server_steps > 0:
+            t, eps, drop = _stack_draws(self._side_draws("server", rnd,
+                                                         batches, labels))
+            up = collafuse.make_pooled_server_batch(
+                self.sched, x0_stack, t, eps, y_stack, drop,
+                self.cfg.num_classes)
+            s_loss, s_gnorm = self._server_update(up["x_t"], up["t"],
+                                                  up["eps"], up.get("y"))
+            metrics["server_loss"] = float(s_loss)
+            metrics["server_grad_norm"] = float(s_gnorm)
+        if self.plan.n_client_steps > 0:
+            t, eps, drop = _stack_draws(self._side_draws("client", rnd,
+                                                         batches, labels))
+            losses = self._client_round(x0_stack, t, eps, y_stack, drop)
+            closses = losses.double().cpu().tolist()
+            metrics["client_loss_mean"] = sum(closses) / len(closses)
+            metrics["client_losses"] = closses
+        return metrics
+
+    def _train_round_looped(self, batches, labels) -> Dict:
+        """Reference engine: one update per client (O(n_clients)
+        dispatches)."""
+        rnd = len(self.metrics_history)
+        ys = labels if labels is not None else [None] * self.cfg.n_clients
+        metrics: Dict[str, Any] = {}
+        if self.plan.n_server_steps > 0:
+            uploads = [collafuse.make_server_batch(self.sched, x0, t, eps, y,
+                                                   drop, self.cfg.num_classes)
+                       for x0, y, (t, eps, drop) in zip(
+                           batches, ys,
+                           self._side_draws("server", rnd, batches, labels))]
+            # step 4: ONE shared backbone update on the pooled uploads
+            pool = {k: torch.cat([u[k] for u in uploads]) for k in uploads[0]}
+            s_loss, s_gnorm = self._server_update(pool["x_t"], pool["t"],
+                                                  pool["eps"], pool.get("y"))
+            metrics["server_loss"] = float(s_loss)
+            metrics["server_grad_norm"] = float(s_gnorm)
+        if self.plan.n_client_steps > 0:
+            closses = []
+            clients, opts = self.client_params, self.client_opts
+            draws = self._side_draws("client", rnd, batches, labels)
+            for k, x0 in enumerate(batches):
+                t, eps, drop = draws[k]
+                clients[k], opts[k], loss = self._client_update(
+                    clients[k], opts[k], x0, t, eps, ys[k], drop)
+                closses.append(float(loss))
+            if self._client_stack is not None:     # batched trainer on
+                self._client_stack = adamw.tree_stack(clients)  # ragged
+                self._client_opt_stack = adamw.tree_stack(opts)  # input
+            else:
+                self._client_list = clients
+                self._client_opt_list = opts
+            metrics["client_loss_mean"] = sum(closses) / len(closses)
+            metrics["client_losses"] = closses
+        return metrics
+
+    # ------------------------------------------------------------------
+    # the trained models
+    # ------------------------------------------------------------------
+    def model_fns(self, client_idx: int):
+        """(server_fn, client_fn) with signature ``fn(x_t, t) -> eps_hat``.
+        On a conditional trainer both condition on the null label (the ε̂_u
+        branch); :meth:`cond_model_fns` gives the conditional ones."""
+        sp, cp = self.server_params, self._client_param(client_idx)
+        if not self._conditional:
+            return (lambda x, t: self._apply(sp, x, t),
+                    lambda x, t: self._apply(cp, x, t))
+        nc = self.cfg.num_classes
+
+        def null_wrap(params):
+            def fn(x, t):
+                yn = torch.full(x.shape[:1], nc, dtype=torch.int64,
+                                device=x.device)
+                return self._apply(params, x, t, yn)
+            return fn
+        return null_wrap(sp), null_wrap(cp)
+
+    def cond_model_fns(self, client_idx: int):
+        """Conditional branches ``fn(x_t, t, y) -> eps_hat`` (ε̂_c)."""
+        if not self._conditional:
+            raise ValueError("TrainerConfig.num_classes == 0")
+        sp, cp = self.server_params, self._client_param(client_idx)
+        return (lambda x, t, y: self._apply(sp, x, t, y),
+                lambda x, t, y: self._apply(cp, x, t, y))
+
+    def _module(self, params) -> torch.nn.Module:
+        m = copy.deepcopy(self.template).to(self.device)
+        m.load_state_dict(params)
+        return m.eval()
+
+    def server_model(self) -> torch.nn.Module:
+        """The server's parameters in a module of their own on the device
+        (what ``ServeEngine`` takes)."""
+        return self._module(self.server_params)
+
+    def client_model(self, client_idx: int) -> torch.nn.Module:
+        return self._module(self._client_param(client_idx))
+
+    def sample(self, seed: int, shape, client_idx: int = 0,
+               return_intermediate: bool = False,
+               noise: Optional[NoiseSource] = None):
+        """Split inference: server prefix + client's private suffix, on the
+        configured sampler's trajectory, with the configured step backend
+        (``triton`` runs ``ddpm_step`` on the card, ``cuda_masked``
+        ``traj_masked_step``)."""
+        server_fn, client_fn = self.model_fns(client_idx)
+        return collafuse.split_sample(
+            self.sched, self.plan, server_fn, client_fn, seed, shape,
+            return_intermediate=return_intermediate,
+            backend=self.step_backend, sampler=self.sampler, noise=noise,
+            device=self.device)
+
+    def disclosed(self, seed: int, x0_client, client_idx: int = 0,
+                  noise: Optional[NoiseSource] = None):
+        """x at the cut as the server reconstructs it from a client's
+        upload (the trajectory point nearest t_split under a strided
+        sampler)."""
+        server_fn, _ = self.model_fns(client_idx)
+        x0 = torch.as_tensor(x0_client).to(self.device, torch.float32)
+        return collafuse.disclosed_at_split(
+            self.sched, self.plan, server_fn, seed, x0,
+            backend=self.step_backend, sampler=self.sampler, noise=noise)
+
+
+def _stack_draws(per_client):
+    """[(t, eps, drop)] per client -> stacked (t, eps, drop)."""
+    ts, epss, drops = zip(*per_client)
+    return (torch.stack(ts), torch.stack(epss),
+            None if drops[0] is None else torch.stack(drops))

@@ -1,5 +1,6 @@
-"""DDPM processes: q_sample (forward diffusion), p_sample (denoise step) and
-the partial sampler (counterpart of ``repro/diffusion/ddpm.py``).
+"""DDPM processes: q_sample (forward diffusion), p_sample (denoise step), the
+training loss and the partial sampler (counterpart of
+``repro/diffusion/ddpm.py``).
 
 Timestep convention as the paper's Figure 1: t ∈ {1..T}; x_T is pure noise;
 denoising runs t = T → 1; the CollaFuse cut at ratio c splits the chain at
@@ -7,8 +8,8 @@ t_c = (1-c)·T.  ``model_fn(x_t, t) -> eps_hat`` abstracts the backbone.
 
 Noise: where the reference splits a threefry key each step, the samplers
 here take ``noise``, a function of the step's trajectory position (T - t on
-the dense chain) returning the step's noise for the whole batch.
-``ddpm_loss`` arrives with the training slice.
+the dense chain) returning the step's noise for the whole batch; the loss
+takes its timesteps and noise as arguments.
 """
 from __future__ import annotations
 
@@ -35,6 +36,19 @@ def q_sample(sched: DiffusionSchedule, x0, t, noise):
     ti = t - 1
     return (_bcast(sched.sqrt_alpha_bar, ti, x0) * x0 +
             _bcast(sched.sqrt_one_minus_alpha_bar, ti, x0) * noise)
+
+
+def ddpm_loss(sched: DiffusionSchedule, model_fn: Callable, x0, t, noise):
+    """Simple loss (Ho et al. eq. 14): MSE(noise, eps_hat).
+
+    Where the reference draws t uniformly from {lo..hi} and the noise from a
+    threefry key, the caller passes them: ``t`` (B,) ints in the range the
+    side trains on (CollaFuse restricts the server to (t_c, T] and the
+    clients to [1, t_c]) and ``noise`` of x0's shape.
+    """
+    x_t = q_sample(sched, x0, t, noise)
+    eps_hat = model_fn(x_t, t)
+    return torch.mean(torch.square(eps_hat - noise)), {"t": t}
 
 
 def p_sample(sched: DiffusionSchedule, x_t, t, eps_hat, noise):

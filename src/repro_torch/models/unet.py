@@ -29,23 +29,28 @@ from repro_torch.configs import UNetConfig
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
+def conv_same(h: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], stride: int) -> torch.Tensor:
+    """NCHW conv2d with XLA's "SAME" padding: total (out-1)·stride + k −
+    size, split floor-before / ceil-after."""
+    pads = []                            # F.pad order: last dim first
+    for size, k in ((h.shape[-1], weight.shape[-1]),
+                    (h.shape[-2], weight.shape[-2])):
+        total = max((-(-size // stride) - 1) * stride + k - size, 0)
+        pads += [total // 2, total - total // 2]
+    if pads[0] == pads[1] and pads[2] == pads[3]:
+        return F.conv2d(h, weight, bias, stride, (pads[2], pads[0]))
+    return F.conv2d(F.pad(h, pads), weight, bias, stride)
+
+
 class Conv(nn.Conv2d):
-    """Conv2d with XLA's "SAME" padding: total (out-1)·stride + k − size,
-    split floor-before / ceil-after."""
+    """Conv2d with XLA's "SAME" padding (:func:`conv_same`)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
         super().__init__(cin, cout, k, stride=stride, padding=0)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        pads = []                        # F.pad order: last dim first
-        for size, k, s in ((h.shape[-1], self.kernel_size[1], self.stride[1]),
-                           (h.shape[-2], self.kernel_size[0], self.stride[0])):
-            total = max((-(-size // s) - 1) * s + k - size, 0)
-            pads += [total // 2, total - total // 2]
-        if pads[0] == pads[1] and pads[2] == pads[3]:
-            return F.conv2d(h, self.weight, self.bias, self.stride,
-                            (pads[2], pads[0]))
-        return F.conv2d(F.pad(h, pads), self.weight, self.bias, self.stride)
+        return conv_same(h, self.weight, self.bias, self.stride[0])
 
 
 def group_norm(groups: int, c: int) -> nn.GroupNorm:

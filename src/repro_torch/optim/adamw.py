@@ -1,0 +1,152 @@
+"""AdamW with decoupled weight decay and global-norm clipping, written out
+by hand (counterpart of ``repro/optim/adamw.py``).
+
+``torch.optim.AdamW`` is not this optimizer: its default ``b2`` is 0.999
+where the reference's is 0.95, it clips nothing, and it folds the decay
+into the parameter before the step.  Here the reference's expression order
+is kept: ``mu_hat / (sqrt(nu_hat) + eps)``, the decay added to that delta,
+and the update taken on a float32 master copy.
+
+A parameter set is a ``{name: tensor}`` dict (``named_parameters`` of a
+module, the tree ``torch.func.functional_call`` takes); the optimizer state
+is ``{"step": int32 tensor, "mu": {name: tensor}, "nu": {name: tensor}}``.
+Every function is functional: it returns new tensors and never writes to
+its inputs.  The stacked variants take a leading member axis ([n, ...]
+leaves, an [n] step counter): each member clips on its OWN global norm, as
+n separate calls would.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 1e-3                     # peak lr; scaled by schedule(step)
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0               # 0 = off
+    mu_dtype: str = "float32"
+
+
+def _zeros(params: Params, cfg: AdamWConfig) -> Params:
+    dt = getattr(torch, cfg.mu_dtype)
+    return {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+            for k, p in params.items()}
+
+
+def _step_counter(shape, params: Params) -> torch.Tensor:
+    dev = next(iter(params.values())).device
+    return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+
+def init_state(params: Params, cfg: AdamWConfig):
+    return {"step": _step_counter((), params), "mu": _zeros(params, cfg),
+            "nu": _zeros(params, cfg)}
+
+
+def init_stacked_state(stacked_params: Params, cfg: AdamWConfig):
+    """State for a leading-axis stack of n parameter sets: a per-member
+    step counter [n] and stacked mu/nu."""
+    n = next(iter(stacked_params.values())).shape[0]
+    return {"step": _step_counter((n,), stacked_params),
+            "mu": _zeros(stacked_params, cfg),
+            "nu": _zeros(stacked_params, cfg)}
+
+
+def tree_stack(trees: List[dict]) -> dict:
+    """Stack identically-keyed (nested) dicts of tensors along a new leading
+    axis; the inverse of ``tree_unstack(.., k)``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def tree_unstack(tree: dict, k: int) -> dict:
+    """Entry ``k`` of a leading-axis-stacked (nested) dict, as views."""
+    if isinstance(tree, dict):
+        return {name: tree_unstack(v, k) for name, v in tree.items()}
+    return tree[k]
+
+
+def _sq_norms(grads: Params, lead: int) -> torch.Tensor:
+    """Sum of squares of every leaf, per member of the first ``lead``
+    axes (0: one scalar; 1: one per member)."""
+    total = None
+    for g in grads.values():
+        s = torch.sum(torch.square(g.to(torch.float32)),
+                      dim=tuple(range(lead, g.ndim)))
+        total = s if total is None else total + s
+    return total
+
+
+def global_norm(grads: Params) -> torch.Tensor:
+    return torch.sqrt(_sq_norms(grads, 0))
+
+
+def apply_updates(params: Params, grads: Params, state, cfg: AdamWConfig,
+                  schedule: Optional[Callable] = None):
+    """Returns (new_params, new_state, metrics)."""
+    return _update(params, grads, state, cfg, schedule, lead=0)
+
+
+def apply_updates_stacked(stacked_params: Params, stacked_grads: Params,
+                          stacked_state, cfg: AdamWConfig,
+                          schedule: Optional[Callable] = None):
+    """:func:`apply_updates` for every member of the leading axis at once.
+    Clipping and metrics are per member; the metrics are [n]-shaped."""
+    return _update(stacked_params, stacked_grads, stacked_state, cfg,
+                   schedule, lead=1)
+
+
+def _update(params, grads, state, cfg: AdamWConfig, schedule, lead: int):
+    names = list(params)
+    p = [params[k] for k in names]
+    mu_dt = state["mu"][names[0]].dtype
+    g = [grads[k].to(mu_dt) for k in names]
+
+    def per_leaf(v: torch.Tensor) -> List[torch.Tensor]:
+        """A per-member scalar ([] or [n]) shaped to broadcast against each
+        leaf."""
+        return [v.reshape(v.shape + (1,) * (x.ndim - lead)) for x in p]
+
+    step = state["step"] + 1
+    gnorm = torch.sqrt(_sq_norms(grads, lead))
+    if cfg.grad_clip:
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        g = torch._foreach_mul(g, per_leaf(scale))
+    stepf = step.to(torch.float32)
+    lr = cfg.lr * (schedule(step) if schedule is not None
+                   else torch.ones_like(stepf))
+    b1c = 1.0 - torch.pow(cfg.b1, stepf)
+    b2c = 1.0 - torch.pow(cfg.b2, stepf)
+
+    mu = torch._foreach_add(
+        torch._foreach_mul([state["mu"][k] for k in names], cfg.b1),
+        torch._foreach_mul(g, 1 - cfg.b1))
+    nu = torch._foreach_add(
+        torch._foreach_mul([state["nu"][k] for k in names], cfg.b2),
+        torch._foreach_mul(torch._foreach_mul(g, g), 1 - cfg.b2))
+    mu_hat = torch._foreach_div(mu, per_leaf(b1c))
+    nu_hat = torch._foreach_div(nu, per_leaf(b2c))
+    delta = torch._foreach_div(
+        mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), cfg.eps))
+    if cfg.weight_decay:
+        delta = torch._foreach_add(
+            delta, torch._foreach_mul([x.to(mu_dt) for x in p],
+                                      cfg.weight_decay))
+    master = torch._foreach_sub([x.to(torch.float32) for x in p],
+                                torch._foreach_mul(delta, per_leaf(lr)))
+    new_p = {k: m.to(x.dtype) for k, m, x in zip(names, master, p)}
+    return new_p, {"step": step, "mu": dict(zip(names, mu)),
+                   "nu": dict(zip(names, nu))}, {"grad_norm": gnorm,
+                                                 "lr": lr}

@@ -191,3 +191,58 @@ def _fill_params(shapes, seed):
             a = rng.standard_normal(shape) / np.sqrt(fan_in)
         return a.astype(np.float32)
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def reference_train_draws(seed, n_rounds, n_clients, b, image_shape, plan,
+                          labeled=False, label_drop=0.0):
+    """The reference trainer's draws (``repro/core/trainer.py:162,222-243``)
+    for ``TrainerConfig(seed=seed)`` over ``n_rounds`` rounds of ``b``
+    images a client, keyed as the port's training draw sources key them:
+    (round, client, role).
+
+    Its key chain starts at ``PRNGKey(seed + 17)`` and hands out one key a
+    client, ``rng, k = split(rng)``: each round the server's keys first
+    (when the cut leaves the server steps), then the clients'.  A server
+    key splits as ``make_server_batch`` does (``collafuse.py:150``): t
+    from {t_split+1..T}, eps, and on a labeled round the label drop; a
+    client key as ``client_loss_fn`` (``collafuse.py:128-139``): on a
+    labeled round ``k_drop, k_loss = split(key)`` first, then
+    ``ddpm_loss``'s ``k_t, k_n = split``.  The masks exist only where
+    ``label_drop`` > 0, as ``drop_labels`` draws nothing otherwise."""
+    draws = {}
+    rng = jax.random.PRNGKey(seed + 17)
+    shape = (b,) + tuple(image_shape)
+    drop = labeled and label_drop > 0.0
+
+    def next_key():
+        nonlocal rng
+        rng, k = jax.random.split(rng)
+        return k
+
+    def put(rnd, k, side, k_t, k_n, lo, hi):
+        draws[(rnd, k, side + "_t")] = np.asarray(
+            jax.random.randint(k_t, (b,), lo, hi + 1))
+        draws[(rnd, k, side + "_eps")] = np.asarray(
+            jax.random.normal(k_n, shape, jax.numpy.float32))
+
+    for rnd in range(n_rounds):
+        if plan.n_server_steps > 0:
+            for k, key in enumerate([next_key() for _ in range(n_clients)]):
+                if labeled:
+                    k_t, k_n, k_y = jax.random.split(key, 3)
+                    if drop:
+                        draws[(rnd, k, "server_drop")] = np.asarray(
+                            jax.random.bernoulli(k_y, label_drop, (b,)))
+                else:
+                    k_t, k_n = jax.random.split(key)
+                put(rnd, k, "server", k_t, k_n, *plan.server_range)
+        if plan.n_client_steps > 0:
+            for k, key in enumerate([next_key() for _ in range(n_clients)]):
+                if labeled:
+                    k_drop, key = jax.random.split(key)
+                    if drop:
+                        draws[(rnd, k, "client_drop")] = np.asarray(
+                            jax.random.bernoulli(k_drop, label_drop, (b,)))
+                k_t, k_n = jax.random.split(key)
+                put(rnd, k, "client", k_t, k_n, *plan.client_range)
+    return draws

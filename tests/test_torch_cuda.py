@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
 from repro_torch.diffusion import sampler as tsm  # noqa: E402
 from repro_torch.diffusion import schedule as tsch  # noqa: E402
 from repro_torch.kernels import ddpm_step as tds  # noqa: E402
@@ -575,3 +577,58 @@ def test_ssm_scan_wrapper_raises_on_what_the_kernel_does_not_take():
         ops.ssm_scan(x.transpose(2, 3), dt, a, bm, cm)
     with pytest.raises(ValueError, match="needs dt"):
         ops.ssm_scan(x, dt[:, :32], a, bm, cm)
+
+
+# one training round at UNetConfig().reduced(): card against CPU.  The
+# losses of round 0 depend only on the shared initial weights and draws;
+# cuDNN may pick FFT or Winograd convolutions, whose f32 error exceeds a
+# direct sum's, hence rtol 1e-4.  AdamW's first step moves each parameter
+# by ±lr by its gradient's sign, so a near-zero gradient either side of 0
+# can put one entry 2·lr apart: every entry within 2.002·lr, the mean |Δ|
+# within 1 % of lr.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_MAX, TRAIN_PARAM_MEAN = 2 * 1.001 * 1e-3, 1e-5
+
+
+def _train_one_round(device, batched):
+    from repro_torch.configs import UNetConfig
+    from repro_torch.core.trainer import CollaFuseTrainer, TrainerConfig
+    from repro_torch.data.synthetic import (ClientDataConfig,
+                                            make_client_datasets)
+    from repro_torch.models.unet import UNet
+    cfg = UNetConfig().reduced()
+    data, _ = make_client_datasets(ClientDataConfig(
+        n_clients=3, per_client=4, image_size=cfg.image_size, holdout=2))
+    tr = CollaFuseTrainer(TrainerConfig(n_clients=3, T=100, cut_ratio=0.8,
+                                        batched=batched),
+                          lambda s: UNet(cfg, seed=s % 9973), device=device)
+    return tr, tr.train_round(data)
+
+
+def _param_gap(a, b):
+    d = torch.cat([(a[k].cpu() - b[k].cpu()).abs().ravel() for k in a])
+    return float(d.max()), float(d.mean())
+
+
+@pytest.mark.cuda
+def test_training_round_batched_matches_looped_and_cpu_on_cuda():
+    _require_cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {(dev, b): _train_one_round(dev, b)
+            for dev, b in (("cuda", True), ("cuda", False), ("cpu", True))}
+    ref_tr, ref = runs[("cpu", True)]
+    for key in (("cuda", True), ("cuda", False)):
+        tr, m = runs[key]
+        np.testing.assert_allclose(m["server_loss"], ref["server_loss"],
+                                   rtol=TRAIN_LOSS_RTOL)
+        np.testing.assert_allclose(m["client_losses"], ref["client_losses"],
+                                   rtol=TRAIN_LOSS_RTOL)
+        np.testing.assert_allclose(m["server_grad_norm"],
+                                   ref["server_grad_norm"],
+                                   rtol=TRAIN_LOSS_RTOL)
+        for a, b in [(tr.server_params, ref_tr.server_params)] + \
+                list(zip(tr.client_params, ref_tr.client_params)):
+            gmax, gmean = _param_gap(a, b)
+            assert gmax <= TRAIN_PARAM_MAX and gmean <= TRAIN_PARAM_MEAN, \
+                (key, gmax, gmean)
