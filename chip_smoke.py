@@ -51,6 +51,22 @@ Phases, each printing its own lines:
    request mix (client i % 3) with each backend, backends agreeing, each
    kernel launched, and ``trainer.sample`` through ``ddpm_step``; (e) each
    client's disclosed x at the cut against its real images: MSE and KID;
+4c. guide — guided and gated serving at full width: the paper U-Net with
+   a 4-class label embedding (random weights from a seed), the reference
+   ``cfg_guidance`` gate's menu at T = 100 (DDPM, DDIM K = 20, their w = 0
+   twins, DDPM w = 1.5, DDIM w = 2.0), cuts {0.5, 0.75}, 8 slots, k = 4,
+   a KID gate calibrated on 16 synthetic 128x128 images: (a) each
+   sampler's KID profile to its deepest nominal cut (one chain each, its
+   time and U-Net calls), the w = 0 twins' bitwise the unguided ones, the
+   floor; (b) w = 0 twins against unguided traffic, completions and
+   decisions bitwise; (c) mixed guided and unguided traffic through each
+   backend: finite, agreeing, each kernel launched, every shadow lane
+   bitwise its primary at retirement, one ``traj_masked_step`` launch a
+   tick; (d) every served KID above the floor, a fresh policy's decisions,
+   an all-rejecting floor; (e) k = 4 against k = 1, bitwise; (f) guided
+   against unguided ticks/s and images/s ungated, server FLOPs exactly 2x,
+   the combine's device time inside a tick; (g) the launcher, guided and
+   gated;
 5. LM slice — Yi-6B at full width and depth in bf16 (random weights from a
    seed): (a) prefill of 4x2048 tokens through the flash kernel, 32
    launches a call, timed and profiled; (b) the same batch through
@@ -97,6 +113,7 @@ from repro_torch.core.trainer import (CollaFuseTrainer,  # noqa: E402
                                       TrainerConfig)
 from repro_torch.data.synthetic import (ClientDataConfig,  # noqa: E402
                                         image_batches, make_client_datasets)
+from repro_torch.diffusion.backend import get_backend  # noqa: E402
 from repro_torch.diffusion.sampler import make_sampler  # noqa: E402
 from repro_torch.diffusion.schedule import cosine_schedule  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -105,12 +122,13 @@ from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import ssm_scan as kssm  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch import serve_diffusion as sd_launch  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.unet import UNet, flops_per_image  # noqa: E402
-from repro_torch.serve import (EngineConfig, Request, ServeEngine,  # noqa: E402
-                               make_scheduler)
+from repro_torch.serve import (AdmissionPolicy, EngineConfig,  # noqa: E402
+                               Request, ServeEngine, make_scheduler)
 
 # Published H100 rates (NVIDIA data sheets; dense, no sparsity): memory
 # bandwidth, float32 rate outside the tensor cores, bf16 tensor-core rate.
@@ -632,7 +650,7 @@ def phase_slice(dev):
           f"against {1e3 / s['ticks_per_s']:.2f} ms per engine tick",
           flush=True)
     profile_device("U-Net forward at 8 lanes", lambda: server(x, t))
-    return counts
+    return counts, 1e3 / s["ticks_per_s"]
 
 
 # ---------------------------------------------------------------------------
@@ -881,6 +899,350 @@ def profile_device(label: str, fn, reps: int = 3,
         print(f"[profile]   {ms:8.3f} ms {ms / busy_ms:6.1%} "
               f"x{e.count // reps:<4d} {e.key[:90]}", flush=True)
     return {e.key: e.self_device_time_total / 1e3 / reps for e in kernels}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: guided and gated serving at full width
+# ---------------------------------------------------------------------------
+# the reference's classifier-free guidance gate (benchmarks/run.py) at T =
+# 100: 4 classes, cuts {0.5, 0.75}, a KID gate on 16 synthetic images
+GUIDE_CLASSES, GUIDE_CUTS, GUIDE_CALIB = 4, (0.5, 0.75), 16
+GUIDE_TWINS = {"ddpm": "ddpm_g0", "ddim": "ddim_g0"}
+
+
+def guide_samplers():
+    """The reference gate's menu: DDPM, DDIM K = 20 (η = 0), their w = 0
+    twins, and DDPM at w = 1.5 and DDIM at w = 2.0."""
+    ddim = (T, "ddim", 20, 0.0)
+    return {"ddpm": make_sampler(T), "ddim": make_sampler(*ddim),
+            "ddpm_g0": make_sampler(T, guidance=0.0),
+            "ddim_g0": make_sampler(*ddim, guidance=0.0),
+            "ddpm_g": make_sampler(T, guidance=1.5),
+            "ddim_g": make_sampler(*ddim, guidance=2.0)}
+
+
+def guide_requests(names, n, salt, batch_of=lambda i: 1 + i % 2, cut=None):
+    """The gate's traffic: samplers cycled, labels i % 4, batch 1-2, cuts
+    alternating over GUIDE_CUTS, two clients, all arriving at tick 0."""
+    return [Request(req_id=i, seed=salt * 1000 + i, batch=batch_of(i),
+                    cut_ratio=cut if cut else GUIDE_CUTS[i % 2],
+                    client_idx=i % 2, sampler=names[i % len(names)],
+                    label=i % GUIDE_CLASSES)
+            for i in range(n)]
+
+
+def guide_engine(server, backend, k, dev, admission):
+    """Phase 4c's engine: phase 4's (8 slots, cut-ratio scheduler) made
+    conditional, with the guidance menu and an optional KID gate."""
+    samplers = guide_samplers()
+    return ServeEngine(EngineConfig(
+        sched=cosine_schedule(T), image_shape=IMG, slots=8,
+        scheduler=make_scheduler("cut_ratio", T, samplers=samplers),
+        step_backend=backend, samplers=samplers, ticks_per_dispatch=k,
+        device=dev, num_classes=GUIDE_CLASSES, admission=admission), server)
+
+
+def watch_engine(eng, shadows: list, ticks: list):
+    """Spy on one engine: at each retirement record whether every retiring
+    shadow lane's x is bitwise its primary's; at each lane tick record
+    (``traj_masked_step`` launches in it, whether its stepping lanes mixed
+    guided pairs and solo lanes)."""
+    retire, tick = eng._retire, eng._lane_tick
+
+    def spy_retire(done_seq, x, start, n_active, inflight, lanes, *rest):
+        for ln in np.nonzero(done_seq.any(axis=0) & lanes.shadow)[0]:
+            shadows.append(torch.equal(x[ln], x[lanes.pair[ln]]))
+        return retire(done_seq, x, start, n_active, inflight, lanes, *rest)
+
+    def spy_tick(model, menu, x, pos, end, traj, gate, noise, y, pair,
+                 cond):
+        stepping = gate & (pos < end)
+        paired = pair != np.arange(len(pair))
+        before = ops.launch_counts()["traj_masked_step"]
+        out = tick(model, menu, x, pos, end, traj, gate, noise, y, pair,
+                   cond)
+        ticks.append((ops.launch_counts()["traj_masked_step"] - before,
+                      bool((stepping & paired).any() and
+                           (stepping & ~paired).any())))
+        return out
+    eng._retire, eng._lane_tick = spy_retire, spy_tick
+    return eng
+
+
+# a ~10 ms device spin (torch.cuda._sleep) ahead of a timed call holds the
+# device while the host queues it, so its events read the device's time
+# and not the host's (tools/step_variants.py)
+SPIN_CYCLES = 20_000_000
+
+
+def event_wrap(obj, name: str, pairs: list, spin: bool = False):
+    """Bracket ``obj.name`` (keyword arguments too) by CUDA events appended
+    to ``pairs``, behind a spin if ``spin``; returns a function that removes
+    the wrapper."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        out = fn(*args, **kw)
+        stop.record()
+        pairs.append((start, stop))
+        return out
+    setattr(obj, name, wrapped)
+    return lambda: delattr(obj, name)
+
+
+def same_decision(a, b) -> bool:
+    return (a.action, a.effective_cut, a.kid) == \
+        (b.action, b.effective_cut, b.kid)
+
+
+def phase_guided(dev, card: str, slice_ms_tick: float):
+    t_phase = time.perf_counter()
+    ucfg = dataclasses.replace(UNetConfig(), num_classes=GUIDE_CLASSES)
+    server = UNet(ucfg, seed=0).to(dev).eval()
+    clients = [UNet(ucfg, seed=1 + c).to(dev).eval() for c in range(2)]
+    n_params = sum(p.numel() for p in server.parameters())
+    sched = cosine_schedule(T)
+    samplers = guide_samplers()
+    calib = make_client_datasets(ClientDataConfig(
+        n_clients=1, per_client=GUIDE_CALIB, image_size=IMG[0], holdout=2,
+        seed=0))[0][0].to(dev)
+    print(f"[guide] conditional paper U-Net ({GUIDE_CLASSES} classes + "
+          f"null) {n_params} params x 3 models; menu "
+          + ", ".join(f"{n}: {s.describe()}" for n, s in samplers.items())
+          + f"; KID gate on {GUIDE_CALIB} synthetic {IMG[0]}x{IMG[1]} "
+          "images", flush=True)
+
+    # (a) the landscape and the floor, as the reference's gate derives it
+    probe = AdmissionPolicy(sched, calib, min_kid=float("-inf"),
+                            samplers=samplers)
+    guide_engine(server, "cuda_masked", 4, dev, probe)     # binds the model
+    combos = [(n, c) for n in samplers for c in GUIDE_CUTS]
+    profiles = {}
+    for n, s in samplers.items():
+        hi = max(CutPlan(T, c).cut_index(s) for n2, c in combos if n2 == n)
+        calls, secs = probe.model_calls, probe.score_s
+        profiles[n] = probe.profile(n, hi)
+        prof = profiles[n]
+        per_step = 2 if s.guided and s.w else 1
+        print(f"[guide] (a) {n}: positions 0..{hi} scored in "
+              f"{probe.score_s - secs:.2f}s with "
+              f"{probe.model_calls - calls} U-Net calls on {GUIDE_CALIB} "
+              f"images (from scratch each: {hi * (hi + 1) // 2 * per_step})"
+              " | KID at 0, 1/4, 1/2, 3/4, end: " + ", ".join(
+                  f"{prof[p]:.5f}" for p in (0, hi // 4, hi // 2,
+                                              3 * hi // 4, hi)), flush=True)
+    for plain, twin in GUIDE_TWINS.items():
+        if profiles[twin] != profiles[plain][:len(profiles[twin])]:
+            raise AssertionError(f"w = 0 profile of {twin} differs from "
+                                 f"{plain}'s")
+    print("[guide] (a) w = 0 profiles bitwise equal to the unguided ones: "
+          "True", flush=True)
+    nominal, prefix = [], []
+    for n, c in combos:
+        pos = CutPlan(T, c).cut_index(samplers[n])
+        nominal.append(profiles[n][pos])
+        prefix.append(max(profiles[n][:pos + 1]))
+    lo, hi = min(nominal), min(prefix)
+    min_kid = 0.5 * (lo + hi) if lo < hi else lo
+    can_bump = any(k < min_kid <= m for k, m in zip(nominal, prefix))
+    print(f"[guide] (a) floor min_kid {min_kid:.6f} (lowest nominal KID "
+          f"{lo:.6f}, lowest best-reachable {hi:.6f}); "
+          + ("the landscape forces a bump at this floor" if can_bump else
+             "the landscape cannot force a bump: no combination's nominal "
+             "KID lies below a noisier position's at this floor")
+          + f" | scoring {probe.score_s:.2f}s, {probe.model_calls} U-Net "
+          "calls", flush=True)
+    gate = probe.with_min_kid(min_kid)
+
+    # (b) the w = 0 anchor on cuda_masked
+    res_a = guide_engine(server, "cuda_masked", 4, dev, gate).serve(
+        guide_requests(["ddpm", "ddim"], 4, salt=3), clients)
+    res_b = guide_engine(server, "cuda_masked", 4, dev, gate).serve(
+        guide_requests(list(GUIDE_TWINS.values()), 4, salt=3), clients)
+    anchor = (set(res_a.completions) == set(res_b.completions)
+              and bitwise(res_a, res_b)
+              and all(same_decision(d, res_b.decisions[r])
+                      for r, d in res_a.decisions.items()))
+    print(f"[guide] (b) w = 0 anchor: {len(res_a.completions)} completions "
+          f"(x_mid, x0) and {len(res_a.decisions)} decisions bitwise equal: "
+          f"{anchor} | unguided {res_a.summary['ticks']} ticks, twins "
+          f"{res_b.summary['ticks']}", flush=True)
+    if not anchor:
+        raise AssertionError("w = 0 twins differ from the unguided traffic")
+
+    # (c) mixed traffic through each backend, gated
+    mix = ["ddpm", "ddpm_g", "ddim", "ddim_g"]
+    reqs = guide_requests(mix, 6, salt=7)
+    runs, counts, shadows, ticks = {}, {}, [], []
+    for backend in ("cuda_masked", "triton", "torch"):
+        eng = watch_engine(guide_engine(server, backend, 4, dev, gate),
+                           shadows, ticks if backend == "cuda_masked"
+                           else [])
+        ops.reset_launch_counts()
+        res = eng.serve(reqs, clients)
+        counts[backend] = ops.launch_counts()
+        runs[backend] = res
+        for comp in res.completions.values():
+            if not (np.isfinite(comp.x_mid).all() and
+                    np.isfinite(comp.x0).all()):
+                raise AssertionError(f"{backend}: non-finite output for "
+                                     f"request {comp.request.req_id}")
+        s = res.summary
+        print(f"[guide] (c) {backend} k=4: {s['requests']} requests "
+              f"({s['served']} served, {s['images']} images), "
+              f"{s['ticks']} ticks, wall {res.wall_s:.3f}s | "
+              f"{s['ticks_per_s']:.2f} ticks/s "
+              f"({1e3 / s['ticks_per_s']:.2f} ms/tick) | "
+              f"{s['images_per_s']:.3f} images/s | decisions "
+              + ", ".join(f"{d.req_id}:{d.action}@{d.effective_cut}"
+                          for d in res.decisions.values())
+              + f" | launches {counts[backend]}", flush=True)
+    check_backends_agree(runs, "guide")
+    if counts["cuda_masked"]["traj_masked_step"] == 0:
+        raise AssertionError("traj_masked_step never launched on its run")
+    if counts["triton"]["ddpm_step"] == 0:
+        raise AssertionError("ddpm_step never launched on its run")
+    mixed = [n for n, m in ticks if m]
+    per_tick = sorted(set(n for n, _ in ticks))
+    print(f"[guide] (c) shadow x bitwise its primary's at {len(shadows)} "
+          f"retirements: {all(shadows)} | cuda_masked: {len(ticks)} lane "
+          f"ticks, traj_masked_step launches a tick {per_tick}, "
+          f"{len(mixed)} ticks mixing guided pairs and solo lanes",
+          flush=True)
+    if not shadows or not all(shadows):
+        raise AssertionError("a shadow lane's x differs from its primary's")
+    if any(n != 1 for n, _ in ticks) or not mixed:
+        raise AssertionError("mixed guided and unguided lanes did not take "
+                             "one traj_masked_step launch a tick")
+
+    # (d) privacy: every served KID clears the floor; a fresh policy decides
+    # the same; a floor above every score rejects everything
+    res = runs["cuda_masked"]
+    for rid, d in res.decisions.items():
+        if d.served and (d.kid < min_kid or d.kid != gate.disclosure_kid(
+                d.sampler, d.effective_cut)):
+            raise AssertionError(f"request {rid} served at KID {d.kid} "
+                                 f"against the floor {min_kid}")
+    fresh = AdmissionPolicy(sched, calib, min_kid=min_kid,
+                            samplers=guide_samplers())
+    guide_engine(server, "cuda_masked", 4, dev, fresh)
+    fresh_d = {r.req_id: fresh.decide(r) for r in reqs}
+    exact = fresh_d == res.decisions
+    close = all(a.action == b.action and a.effective_cut == b.effective_cut
+                and abs(a.kid - b.kid) <= 1e-6 * abs(b.kid)
+                for a, b in ((fresh_d[r], res.decisions[r]) for r in fresh_d))
+    served = [d for d in res.decisions.values() if d.served]
+    print(f"[guide] (d) {len(served)} served requests, KID "
+          f"{min(d.kid for d in served):.6f}..{max(d.kid for d in served):.6f}"
+          f" >= floor {min_kid:.6f}: True | the gate's decisions read "
+          f"{gate.cache_hits} scores from the cache and made "
+          f"{gate.model_calls} U-Net calls | fresh policy "
+          f"({fresh.model_calls} U-Net calls, {fresh.score_s:.2f}s): "
+          f"decisions identical {exact}"
+          + ("" if exact else f", within 1e-6 relative {close}"), flush=True)
+    if not close:
+        raise AssertionError("a fresh policy decides otherwise")
+    top = max(probe._kid_cache.values())
+    res_r = guide_engine(server, "cuda_masked", 4, dev,
+                         probe.with_min_kid(top + 1.0)).serve(reqs, clients)
+    empty = (not res_r.completions and res_r.summary["ticks"] == 0
+             and len(res_r.rejected) == len(reqs)
+             and res_r.summary["server_flops"] == 0)
+    print(f"[guide] (d) floor {top + 1.0:.4f} above every score: "
+          f"{len(res_r.rejected)} of {len(reqs)} rejected, "
+          f"{len(res_r.completions)} completions, {res_r.summary['ticks']} "
+          f"ticks: {empty}", flush=True)
+    if not empty:
+        raise AssertionError("an all-rejecting floor served work")
+
+    # (e) k = 4 against k = 1 on the mixed traffic
+    res1 = guide_engine(server, "cuda_masked", 1, dev, gate).serve(reqs,
+                                                                   clients)
+    same_k = bitwise(res, res1) and set(res1.completions) == set(
+        res.completions)
+    print(f"[guide] (e) k=4 vs k=1: bitwise {same_k} | k=1 "
+          f"{res1.summary['ticks']} ticks, {res1.summary['ticks_per_s']:.2f}"
+          " ticks/s", flush=True)
+    if not same_k:
+        raise AssertionError("k=4 differs from k=1 on guided traffic")
+
+    # (f) cost: guided against unguided at equal slots, ungated, nominal
+    # cut; the guided step's time in the tick (events as the tick runs: the
+    # device has drained and waits on the host there), then, in a run of
+    # its own, behind a spin (the combine's device time)
+    one = lambda i: 1                                      # noqa: E731
+    be = get_backend("cuda_masked")
+    cost, combine = {}, {}
+    for name, spin in (("ddpm", None), ("ddpm_g", False), ("ddpm_g", True)):
+        pairs = {"guided": [], "masked": []}
+        undo = [] if spin is None else [
+            event_wrap(be, "guided_masked_index_step", pairs["guided"],
+                       spin),
+            event_wrap(be, "masked_index_step", pairs["masked"])]
+        eng = guide_engine(server, "cuda_masked", 4, dev, None)
+        res_f = eng.serve(guide_requests([name], 4 if spin else 8, salt=11,
+                                         batch_of=one, cut=0.75))
+        torch.cuda.synchronize()
+        for u in undo:
+            u()
+        if not spin:
+            cost[name] = res_f
+        if spin is not None:
+            g_ms = np.median([event_ms(p) for p in pairs["guided"]])
+            m_ms = np.median([event_ms(p) for p in pairs["masked"]])
+            combine[spin] = (float(g_ms - m_ms), float(g_ms), float(m_ms),
+                             len(pairs["guided"]))
+    su, sg = cost["ddpm"].summary, cost["ddpm_g"].summary
+    print(f"[guide] (f) 8 requests of 1 image at c=0.75, ungated, 8 slots: "
+          f"unguided {su['ticks']} ticks {su['ticks_per_s']:.2f} ticks/s "
+          f"({1e3 / su['ticks_per_s']:.2f} ms/tick) "
+          f"{su['images_per_s']:.3f} images/s | guided {sg['ticks']} ticks "
+          f"{sg['ticks_per_s']:.2f} ticks/s "
+          f"({1e3 / sg['ticks_per_s']:.2f} ms/tick) "
+          f"{sg['images_per_s']:.3f} images/s | guided/unguided: ticks/s "
+          f"{sg['ticks_per_s'] / su['ticks_per_s']:.3f}, images/s "
+          f"{sg['images_per_s'] / su['images_per_s']:.3f} | phase 4's tick "
+          f"{slice_ms_tick:.2f} ms", flush=True)
+    print(f"[guide] (f) server FLOPs guided {sg['server_flops']:.6g} = "
+          f"{sg['server_flops'] / su['server_flops']:.6f} x unguided "
+          f"{su['server_flops']:.6g}", flush=True)
+    for spin, what in ((True, "device time, behind a spin"),
+                       (False, "as the tick runs, the host's pace")):
+        d, g_ms, m_ms, n = combine[spin]
+        print(f"[guide] (f) the combine inside a guided tick ({what}): "
+              f"{d * 1e3:.1f} us = the guided step {g_ms * 1e3:.1f} us less "
+              f"its masked step {m_ms * 1e3:.1f} us (medians of {n} event "
+              "pairs)", flush=True)
+    if sg["server_flops"] != 2.0 * su["server_flops"]:
+        raise AssertionError("guided server FLOPs are not 2x the unguided")
+
+    # (g) the launcher, guided and gated at full width
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        sd_launch.main(["--config", "paper", "--num-classes", "4",
+                        "--guidance", "1.5", "--min-kid", f"{min_kid:.6f}",
+                        "--calib", str(GUIDE_CALIB), "--requests", "2",
+                        "--clients", "1", "--slots", "8",
+                        "--cut-ratios", "0.75", "--ticks-per-dispatch", "4"])
+    for line in buf.getvalue().splitlines():
+        print(f"[guide] (g) {line}", flush=True)
+    if "serve_diffusion OK" not in buf.getvalue() or \
+            "admission (min_kid=" not in buf.getvalue():
+        raise AssertionError("the launcher did not print its admission "
+                             "outcome and 'serve_diffusion OK'")
+    print(f"[guide] (g) launcher wall {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    del server, clients, probe, gate, fresh
+    torch.cuda.empty_cache()
+    print(f"[guide] phase wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1439,12 +1801,15 @@ def main():
     rows = phase_kernels(dev, card)
     attn_rows = phase_attention(dev, card)
     ssm_rows = phase_ssm(dev, card)
-    c = phase_slice(dev)
+    _, slice_ms_tick = phase_slice(dev)
     phase_train(dev, card)
+    g = phase_guided(dev, card, slice_ms_tick)
     lm_counts = phase_lm(dev, card)
     hybrid_counts = phase_hybrid(dev, card)
-    counts = {"traj_masked_step": c["cuda_masked"]["traj_masked_step"],
-              "ddpm_step": c["triton"]["ddpm_step"],
+    # the step kernels' launches on this slice's path, guided and gated
+    # serving (phase 4's are printed in its own lines)
+    counts = {"traj_masked_step": g["cuda_masked"]["traj_masked_step"],
+              "ddpm_step": g["triton"]["ddpm_step"],
               "flash_attention": lm_counts["flash_attention"],
               "ssm_scan": hybrid_counts["ssm_scan"]}
     main_row = rows[(8, torch.float32)]

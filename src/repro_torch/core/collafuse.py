@@ -364,25 +364,38 @@ def _one_image(source: NoiseSource, image: int) -> NoiseSource:
                                                       step, shape)
 
 
-def disclosed_at_pos(sched: DiffusionSchedule, sampler: Sampler,
-                     server_fn: Callable, seed: int, x0_client, pos: int,
-                     backend: BackendLike = None,
+def disclosure_start(sched: DiffusionSchedule, seed: int, x0_client,
                      noise: Optional[NoiseSource] = None):
-    """What the server could reconstruct of real client images: noise x_0
-    to x_T with the "init" draws, then denoise positions [0, pos) on the
-    server with the "server" draws.  Runs on x0_client's device."""
-    assert 0 <= pos <= sampler.K, (pos, sampler.K)
+    """The start of a disclosure chain: x_0 noised to x_T with the "init"
+    draws, and the step-noise function of its "server" draws.  Runs on
+    x0_client's device."""
     src = noise or lane_normal
     images, img_shape = range(x0_client.shape[0]), tuple(x0_client.shape[1:])
     dev = x0_client.device
     eps = _batch_noise(src, seed, images, "init", img_shape)(0).to(dev)
     t_top = torch.full((x0_client.shape[0],), sched.T, dtype=torch.int64,
                        device=dev)
-    x_T = ddpm.q_sample(sched, x0_client, t_top, eps)
-    return sample_trajectory(sched, sampler, server_fn,
-                             _batch_noise(src, seed, images, "server",
-                                          img_shape), x_T, 0, pos,
-                             backend=backend)
+    return (ddpm.q_sample(sched, x0_client, t_top, eps),
+            _batch_noise(src, seed, images, "server", img_shape))
+
+
+def disclosed_at_pos(sched: DiffusionSchedule, sampler: Sampler,
+                     server_fn: Callable, seed: int, x0_client, pos: int,
+                     backend: BackendLike = None,
+                     noise: Optional[NoiseSource] = None, cond_fn=None,
+                     label: int = 0):
+    """What the server could reconstruct of real client images: noise x_0
+    to x_T with the "init" draws, then denoise positions [0, pos) on the
+    server with the "server" draws.  Runs on x0_client's device.
+
+    On a guided sampler the prefix runs under classifier-free guidance:
+    ``cond_fn(x, t, y)`` at ``label`` is the conditional branch,
+    ``server_fn`` the unconditional one (see :func:`sample_trajectory`)."""
+    assert 0 <= pos <= sampler.K, (pos, sampler.K)
+    x_T, server_noise = disclosure_start(sched, seed, x0_client, noise)
+    return sample_trajectory(sched, sampler, server_fn, server_noise, x_T, 0,
+                             pos, backend=backend, cond_fn=cond_fn,
+                             label=label)
 
 
 def disclosed_at_split(sched: DiffusionSchedule, plan: CutPlan,
@@ -401,9 +414,14 @@ def disclosed_at_split(sched: DiffusionSchedule, plan: CutPlan,
 # compute split accounting (paper H2c — GPU energy proxy)
 # ---------------------------------------------------------------------------
 def flops_split_steps(n_server_steps: int, n_client_steps: int,
-                      flops_per_model_call: float, batch: int) -> dict:
-    """FLOP split from raw per-side step counts."""
+                      flops_per_model_call: float, batch: int,
+                      guided: bool = False) -> dict:
+    """FLOP split from raw per-side step counts.  ``guided`` doubles the
+    server segment exactly (a cond+uncond lane pair a server step); the
+    client finishes unguided."""
     server = n_server_steps * flops_per_model_call * batch
+    if guided:
+        server *= 2
     client = n_client_steps * flops_per_model_call * batch
     diffusion_pass = 10.0 * batch  # q_sample: a handful of elementwise ops
     return {

@@ -29,7 +29,13 @@ def check_on_device(model: torch.nn.Module, device: torch.device,
                     name: str = "model") -> None:
     """Raise unless ``model``'s parameters lie on ``device`` (the engine
     never moves a caller's module behind its back)."""
-    got = next(model.parameters()).device
+    check_tensor_on_device(next(model.parameters()), device, name)
+
+
+def check_tensor_on_device(t: torch.Tensor, device: torch.device,
+                           name: str = "tensor") -> None:
+    """Raise unless tensor ``t`` lies on ``device``."""
+    got = t.device
     if got.type != device.type or (device.index is not None
                                    and got.index != device.index):
         raise ValueError(f"{name} is on {got}, engine runs on {device}; "

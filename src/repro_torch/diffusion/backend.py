@@ -18,7 +18,10 @@ Registered backends:
 
 On CPU tensors the kernel backends run their kernels' plain versions.
 Inactive lanes always pass through bit-unchanged, even at out-of-range
-columns or timesteps.
+columns or timesteps.  ``guided_masked_index_step`` puts the
+classifier-free ε̂-combine over cond+uncond lane pairs in front of the
+masked step, in plain PyTorch as the reference does in jnp, so mixed guided
+and unguided traffic still ends in one step kernel a tick.
 """
 from __future__ import annotations
 
@@ -31,8 +34,8 @@ from repro_torch.kernels import ddpm_step as kds
 from repro_torch.kernels import ops as kops
 
 # Row index of the guidance-scale row in the canonical coefficient table
-# (rows 0-3 = c_eps, ar, sigma, keep drive the update).  This slice serves
-# unguided traffic, so the row is all zeros and rides along unused.
+# (rows 0-3 = c_eps, ar, sigma, keep drive the update; row 4 = the
+# classifier-free guidance scale w of the column's sampler).
 GUIDANCE_ROW = 4
 N_TABLE_ROWS = 5
 
@@ -87,13 +90,47 @@ class StepBackend:
                                 clip=clip)
         return torch.where(_lanes(active, x.ndim), x_new, x)
 
+    def guided_masked_index_step(self, x, cols, eps_hat, noise, active, pair,
+                                 cond, tables, *, clip: float = 3.0):
+        """:meth:`masked_index_step` with the classifier-free ε̂-combine in
+        front of it.
 
-def make_lane_tick(masked_index: Callable, kmax: int) -> Callable:
+        A guided request occupies a lane PAIR: a primary lane (``cond``
+        True, the model saw the request's label) and a shadow lane
+        (``cond`` False, the null label); ``pair`` holds each lane's
+        partner index (its own for unguided lanes).  Per lane the combine is
+        ε̂_u + w·(ε̂_c − ε̂_u), w gathered from row :data:`GUIDANCE_ROW` by
+        the lane's column, and the shadow borrows its primary's noise, so
+        both lanes of a pair step to the same x.  Solo lanes and w = 0
+        columns take ε̂_u through a select: bitwise the plain
+        :meth:`masked_index_step`.
+        """
+        if tables.shape[0] <= GUIDANCE_ROW:          # a bare 4-row table
+            return self.masked_index_step(x, cols, eps_hat, noise, active,
+                                          tables, clip=clip)
+        cols_safe = torch.clamp(cols.to(torch.int64), 0, tables.shape[1] - 1)
+        w = _lanes(tables[GUIDANCE_ROW, cols_safe], x.ndim)
+        c = _lanes(cond, x.ndim)
+        pair = pair.to(torch.int64)
+        eps_p = eps_hat[pair]
+        eps_c = torch.where(c, eps_hat, eps_p)
+        eps_u = torch.where(c, eps_p, eps_hat)
+        solo = _lanes(pair == torch.arange(x.shape[0], device=x.device),
+                      x.ndim)
+        eps = torch.where(solo | (w == 0.0), eps_u,
+                          eps_u + w * (eps_c - eps_u))
+        z = torch.where(c, noise, noise[pair])
+        return self.masked_index_step(x, cols, eps, z, active, tables,
+                                      clip=clip)
+
+
+def make_lane_tick(masked_index: Callable, guided_index: Callable, kmax: int,
+                   conditional: bool = False) -> Callable:
     """Build the masked lane tick the engine's server windows and its client
     finisher share (counterpart of ``backend.py:153``).
 
         x, pos, done = lane_tick(model, menu, x, pos, end, traj, gate,
-                                 lane_noise)
+                                 lane_noise, y, pair, cond)
 
     ``menu`` is the trajectory menu as data: ``tables`` — the (5, C)
     concatenated coefficient table on x's device, gathered per lane by
@@ -106,21 +143,40 @@ def make_lane_tick(masked_index: Callable, kmax: int) -> Callable:
     select), so retiring at a window boundary reads the exact cut tensor at
     any window depth.  ``lane_noise(pos, stepping)`` returns the (S, ...)
     noise of this tick on x's device (rows of lanes not stepping are
-    unused).  ``masked_index`` is a backend's ``masked_index_step`` with
-    its clip bound.
+    unused).  ``y``/``pair``/``cond`` (host numpy (S,)) are the
+    conditional-serving lane state: the class label a ``conditional`` model
+    sees (the null label for unguided and shadow lanes), the partner lane
+    of a guided pair (own index when solo) and the primary-lane flag.  One
+    model call covers both lanes of every pair.  ``masked_index`` and
+    ``guided_index`` are a backend's ``masked_index_step`` and
+    ``guided_masked_index_step`` with their clip bound: a tick with a
+    paired lane takes the guided one (the combine and the shadow's noise
+    borrow in front of the one step); a tick whose lanes are all solo takes
+    the masked step directly, which is what the combine reduces to there,
+    bit for bit, without its dozen eager launches of host time.
     """
-    def lane_tick(model, menu, x, pos, end, traj, gate, lane_noise):
+    def lane_tick(model, menu, x, pos, end, traj, gate, lane_noise, y, pair,
+                  cond):
         stepping = gate & (pos < end)
         pos_c = np.clip(pos, 0, kmax - 1)
         dev = x.device
         t_lane = torch.from_numpy(menu["ts_pad"][traj, pos_c]).to(dev)
-        eps_hat = model(x, t_lane)
+        if conditional:
+            eps_hat = model(x, t_lane, torch.from_numpy(y).to(dev))
+        else:
+            eps_hat = model(x, t_lane)
         noise = lane_noise(pos_c, stepping)
         cols = torch.from_numpy(
             (menu["offsets"][traj] + pos_c).astype(np.int32)).to(dev)
-        x = masked_index(x, cols, eps_hat, noise,
-                         torch.from_numpy(stepping).to(dev),
-                         tables=menu["tables"])
+        active = torch.from_numpy(stepping).to(dev)
+        if (pair != np.arange(len(pair))).any():
+            x = guided_index(x, cols, eps_hat, noise, active,
+                             torch.from_numpy(pair).to(dev),
+                             torch.from_numpy(cond).to(dev),
+                             tables=menu["tables"])
+        else:
+            x = masked_index(x, cols, eps_hat, noise, active,
+                             tables=menu["tables"])
         pos = np.where(stepping, pos + 1, pos)
         done = stepping & (pos >= end)        # x now holds the cut tensor
         return x, pos, done

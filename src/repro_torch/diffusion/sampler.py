@@ -7,10 +7,11 @@
 * :class:`Sampler` — a trajectory plus the update family (``"ddpm"``
   ancestral on the dense chain, ``"ddim"`` with ``eta`` on any trajectory);
   ``tables(sched)`` emits the canonical (5, K) coefficient table (c_eps, ar,
-  σ, keep, w) every StepBackend consumes.  Guidance arrives with its own
-  slice: the w row is all zeros here.
+  σ, keep, w) every StepBackend consumes; w is the sampler's
+  classifier-free guidance scale (0 when unguided).
 * :func:`sample_trajectory` — runs positions [pos_from, pos_to); position j
-  draws its noise as ``noise(j)``.
+  draws its noise as ``noise(j)``.  On a guided sampler each step combines
+  ε̂_u + w·(ε̂_c − ε̂_u).
 """
 from __future__ import annotations
 
@@ -98,15 +99,23 @@ def strided_trajectory(T: int, num_steps: int) -> Trajectory:
 class Sampler:
     """A trajectory + the per-step update family walking it.  ``eta=1`` on
     the dense trajectory routes through the ancestral coefficients, as the
-    reference does."""
+    reference does.
+
+    ``guidance_scale`` makes the sampler classifier-free guided: each step
+    combines ε̂ = ε̂_u + w·(ε̂_c − ε̂_u).  ``None`` is unguided; ``0.0`` is
+    guided, but its chain is bitwise the unguided one.
+    """
 
     trajectory: Trajectory
     family: str = "ddpm"
     eta: float = 1.0
+    guidance_scale: Optional[float] = None
 
     def __post_init__(self):
         assert self.family in FAMILIES, self.family
         assert 0.0 <= self.eta <= 1.0, self.eta
+        assert self.guidance_scale is None or self.guidance_scale >= 0.0, \
+            self.guidance_scale
         if self.family == "ddpm":
             assert self.trajectory.is_dense, \
                 "the DDPM ancestral update is only defined on the dense " \
@@ -116,9 +125,20 @@ class Sampler:
     def K(self) -> int:
         return self.trajectory.K
 
+    @property
+    def guided(self) -> bool:
+        """True when the sampler walks a cond+uncond lane pair."""
+        return self.guidance_scale is not None
+
+    @property
+    def w(self) -> float:
+        """The guidance scale as a float (0.0 when unguided)."""
+        return float(self.guidance_scale or 0.0)
+
     def tables(self, sched: DiffusionSchedule) -> torch.Tensor:
         """(5, K) f32 canonical table (c_eps, ar, sigma, keep, w) on the CPU;
-        column j holds the step executed at position j, w = 0."""
+        column j holds the step executed at position j, row
+        :data:`GUIDANCE_ROW` the guidance scale."""
         assert sched.T == self.trajectory.T, (sched.T, self.trajectory.T)
         t = torch.tensor(self.trajectory.timesteps, dtype=torch.int64)
         ancestral = self.family == "ddpm" or (self.eta == 1.0 and
@@ -128,19 +148,23 @@ class Sampler:
         else:
             tp = torch.tensor(self.trajectory.t_prev(), dtype=torch.int64)
             coefs = ddim_pair_coefs(sched, t, tp, self.eta)
-        wrow = torch.zeros((1, self.K), dtype=coefs.dtype)
+        wrow = torch.full((1, self.K), self.w, dtype=coefs.dtype)
         return torch.cat([coefs, wrow], dim=0)
 
     def describe(self) -> str:
         fam = (self.family if self.family == "ddpm"
                else f"ddim(eta={self.eta:g})")
+        if self.guided:
+            fam += f" cfg(w={self.w:g})"
         return f"{fam} over {self.trajectory.describe()}"
 
 
 def make_sampler(T: int, family: str = "ddpm", num_steps: int = 0,
-                 eta: float = 1.0) -> Sampler:
+                 eta: float = 1.0,
+                 guidance: Optional[float] = None) -> Sampler:
     """Build a sampler from launcher-flag-shaped inputs.  ``num_steps`` of 0
-    (or T) selects the dense trajectory; ddpm is the eta=1 member."""
+    (or T) selects the dense trajectory; ddpm is the eta=1 member.
+    ``guidance=w`` makes it classifier-free guided (None: unguided)."""
     k = num_steps if num_steps else T
     if family == "ddpm" and k < T:
         raise ValueError(
@@ -149,8 +173,8 @@ def make_sampler(T: int, family: str = "ddpm", num_steps: int = 0,
             f"(--sampler ddim on the launcher)")
     traj = dense_trajectory(T) if k >= T else strided_trajectory(T, k)
     if family == "ddpm":
-        return Sampler(traj, "ddpm", 1.0)
-    return Sampler(traj, family, eta)
+        return Sampler(traj, "ddpm", 1.0, guidance)
+    return Sampler(traj, family, eta, guidance)
 
 
 DEFAULT = "ddpm"                 # registry key engines use for Request.sampler
@@ -177,10 +201,17 @@ def assert_same_menu(a, b, a_name: str = "menu A", b_name: str = "menu B"):
 def sample_trajectory(sched: DiffusionSchedule, sampler: Sampler, model_fn,
                       noise: NoiseAt, x_start, pos_from: int = 0,
                       pos_to: Optional[int] = None,
-                      backend: BackendLike = None, clip: float = 3.0):
+                      backend: BackendLike = None, clip: float = 3.0,
+                      cond_fn=None, label: int = 0):
     """Run trajectory positions [pos_from, pos_to) on ``x_start``; position
     j draws its noise as ``noise(j)``.  On the dense DDPM sampler this is
-    :func:`~repro_torch.diffusion.ddpm.sample_range` step for step."""
+    :func:`~repro_torch.diffusion.ddpm.sample_range` step for step.
+
+    On a guided sampler with w ≠ 0 each step also evaluates the conditional
+    branch ``cond_fn(x, t, y)`` at label ``label`` and combines
+    ``ε̂_u + w·(ε̂_c − ε̂_u)``; without a ``cond_fn`` both branches are the
+    same call.  At w = 0 the combine is skipped: the chain is bitwise the
+    unguided one."""
     K = sampler.K
     pos_to = K if pos_to is None else pos_to
     assert 0 <= pos_from <= K and 0 <= pos_to <= K, (pos_from, pos_to, K)
@@ -190,11 +221,18 @@ def sample_trajectory(sched: DiffusionSchedule, sampler: Sampler, model_fn,
     dev = x_start.device
     backend = get_backend(backend)
     tables = sampler.tables(sched).to(dev)
+    w = sampler.w
+    guide = sampler.guided and w != 0.0
+    yb = (torch.full((b,), label, dtype=torch.int64, device=dev)
+          if guide else None)
     x = x_start
     for pos in range(pos_from, pos_to):
         tb = torch.full((b,), sampler.trajectory.timesteps[pos],
                         dtype=torch.int64, device=dev)
         eps_hat = model_fn(x, tb)
+        if guide:
+            eps_c = cond_fn(x, tb, yb) if cond_fn is not None else eps_hat
+            eps_hat = eps_hat + w * (eps_c - eps_hat)
         z = noise(pos).to(device=dev, dtype=x.dtype)
         cols = torch.full((b,), pos, dtype=torch.int32, device=dev)
         x = backend.index_step(x, cols, eps_hat, z, tables, clip=clip)

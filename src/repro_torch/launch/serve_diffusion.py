@@ -7,11 +7,17 @@ serving engine, then finishes every request on its client's private model::
     python -m repro_torch.launch.serve_diffusion                # paper U-Net
     python -m repro_torch.launch.serve_diffusion --device cpu --config \
         launcher --T 10 --requests 4 --slots 4
+    python -m repro_torch.launch.serve_diffusion --num-classes 4 \
+        --guidance 1.5 --min-kid 0.5 --calib 16   # guided, KID-gated
 
 ``--config paper`` is the paper's U-Net (128x128x1, base 64, mults
 (1,2,4,8), 2 res blocks, attention at 16); ``--config launcher`` is the
 reference launcher's small model.  Weights are random, drawn from
-``--seed``.  The default device is CUDA; without a card the launcher raises
+``--seed``.  ``--num-classes N`` makes the model class-conditional (labels
+cycle over the requests); ``--guidance w`` adds a classifier-free guided
+``ddpm_g`` menu entry and routes requests through it; ``--min-kid`` gates
+admission on the disclosure KID, calibrated on ``--calib`` synthetic
+images.  The default device is CUDA; without a card the launcher raises
 unless ``--device cpu`` is given.
 """
 import argparse
@@ -45,9 +51,27 @@ def _parse_args(argv=None):
                     help="DDIM trajectory length K (0 = dense T steps)")
     ap.add_argument("--eta", type=float, default=0.0,
                     help="DDIM stochasticity in [0,1]")
+    ap.add_argument("--guidance", type=float, default=None,
+                    help="classifier-free guidance scale w: adds a guided "
+                         "'ddpm_g' menu entry and routes requests through it "
+                         "(all of them, or cycled with the others under "
+                         "--mix); a guided request takes a cond+uncond lane "
+                         "pair an image.  Needs --num-classes > 0")
+    ap.add_argument("--num-classes", type=int, default=0,
+                    help="class-conditional U-Net: N labels + a null one "
+                         "(0 = unconditional)")
     ap.add_argument("--mix", action="store_true",
                     help="requests cycle over the whole menu (dense ddpm + "
-                         "a strided ddim) instead of one --sampler")
+                         "a strided ddim, + ddpm_g under --guidance) instead "
+                         "of one --sampler")
+    ap.add_argument("--min-kid", type=float, default=None,
+                    help="KID-gated admission floor: each request's "
+                         "disclosure is scored on a calibration batch before "
+                         "it takes a slot; below the floor it is bumped to a "
+                         "noisier cut or rejected (default: no gate)")
+    ap.add_argument("--calib", type=int, default=16,
+                    help="calibration images of the admission gate "
+                         "(synthetic client images, >= 2)")
     ap.add_argument("--step-backend", default="cuda_masked",
                     choices=["torch", "triton", "cuda_masked"],
                     help="denoise-tick StepBackend; cuda_masked runs the "
@@ -63,13 +87,13 @@ def _parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def launcher_config(image: int = 8):
+def launcher_config(image: int = 8, num_classes: int = 0):
     """The reference launcher's small U-Net (``serve_diffusion.py:190``)."""
     from repro_torch.configs import UNetConfig
     return dataclasses.replace(
         UNetConfig().reduced(), image_size=image, base_channels=8,
         channel_mults=(1, 2), n_res_blocks=1, attn_resolutions=(),
-        time_dim=32, norm_groups=4)
+        time_dim=32, norm_groups=4, num_classes=num_classes)
 
 
 def main(argv=None):
@@ -82,8 +106,8 @@ def main(argv=None):
     from repro_torch.diffusion.sampler import make_sampler
     from repro_torch.diffusion.schedule import cosine_schedule
     from repro_torch.models.unet import UNet
-    from repro_torch.serve import (EngineConfig, Request, ServeEngine,
-                                   make_scheduler)
+    from repro_torch.serve import (AdmissionPolicy, EngineConfig, Request,
+                                   ServeEngine, make_scheduler)
 
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -93,24 +117,33 @@ def main(argv=None):
     if args.sampler == "ddpm" and args.num_steps:
         raise SystemExit("--num-steps strides the chain, which needs "
                          "--sampler ddim (ddpm is dense-only)")
+    if args.guidance is not None and args.num_classes <= 0:
+        raise SystemExit("--guidance needs a conditional model: pass "
+                         "--num-classes N (labels 0..N-1, null label N)")
     if args.config == "paper":
-        ucfg = UNetConfig()
+        ucfg = dataclasses.replace(UNetConfig(),
+                                   num_classes=args.num_classes)
         if args.image:
             ucfg = dataclasses.replace(ucfg, image_size=args.image)
     else:
-        ucfg = launcher_config(args.image or 8)
+        ucfg = launcher_config(args.image or 8, args.num_classes)
     samplers = {"ddpm": make_sampler(args.T)}
     if args.sampler == "ddim" or args.mix:
         samplers["ddim"] = make_sampler(
             args.T, "ddim", args.num_steps or max(2, args.T // 2), args.eta)
-    request_samplers = list(samplers) if args.mix else [args.sampler]
+    if args.guidance is not None:
+        samplers["ddpm_g"] = make_sampler(args.T, guidance=args.guidance)
+    request_samplers = (list(samplers) if args.mix else
+                        ["ddpm_g" if args.guidance is not None
+                         else args.sampler])
     traffic = ("mix of " + "/".join(request_samplers) if args.mix
-               else samplers[args.sampler].describe())
+               else samplers[request_samplers[0]].describe())
     print(f"serve_diffusion: device={device} config={args.config} "
           f"image={ucfg.image_size} slots={args.slots} "
           f"requests={args.requests} T={args.T} policy={args.policy} "
           f"backend={args.step_backend} sampler={traffic} "
-          f"k={args.ticks_per_dispatch}", flush=True)
+          f"k={args.ticks_per_dispatch} num_classes={args.num_classes} "
+          f"guidance={args.guidance} min_kid={args.min_kid}", flush=True)
 
     server = UNet(ucfg, seed=args.seed).to(device).eval()
     clients = [UNet(ucfg, seed=args.seed + 1 + c).to(device).eval()
@@ -121,9 +154,20 @@ def main(argv=None):
                 cut_ratio=args.cut_ratios[i % len(args.cut_ratios)],
                 client_idx=i % args.clients,
                 arrival_tick=i * args.arrival_every,
-                sampler=request_samplers[i % len(request_samplers)])
+                sampler=request_samplers[i % len(request_samplers)],
+                label=i % args.num_classes if args.num_classes else 0)
         for i in range(args.requests)]
     sched = cosine_schedule(args.T)
+    admission = None
+    if args.min_kid is not None:
+        from repro_torch.data.synthetic import (ClientDataConfig,
+                                                make_client_datasets)
+        calib_sets, _ = make_client_datasets(ClientDataConfig(
+            n_clients=1, per_client=args.calib, image_size=ucfg.image_size,
+            holdout=2, seed=args.seed))
+        # one policy for both engines below: the second reuses its scores
+        admission = AdmissionPolicy(sched, calib_sets[0].to(device),
+                                    min_kid=args.min_kid, samplers=samplers)
 
     def engine():
         cfg = EngineConfig(
@@ -132,7 +176,8 @@ def main(argv=None):
             slots=args.slots,
             scheduler=make_scheduler(args.policy, args.T, samplers=samplers),
             step_backend=args.step_backend, samplers=samplers,
-            ticks_per_dispatch=args.ticks_per_dispatch, device=device)
+            ticks_per_dispatch=args.ticks_per_dispatch, device=device,
+            num_classes=args.num_classes, admission=admission)
         return ServeEngine(cfg, server)
 
     engine().serve(list(requests), clients)       # warm-up: builds, caches
@@ -151,6 +196,17 @@ def main(argv=None):
     print(f"flops: server {s['server_flops']:.3g} client "
           f"{s['client_flops']:.3g} (client_fraction "
           f"{s['client_fraction']:.3f})", flush=True)
+    if admission is not None:
+        a = s["admission"]
+        dk = a.get("disclosure_kid", {})
+        print(f"admission (min_kid={args.min_kid}): {a['admitted']} "
+              f"admitted, {a['bumped']} bumped, {a['rejected']} rejected | "
+              f"served disclosure KID min/mean {dk.get('min', 0):.4f}/"
+              f"{dk.get('mean', 0):.4f} | scoring {admission.model_calls} "
+              f"model calls on {args.calib} images, "
+              f"{admission.score_s:.2f}s", flush=True)
+        for d in res.rejected.values():
+            print(f"  rejected req {d.req_id}: {d.describe()}", flush=True)
     for comp in res.completions.values():
         assert comp.x0 is not None and np.isfinite(comp.x0).all(), \
             f"non-finite output for request {comp.request.req_id}"

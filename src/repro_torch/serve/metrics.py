@@ -1,5 +1,6 @@
-"""Serving telemetry: per-request latency, tick utilization, FLOP split
-(counterpart of ``repro/serve/metrics.py``, without the obs registry).
+"""Serving telemetry: per-request latency, tick utilization, FLOP split and
+the admission gate's outcomes (counterpart of ``repro/serve/metrics.py``,
+without the obs registry).
 
 The engine reports one event per admission and retirement plus the exact
 per-tick occupancy of every window; :meth:`ServeMetrics.summary` folds them
@@ -77,10 +78,17 @@ class ServeMetrics:
         return self._retire[req_id]["tick"] - self._admit[req_id]["tick"]
 
     def summary(self, wall_s: float, T: int, flops_per_call: float,
-                requests, steps_of: Optional[Callable] = None) -> Dict:
+                requests, steps_of: Optional[Callable] = None,
+                decisions: Optional[Dict] = None,
+                guided_of: Optional[Callable] = None) -> Dict:
         """Aggregate one run over ``requests``.  ``steps_of(req) ->
         (n_server_steps, n_client_steps)`` gives the per-request model-call
-        split (default: the dense CutPlan split)."""
+        split (default: the dense CutPlan split).  ``guided_of(req)`` marks
+        guided requests, whose server segment counts at exactly 2× FLOPs
+        (their images count once).  ``decisions`` ({req_id:
+        AdmissionDecision}) adds the ``admission`` section and leaves the
+        rejected requests out of the FLOPs and the throughput."""
+        decisions = decisions or {}
         lat_t = np.array([self.latency_ticks(r.req_id) for r in requests
                           if self.latency_ticks(r.req_id) is not None],
                          dtype=np.float64)
@@ -93,25 +101,32 @@ class ServeMetrics:
                 plan = CutPlan(T, r.cut_ratio)
                 return plan.n_server_steps, plan.n_client_steps
         server_f = client_f = 0.0
-        images = 0
+        images = n_served = 0
         for r in requests:
+            d = decisions.get(r.req_id)
+            if d is not None and not d.served:
+                continue
+            n_served += 1
             n_srv, n_cli = steps_of(r)
-            split = flops_split_steps(n_srv, n_cli, flops_per_call, r.batch)
+            split = flops_split_steps(
+                n_srv, n_cli, flops_per_call, r.batch,
+                guided=bool(guided_of(r)) if guided_of is not None else False)
             server_f += split["server_flops"]
             client_f += split["client_flops"]
-            images += r.batch
+            images += r.batch       # a guided pair's shadow emits no image
         total = max(server_f + client_f, 1.0)
 
         def pct(a, q):
             return float(np.percentile(a, q)) if a.size else 0.0
         out = {
             "requests": len(requests),
+            "served": n_served,
             "images": images,
             "ticks": self.ticks,
             "windows": self._windows,
             "ticks_per_s": self.ticks / max(wall_s, 1e-9),
             "idle_ticks": self._idle_ticks,
-            "requests_per_s": len(requests) / max(wall_s, 1e-9),
+            "requests_per_s": n_served / max(wall_s, 1e-9),
             "images_per_s": images / max(wall_s, 1e-9),
             "latency_ticks_p50": pct(lat_t, 50),
             "latency_ticks_p95": pct(lat_t, 95),
@@ -127,6 +142,8 @@ class ServeMetrics:
             lags = np.array(self._lags, np.float64)
             out["boundary_lag_mean"] = float(lags.mean())
             out["boundary_lag_p100"] = int(lags.max())
+        if decisions:
+            out["admission"] = admission_summary(decisions.values())
         return out
 
 
@@ -145,3 +162,27 @@ def finish_summary(mode: str, finish_s: float, batches: int = 0,
         "finish_batches": batches,
         "finish_lanes": lanes,
     }
+
+
+def admission_summary(decisions, bins: int = 8) -> Dict:
+    """Fold AdmissionDecisions into a JSON-able record: action counts and a
+    histogram of the SERVED disclosure KIDs (bumps included).  With rejects
+    only there is no ``disclosure_kid`` key."""
+    ds = list(decisions)
+    kids = np.array([d.kid for d in ds if d.served], np.float64)
+    rec = {
+        "min_kid": ds[0].min_kid if ds else 0.0,
+        "admitted": sum(1 for d in ds if d.action == "admit"),
+        "bumped": sum(1 for d in ds if d.action == "bump"),
+        "rejected": sum(1 for d in ds if d.action == "reject"),
+    }
+    if kids.size:
+        counts, edges = np.histogram(kids, bins=bins)
+        rec["disclosure_kid"] = {
+            "min": float(kids.min()),
+            "mean": float(kids.mean()),
+            "max": float(kids.max()),
+            "hist_counts": [int(c) for c in counts],
+            "hist_edges": [float(e) for e in edges],
+        }
+    return rec

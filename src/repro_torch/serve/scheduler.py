@@ -1,6 +1,5 @@
 """Admission order for the continuous-batching serving engine (counterpart
-of ``repro/serve/scheduler.py``; admission gating and wave packing arrive
-with their own slices).
+of ``repro/serve/scheduler.py``; wave packing arrives with its own slice).
 
 A :class:`Request` asks for ``batch`` generated images at cut-ratio
 ``cut_ratio``, finished by client ``client_idx``'s private model.  At each
@@ -9,9 +8,13 @@ admit into the free slots:
 
 * :class:`FIFOScheduler` — strict arrival order with head-of-line blocking.
 * :class:`CutRatioScheduler` — shortest-server-job-first over the request's
-  trajectory steps above the cut, aged (``score = server_steps − aging ·
-  wait``) so no request starves: after at most ``T / aging`` ticks of
-  waiting a request outranks any fresh arrival.
+  NOMINAL trajectory steps above the cut (2× for a guided sampler), aged
+  (``score = nominal_cost − aging · wait``) so no request starves: after at
+  most ``2T / aging`` ticks of waiting a request outranks any fresh arrival.
+
+With an ``admission`` policy (:mod:`repro_torch.serve.admission`) every
+candidate is gated at selection: a rejected request leaves the queue
+without taking a slot or blocking those behind it.
 """
 from __future__ import annotations
 
@@ -33,24 +36,32 @@ class Request:
     cut_ratio: float = 0.5      # c: server runs (1-c)·T steps, client c·T
     client_idx: int = 0         # which private model finishes the chain
     arrival_tick: int = 0       # not visible to the engine before this tick
-    sampler: str = "ddpm"       # trajectory/update family from the menu
+    sampler: str = "ddpm"       # trajectory/update family from the menu (a
+    #                             guided entry takes 2 lanes an image)
+    label: int = 0              # class label, read by a conditional engine
 
     def __post_init__(self):
         assert self.batch >= 1, self.batch
         assert 0.0 <= self.cut_ratio <= 1.0, self.cut_ratio
         assert self.client_idx >= 0, self.client_idx
         assert self.seed >= 0, self.seed
+        assert self.label >= 0, self.label
 
 
 class FIFOScheduler:
     """Strict arrival order (head-of-line blocking).  ``samplers`` is the
-    engine's menu (injected by the engine when absent)."""
+    engine's menu (injected by the engine when absent); ``admission`` an
+    optional :class:`~repro_torch.serve.admission.AdmissionPolicy` (the
+    engine shares its own)."""
 
-    def __init__(self, samplers: Optional[Dict[str, Any]] = None):
+    def __init__(self, samplers: Optional[Dict[str, Any]] = None,
+                 admission=None):
         self._queue: List[Request] = []
         self._seq = itertools.count()
         self._order: Dict[int, int] = {}
         self.samplers = samplers
+        self.admission = admission
+        self._rejections: List[Any] = []    # decisions dropped at select
         self.aging_promotions = 0           # FIFO never reorders: stays 0
         self._retired_cbs: List[Callable] = []
 
@@ -92,8 +103,10 @@ class FIFOScheduler:
         return self.arrived(now)
 
     def lanes_of(self, req: Request) -> int:
-        """Slot-pool lanes the request occupies: one per image."""
-        return req.batch
+        """Slot-pool lanes the request occupies: one per image, two for a
+        guided sampler (a cond+uncond lane pair an image)."""
+        s = (self.samplers or {}).get(req.sampler)
+        return req.batch * (2 if s is not None and s.guided else 1)
 
     def select(self, free_slots: int, now: int) -> List[Request]:
         """One-tick admission — :meth:`select_window` with window=1."""
@@ -104,43 +117,80 @@ class FIFOScheduler:
         """Admission at a window boundary: candidates arrived by ``now``, in
         policy order, until one does not fit — which BLOCKS everything ranked
         behind it, so freed slots accumulate for the head (the liveness
-        guarantee for batch > 1 requests)."""
+        guarantee for batch > 1 requests).  Under an ``admission`` policy a
+        rejected candidate is dropped from the queue and recorded for
+        :meth:`take_rejections`; it blocks nothing."""
         assert window >= 1, window
-        picked = []
+        served, dropped = [], []
         for r in self._candidates(now):
+            if self.admission is not None:
+                d = self.admission.decide(r)
+                if not d.served:
+                    dropped.append((r, d))
+                    continue
+            served.append(r)
+        picked = []
+        for r in served:
             if self.lanes_of(r) > free_slots:
                 break
             picked.append(r)
             free_slots -= self.lanes_of(r)
-        if picked:
-            gone = set(picked)
+        gone = set(picked)
+        gone.update(r for r, _ in dropped)
+        if gone:
             self._queue = [r for r in self._queue if r not in gone]
+        self._rejections.extend(d for _, d in dropped)
         return picked
+
+    def take_rejections(self) -> List[Any]:
+        """Drain the decisions of the requests the select gate dropped since
+        the last call."""
+        out, self._rejections = self._rejections, []
+        return out
 
 
 class CutRatioScheduler(FIFOScheduler):
     """Shortest-server-job-first over trajectory server steps, with aging.
-    Unknown sampler names fall back to the dense (1-c)·T estimate."""
+    Unknown sampler names fall back to the dense (1-c)·T estimate.
+
+    The ordering score uses the NOMINAL cost (what the request asked for):
+    under a KID gate a bumped request runs fewer server steps
+    (:meth:`server_cost` prices that), but letting the discount improve its
+    queue position would let expensive requests bumped cheap outrank an
+    honest cheap one."""
 
     def __init__(self, T: int, aging: float = 1.0,
-                 samplers: Optional[Dict[str, Any]] = None):
-        super().__init__(samplers=samplers)
+                 samplers: Optional[Dict[str, Any]] = None, admission=None):
+        super().__init__(samplers=samplers, admission=admission)
         assert aging > 0.0, "aging=0 reintroduces starvation"
         self.T = T
         self.aging = aging
 
     def server_cost(self, req: Request) -> float:
-        """Server model calls the request needs: its trajectory's step count
-        above the cut (== (1-c)·T only for the dense chain)."""
+        """Server steps the request runs: the effective cut under an
+        admission policy, else :meth:`nominal_cost`."""
+        if self.admission is not None:
+            d = self.admission.decide(req)
+            if d.served:
+                return float(d.effective_cut)
+        return self.nominal_cost(req)
+
+    def nominal_cost(self, req: Request) -> float:
+        """The trajectory's step count above the NOMINAL cut (== (1-c)·T
+        only for the dense chain), doubled for a guided sampler (two model
+        evaluations a step)."""
         if self.samplers and req.sampler in self.samplers:
             from repro_torch.core.collafuse import CutPlan
             s = self.samplers[req.sampler]
-            return float(CutPlan(self.T, req.cut_ratio).traj_server_steps(s))
+            steps = float(CutPlan(self.T, req.cut_ratio).traj_server_steps(s))
+            return steps * (2.0 if s.guided else 1.0)
         return (1.0 - req.cut_ratio) * self.T
 
     def _score(self, req: Request, now: int) -> float:
+        # waiting offsets the NOMINAL cost: a bump never improves a
+        # request's queue position
         wait = max(0, now - req.arrival_tick)
-        return self.server_cost(req) - self.aging * wait
+        return self.nominal_cost(req) - self.aging * wait
 
     def _candidates(self, now: int) -> List[Request]:
         return sorted(
@@ -161,9 +211,11 @@ class CutRatioScheduler(FIFOScheduler):
         return picked
 
 
-def make_scheduler(policy: str, T: int, aging: float = 1.0, samplers=None):
+def make_scheduler(policy: str, T: int, aging: float = 1.0, samplers=None,
+                   admission=None):
     if policy == "fifo":
-        return FIFOScheduler(samplers=samplers)
+        return FIFOScheduler(samplers=samplers, admission=admission)
     if policy == "cut_ratio":
-        return CutRatioScheduler(T, aging=aging, samplers=samplers)
+        return CutRatioScheduler(T, aging=aging, samplers=samplers,
+                                 admission=admission)
     raise ValueError(f"unknown scheduling policy: {policy!r}")

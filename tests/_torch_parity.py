@@ -246,3 +246,70 @@ def reference_train_draws(seed, n_rounds, n_clients, b, image_shape, plan,
                 k_t, k_n = jax.random.split(key)
                 put(rnd, k, "client", k_t, k_n, *plan.client_range)
     return draws
+
+
+def reference_disclosure_noise(key, seed, shape, n_steps, draws=None):
+    """The reference's draws of ``disclosed_at_pos(..., key, x0, pos)`` on
+    an (N, H, W, C) batch, keyed as the port's noise sources key them: it
+    splits ``key`` into (k_n, k_s), draws x_T's ε for the whole batch from
+    k_n, and the server chain from k_s as :func:`reference_chain_noise`.
+    Image i's rows become (seed, i, "init", 0) and (seed, i, "server", j)
+    for j < ``n_steps``.  Adds to and returns ``draws``."""
+    draws = {} if draws is None else draws
+    k_n, k_s = jax.random.split(key)
+    eps = np.asarray(jax.random.normal(k_n, shape))
+    chain = reference_chain_noise(k_s, n_steps, shape)
+    for i in range(shape[0]):
+        draws[(seed, i, "init", 0)] = eps[i]
+        for j in range(n_steps):
+            draws[(seed, i, "server", j)] = chain[j][i]
+    return draws
+
+
+# ---------------------------------------------------------------------------
+# its class-conditional twin: a label embedding row per class and a null row
+# (index n_classes) added to the time embedding, as the reference's
+# classifier-free guidance gate builds its model (benchmarks/run.py)
+# ---------------------------------------------------------------------------
+def tiny_cond_params(image_shape, seed, n_classes=4, hidden=32):
+    p = tiny_params(image_shape, seed, hidden)
+    rng = np.random.default_rng(seed + 1000)
+    p["yemb"] = (rng.standard_normal((n_classes + 1, 8)) / 2.0
+                 ).astype(np.float32)
+    return p
+
+
+def tiny_cond_apply_jax(p, x, t, y=None):
+    import jax.numpy as jnp
+    b = x.shape[0]
+    nc = p["yemb"].shape[0] - 1
+    freqs = jnp.exp(jnp.linspace(0.0, 3.0, 4))
+    ang = t[:, None].astype(jnp.float32) * freqs[None]
+    temb = jnp.concatenate([jnp.sin(ang), jnp.cos(ang)], -1)
+    yc = (jnp.full((b,), nc, jnp.int32) if y is None
+          else jnp.clip(y, 0, nc))
+    temb = temb + jnp.asarray(p["yemb"])[yc]
+    h = jax.nn.silu(jnp.concatenate([x.reshape(b, -1), temb], -1) @ p["w1"])
+    return (h @ p["w2"]).reshape(x.shape)
+
+
+class TinyCondEps(TinyEps):
+    """:func:`tiny_cond_apply_jax` as a module; ``y=None`` is the null
+    label."""
+
+    def __init__(self, p):
+        super().__init__(p)
+        self.yemb = torch.nn.Parameter(torch.from_numpy(np.array(p["yemb"])))
+
+    def forward(self, x, t, y=None):
+        b = x.shape[0]
+        nc = self.yemb.shape[0] - 1
+        freqs = torch.exp(torch.linspace(0.0, 3.0, 4, device=x.device))
+        ang = t[:, None].to(torch.float32) * freqs[None]
+        temb = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+        yc = (torch.full((b,), nc, dtype=torch.int64, device=x.device)
+              if y is None else torch.clamp(y.to(torch.int64), 0, nc))
+        temb = temb + self.yemb[yc]
+        h = torch.nn.functional.silu(
+            torch.cat([x.reshape(b, -1), temb], -1) @ self.w1)
+        return (h @ self.w2).reshape(x.shape)
