@@ -46,11 +46,12 @@ Phases, each printing its own lines:
    trainer from the same models and draws: round 0's losses against (a)'s
    within the CPU tests' tolerance, its round and step times and memory;
    (c) one round at ``reduced()`` on the card and on the CPU: losses and
-   parameters within the stated bounds; (d) the trained server and 3
-   client models served through ``ServeEngine.serve()`` on phase 4's
-   request mix (client i % 3) with each backend, backends agreeing, each
-   kernel launched, and ``trainer.sample`` through ``ddpm_step``; (e) each
-   client's disclosed x at the cut against its real images: MSE and KID;
+   parameters within the stated bounds; (d) ``trainer.sample`` through
+   ``ddpm_step``; (e) each client's disclosed x at the cut against its
+   real images: MSE and KID; (f) the trained server and 3 client models
+   served through ``ServeEngine.serve()`` on phase 4's request mix
+   (client i % 3) with each backend, backends agreeing, each kernel
+   launched;
 4c. guide — guided and gated serving at full width: the paper U-Net with
    a 4-class label embedding (random weights from a seed), the reference
    ``cfg_guidance`` gate's menu at T = 100 (DDPM, DDIM K = 20, their w = 0
@@ -65,8 +66,25 @@ Phases, each printing its own lines:
    tick; (d) every served KID above the floor, a fresh policy's decisions,
    an all-rejecting floor; (e) k = 4 against k = 1, bitwise; (f) guided
    against unguided ticks/s and images/s ungated, server FLOPs exactly 2x,
-   the combine's device time inside a tick; (g) the launcher, guided and
-   gated;
+   the combine's device time inside a tick (eager windows); (g) the
+   launcher, guided and gated;
+4d. host — the serving engine's host path at full width (phase 4's U-Net,
+   8 slots, k = 4, lane noise drawn on the card): (a) one window staged by
+   hand, run eagerly and as a captured CUDA graph replayed on the same
+   inputs, bitwise, and ms a tick of each; (b) the ``lane_noise`` kernel
+   against its plain version at S = 8 and 32, bitwise on the card and on
+   the CPU, cold and warm device times, the plain version's, its bound and
+   an empty kernel's time; (c) phase 4's traffic on DDIM K = 20 served with
+   async_depth 1 and 2 x drain, stream (finish_async_depth 1 and 2), each
+   bitwise the synchronous drain run, ticks/s, images/s, overlap_frac, the
+   the finisher's lane ticks, and the device's busy share
+   (``torch.profiler``) of the first and the last;
+   (g) launches counted through replays (one step and one draw a tick, one
+   draw and one copy a window) and the device's busy share over a served
+   run (``torch.profiler``) at async_depth 2 and 1; (f) k = 1 against
+   k = 4, bitwise; (e) a sampler registered into spare columns bitwise the
+   static menu's, no new capture; (d) guided against unguided ms a tick on
+   one engine with graphs;
 5. LM slice — Yi-6B at full width and depth in bf16 (random weights from a
    seed): (a) prefill of 4x2048 tokens through the flash kernel, 32
    launches a call, timed and profiled; (b) the same batch through
@@ -106,7 +124,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import UNetConfig, get_config  # noqa: E402
-from repro_torch.core.collafuse import CutPlan, split_sample_lane  # noqa: E402
+from repro_torch.core.collafuse import (CutPlan, lane_philox,  # noqa: E402
+                                        split_sample_lane)
 from repro_torch.core.privacy import (disclosure_report,  # noqa: E402
                                       feature_params)
 from repro_torch.core.trainer import (CollaFuseTrainer,  # noqa: E402
@@ -119,6 +138,7 @@ from repro_torch.diffusion.schedule import cosine_schedule  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import ddpm_step as kds  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import lane_noise as kln  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import ssm_scan as kssm  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
@@ -129,13 +149,15 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.unet import UNet, flops_per_image  # noqa: E402
 from repro_torch.serve import (AdmissionPolicy, EngineConfig,  # noqa: E402
                                Request, ServeEngine, make_scheduler)
+from repro_torch.serve import engine as serve_engine  # noqa: E402
 
 # Published H100 rates (NVIDIA data sheets; dense, no sparsity): memory
 # bandwidth, float32 rate outside the tensor cores, bf16 tensor-core rate.
 CARD_RATES = {"SXM": (3.35e12, 67e12, 989e12),
               "PCIe": (2.0e12, 51e12, 756e12)}
 TF32_RATES = {"SXM": 495e12, "PCIe": 378e12}   # dense TF32 tensor cores
-CUDA_SOURCES = ("traj_masked_step", "flash_attention", "ssm_scan")
+CUDA_SOURCES = ("traj_masked_step", "flash_attention", "ssm_scan",
+                "lane_noise")
 # one Yi-6B layer's prefill: q (B, S, H, hd), k and v (B, S, KV, hd)
 ATTN_SHAPE = (4, 2048, 32, 4, 128)
 # Zamba2-7B's shared attention block at the same prefill (MHA, hd 112)
@@ -342,6 +364,8 @@ def phase_build(dev) -> None:
         ops.traj_masked_step(x, torch.zeros(8, dtype=torch.int32, device=dev),
                              x, x, torch.ones(8, dtype=torch.bool, device=dev),
                              torch.ones((5, 4), device=dev))
+    lane = torch.zeros(8, dtype=torch.int64, device=dev)
+    ops.lane_noise(lane, lane, lane, lane == 0, 1, IMG)
     torch.cuda.synchronize()
     print(f"[build] ddpm_step: triton compile + first launches (f32, bf16) "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -524,15 +548,21 @@ def slice_engine(server, backend, k, dev):
         device=dev), server)
 
 
-def serve_backends(server, clients, dev, requests, tag):
+def serve_backends(server, clients, dev, requests, tag, warm=None):
     """Serve ``requests`` with each step backend, the launch counts set to
     0 just before each run and read just after; hold finite outputs and
-    each kernel launched on its own run.  Returns (results, counts)."""
+    each kernel launched on its own run.  ``warm`` requests are served
+    first on the same engine (it builds the kernels and captures its window
+    graphs).  Returns (results, counts)."""
     runs, counts = {}, {}
     for backend in ("cuda_masked", "triton", "torch"):
+        eng = slice_engine(server, backend, 4, dev)
+        if warm:
+            eng.serve(warm, clients)
         ops.reset_launch_counts()
-        res = slice_engine(server, backend, 4, dev).serve(requests, clients)
+        res = eng.serve(requests, clients)
         counts[backend] = ops.launch_counts()
+        eng.close()
         runs[backend] = res
         for comp in res.completions.values():
             if not (np.isfinite(comp.x_mid).all() and
@@ -594,16 +624,12 @@ def phase_slice(dev):
     sched = cosine_schedule(T)
     samplers = slice_samplers()
 
-    # warm-up: cuDNN heuristics and allocator, on two short ddim requests
+    # warm-up on each engine: cuDNN heuristics, the allocator, the window
+    # graphs, on two short ddim requests
     warm = [Request(req_id=i, seed=i, cut_ratio=0.75, sampler="ddim")
             for i in range(2)]
-    with torch.inference_mode():
-        slice_engine(server, "cuda_masked", 4, dev).serve(warm, clients)
-        slice_engine(server, "triton", 4, dev).serve(warm, clients)
-    torch.cuda.synchronize()
-
     runs, counts = serve_backends(server, clients, dev, slice_requests(),
-                                  "slice")
+                                  "slice", warm)
     tol = 1e-2
     check_backends_agree(runs, "slice", tol)
 
@@ -647,10 +673,10 @@ def phase_slice(dev):
     s = res.summary
     print(f"[slice] U-Net forward at 8 lanes: {t_fwd:.2f} ms "
           f"({flops / t_fwd / 1e9:.1f} TFLOP/s on {flops / 1e9:.0f} GFLOP) "
-          f"against {1e3 / s['ticks_per_s']:.2f} ms per engine tick",
-          flush=True)
+          f"against {1e3 / s['ticks_per_s']:.2f} ms per engine tick over "
+          "the loop, which covers the streamed client segment", flush=True)
     profile_device("U-Net forward at 8 lanes", lambda: server(x, t))
-    return counts, 1e3 / s["ticks_per_s"]
+    return counts, t_fwd
 
 
 # ---------------------------------------------------------------------------
@@ -831,13 +857,7 @@ def phase_train(dev, card: str):
     if gmax > TRAIN_PARAM_MAX or gmean > TRAIN_PARAM_MEAN:
         raise AssertionError("card and CPU parameters disagree")
 
-    # (d) serve the trained weights through the engine and the kernels
-    server = tr.server_model()
-    clients = [tr.client_model(k) for k in range(TRAIN_CLIENTS)]
-    runs, _ = serve_backends(server, clients, dev,
-                             slice_requests(n_clients=TRAIN_CLIENTS),
-                             "train-serve")
-    check_backends_agree(runs, "train-serve")
+    # (d) split sampling through the trainer
     ops.reset_launch_counts()
     x = tr.sample(7, (2,) + IMG, client_idx=2)
     n_step = ops.launch_counts()["ddpm_step"]
@@ -859,7 +879,24 @@ def phase_train(dev, card: str):
               f"{rep['mse']:.5f} KID {rep['kid']:.5f} ({TRAIN_BATCH} real "
               f"images against their disclosed x at t={tr.plan.t_split})",
               flush=True)
-    del tr, server, clients
+
+    # (f) serve the trained weights through the engine and the kernels.
+    # The trainer goes first: its surviving tensors pin fragments of the
+    # training's ~62 GB of cached segments, which the main stream reuses
+    # but the engine's finisher stream cannot (the caching allocator keeps
+    # a block for the stream that made it), so the models move to the CPU
+    # and back into memory freed for either stream
+    server = tr.server_model().cpu()
+    clients = [tr.client_model(k).cpu() for k in range(TRAIN_CLIENTS)]
+    del tr, red, gt, ct, x, disc
+    torch.cuda.empty_cache()
+    server = server.to(dev)
+    clients = [c.to(dev) for c in clients]
+    runs, _ = serve_backends(server, clients, dev,
+                             slice_requests(n_clients=TRAIN_CLIENTS),
+                             "train-serve")
+    check_backends_agree(runs, "train-serve")
+    del server, clients, runs
     torch.cuda.empty_cache()
     print(f"[train] phase wall {time.perf_counter() - t_phase:.1f}s",
           flush=True)
@@ -931,41 +968,48 @@ def guide_requests(names, n, salt, batch_of=lambda i: 1 + i % 2, cut=None):
             for i in range(n)]
 
 
-def guide_engine(server, backend, k, dev, admission):
+def guide_engine(server, backend, k, dev, admission, graphs=True):
     """Phase 4c's engine: phase 4's (8 slots, cut-ratio scheduler) made
-    conditional, with the guidance menu and an optional KID gate."""
+    conditional, with the guidance menu and an optional KID gate;
+    ``graphs=False`` runs its windows eagerly."""
     samplers = guide_samplers()
     return ServeEngine(EngineConfig(
         sched=cosine_schedule(T), image_shape=IMG, slots=8,
         scheduler=make_scheduler("cut_ratio", T, samplers=samplers),
         step_backend=backend, samplers=samplers, ticks_per_dispatch=k,
-        device=dev, num_classes=GUIDE_CLASSES, admission=admission), server)
+        device=dev, num_classes=GUIDE_CLASSES, admission=admission,
+        cuda_graphs=graphs), server)
 
 
-def watch_engine(eng, shadows: list, ticks: list):
+def watch_engine(eng, shadows: list, windows: list):
     """Spy on one engine: at each retirement record whether every retiring
-    shadow lane's x is bitwise its primary's; at each lane tick record
-    (``traj_masked_step`` launches in it, whether its stepping lanes mixed
-    guided pairs and solo lanes)."""
-    retire, tick = eng._retire, eng._lane_tick
+    shadow lane's x is bitwise its primary's; at each window record
+    (``traj_masked_step`` launches in it, its ticks, how many of its ticks'
+    stepping lanes mixed guided pairs and solo lanes), the launches of a
+    replayed graph counted as its kernels."""
+    retire, plan, dispatch = eng._retire, eng._plan_window, eng._dispatch
+    mixed = []
 
     def spy_retire(done_seq, x, start, n_active, inflight, lanes, *rest):
         for ln in np.nonzero(done_seq.any(axis=0) & lanes.shadow)[0]:
             shadows.append(torch.equal(x[ln], x[lanes.pair[ln]]))
         return retire(done_seq, x, start, n_active, inflight, lanes, *rest)
 
-    def spy_tick(model, menu, x, pos, end, traj, gate, noise, y, pair,
-                 cond):
-        stepping = gate & (pos < end)
-        paired = pair != np.arange(len(pair))
-        before = ops.launch_counts()["traj_masked_step"]
-        out = tick(model, menu, x, pos, end, traj, gate, noise, y, pair,
-                   cond)
-        ticks.append((ops.launch_counts()["traj_masked_step"] - before,
-                      bool((stepping & paired).any() and
-                           (stepping & ~paired).any())))
+    def spy_plan(lanes, admitted, hv):
+        paired = lanes.pair != np.arange(len(lanes.pair))
+        out = plan(lanes, admitted, hv)
+        mixed.append(sum(bool((a & paired).any() and (a & ~paired).any())
+                         for a in hv["active"]))
         return out
-    eng._retire, eng._lane_tick = spy_retire, spy_tick
+
+    def spy_dispatch(*args):
+        before = ops.launch_counts()["traj_masked_step"]
+        out = dispatch(*args)
+        windows.append((ops.launch_counts()["traj_masked_step"] - before,
+                        eng.ticks_per_dispatch, mixed.pop()))
+        return out
+    eng._retire, eng._plan_window, eng._dispatch = \
+        spy_retire, spy_plan, spy_dispatch
     return eng
 
 
@@ -1000,7 +1044,7 @@ def same_decision(a, b) -> bool:
         (b.action, b.effective_cut, b.kid)
 
 
-def phase_guided(dev, card: str, slice_ms_tick: float):
+def phase_guided(dev, card: str, unet_ms: float):
     t_phase = time.perf_counter()
     ucfg = dataclasses.replace(UNetConfig(), num_classes=GUIDE_CLASSES)
     server = UNet(ucfg, seed=0).to(dev).eval()
@@ -1078,10 +1122,10 @@ def phase_guided(dev, card: str, slice_ms_tick: float):
     # (c) mixed traffic through each backend, gated
     mix = ["ddpm", "ddpm_g", "ddim", "ddim_g"]
     reqs = guide_requests(mix, 6, salt=7)
-    runs, counts, shadows, ticks = {}, {}, [], []
+    runs, counts, shadows, windows = {}, {}, [], []
     for backend in ("cuda_masked", "triton", "torch"):
         eng = watch_engine(guide_engine(server, backend, 4, dev, gate),
-                           shadows, ticks if backend == "cuda_masked"
+                           shadows, windows if backend == "cuda_masked"
                            else [])
         ops.reset_launch_counts()
         res = eng.serve(reqs, clients)
@@ -1107,16 +1151,17 @@ def phase_guided(dev, card: str, slice_ms_tick: float):
         raise AssertionError("traj_masked_step never launched on its run")
     if counts["triton"]["ddpm_step"] == 0:
         raise AssertionError("ddpm_step never launched on its run")
-    mixed = [n for n, m in ticks if m]
-    per_tick = sorted(set(n for n, _ in ticks))
+    mixed = sum(m for _, _, m in windows)
+    per_tick = sorted(set(n / k for n, k, _ in windows))
     print(f"[guide] (c) shadow x bitwise its primary's at {len(shadows)} "
-          f"retirements: {all(shadows)} | cuda_masked: {len(ticks)} lane "
-          f"ticks, traj_masked_step launches a tick {per_tick}, "
-          f"{len(mixed)} ticks mixing guided pairs and solo lanes",
+          f"retirements: {all(shadows)} | cuda_masked: {len(windows)} "
+          f"windows, {sum(k for _, k, _ in windows)} lane ticks, "
+          f"traj_masked_step launches a tick {per_tick} (a replayed graph's "
+          f"counted), {mixed} ticks mixing guided pairs and solo lanes",
           flush=True)
     if not shadows or not all(shadows):
         raise AssertionError("a shadow lane's x differs from its primary's")
-    if any(n != 1 for n, _ in ticks) or not mixed:
+    if per_tick != [1.0] or not mixed:
         raise AssertionError("mixed guided and unguided lanes did not take "
                              "one traj_masked_step launch a tick")
 
@@ -1172,9 +1217,11 @@ def phase_guided(dev, card: str, slice_ms_tick: float):
         raise AssertionError("k=4 differs from k=1 on guided traffic")
 
     # (f) cost: guided against unguided at equal slots, ungated, nominal
-    # cut; the guided step's time in the tick (events as the tick runs: the
-    # device has drained and waits on the host there), then, in a run of
-    # its own, behind a spin (the combine's device time)
+    # cut, windows run eagerly (events bracket the steps inside the tick;
+    # phase 4d (d) times the same ticks in graphs); the guided step's time
+    # in the tick (events as the tick runs: the device has drained and
+    # waits on the host there), then, in a run of its own, behind a spin
+    # (the combine's device time)
     one = lambda i: 1                                      # noqa: E731
     be = get_backend("cuda_masked")
     cost, combine = {}, {}
@@ -1184,7 +1231,8 @@ def phase_guided(dev, card: str, slice_ms_tick: float):
             event_wrap(be, "guided_masked_index_step", pairs["guided"],
                        spin),
             event_wrap(be, "masked_index_step", pairs["masked"])]
-        eng = guide_engine(server, "cuda_masked", 4, dev, None)
+        eng = guide_engine(server, "cuda_masked", 4, dev, None,
+                           graphs=False)
         res_f = eng.serve(guide_requests([name], 4 if spin else 8, salt=11,
                                          batch_of=one, cut=0.75))
         torch.cuda.synchronize()
@@ -1198,7 +1246,8 @@ def phase_guided(dev, card: str, slice_ms_tick: float):
             combine[spin] = (float(g_ms - m_ms), float(g_ms), float(m_ms),
                              len(pairs["guided"]))
     su, sg = cost["ddpm"].summary, cost["ddpm_g"].summary
-    print(f"[guide] (f) 8 requests of 1 image at c=0.75, ungated, 8 slots: "
+    print(f"[guide] (f) 8 requests of 1 image at c=0.75, ungated, 8 slots, "
+          f"eager windows: "
           f"unguided {su['ticks']} ticks {su['ticks_per_s']:.2f} ticks/s "
           f"({1e3 / su['ticks_per_s']:.2f} ms/tick) "
           f"{su['images_per_s']:.3f} images/s | guided {sg['ticks']} ticks "
@@ -1206,8 +1255,8 @@ def phase_guided(dev, card: str, slice_ms_tick: float):
           f"({1e3 / sg['ticks_per_s']:.2f} ms/tick) "
           f"{sg['images_per_s']:.3f} images/s | guided/unguided: ticks/s "
           f"{sg['ticks_per_s'] / su['ticks_per_s']:.3f}, images/s "
-          f"{sg['images_per_s'] / su['images_per_s']:.3f} | phase 4's tick "
-          f"{slice_ms_tick:.2f} ms", flush=True)
+          f"{sg['images_per_s'] / su['images_per_s']:.3f} | phase 4's U-Net "
+          f"forward {unet_ms:.2f} ms", flush=True)
     print(f"[guide] (f) server FLOPs guided {sg['server_flops']:.6g} = "
           f"{sg['server_flops'] / su['server_flops']:.6f} x unguided "
           f"{su['server_flops']:.6g}", flush=True)
@@ -1243,6 +1292,328 @@ def phase_guided(dev, card: str, slice_ms_tick: float):
     print(f"[guide] phase wall {time.perf_counter() - t_phase:.1f}s",
           flush=True)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the serving engine's host path at full width
+# ---------------------------------------------------------------------------
+# (async_depth, finish_mode, finish_async_depth) of (c); the first is the
+# synchronous drain engine every other run is held to, bitwise
+HOST_MODES = [(1, "drain", 1), (1, "stream", 1), (1, "stream", 2),
+              (2, "drain", 1), (2, "stream", 1), (2, "stream", 2)]
+
+
+def host_requests(n: int = 12, salt: int = 3):
+    """Phase 4's traffic (batch 1-2, two clients, an arrival every 2 ticks)
+    on DDIM K = 20 alone at cuts 0.5 and 0.75, so that (c)'s six runs fit
+    the phase's time (5-10 server and 10-15 client steps a lane) and each
+    of the two finisher classes gathers a wave (8 lanes once the queue has
+    drained) while server windows still run."""
+    return [Request(req_id=i, seed=salt * 1000 + i, batch=1 + i % 2,
+                    cut_ratio=(0.5, 0.75)[i // 2 % 2], client_idx=i % 2,
+                    arrival_tick=2 * i, sampler="ddim") for i in range(n)]
+
+
+def host_engine(server, dev, k=4, depth=1, mode="drain", fdepth=1, **kw):
+    """Phase 4's engine (8 slots, the cut-ratio scheduler, cuda_masked)
+    with the host path's knobs."""
+    samplers = kw.pop("samplers", None) or slice_samplers()
+    return ServeEngine(EngineConfig(
+        sched=cosine_schedule(T), image_shape=IMG, slots=8,
+        scheduler=make_scheduler("cut_ratio", T, samplers=samplers),
+        step_backend="cuda_masked", samplers=samplers, ticks_per_dispatch=k,
+        async_depth=depth, finish_mode=mode, finish_async_depth=fdepth,
+        device=dev, **kw), server)
+
+
+def stage_window(eng, requests):
+    """Admit ``requests`` into the engine's empty slot array by hand and
+    stage the first window's plan on the device, as the serve loop does at
+    a boundary.  Returns the slot array before the window."""
+    eng._static_buffers(staged=False)
+    eng._x.zero_()
+    lanes = serve_engine._Lanes.empty(eng.slots, eng.num_classes)
+    free = list(range(eng.slots))
+    for r in requests:
+        need = eng._lanes_of(r)
+        eng._admit(r, free[:need], lanes)
+        free = free[need:]
+    host = torch.empty(eng._plan_bytes, dtype=torch.uint8,
+                       pin_memory=eng.device.type == "cuda")
+    hv = {n: v.numpy()
+          for n, v in serve_engine._views(host, eng._plan_layout).items()}
+    eng._plan_window(lanes, lanes.req >= 0, hv)
+    eng._plan_buf.copy_(host)
+    return eng._x.clone()
+
+
+def events_ms(fn, reps: int) -> float:
+    """Device time of ``fn()`` a call: CUDA events around ``reps`` calls
+    back to back, after one."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def busy_share(fn):
+    """``fn()`` under ``torch.profiler``: the union of the device's busy
+    intervals (kernels and copies, any stream) over the wall time.  Returns
+    (fn's result, the share or None when the profiler saw no device
+    activity, device events seen)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            if hi is not None:
+                busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    if hi is not None:
+        busy += hi - lo
+    return out, (busy / wall_us if spans else None), len(spans)
+
+
+def share_text(share) -> str:
+    return "not measured" if share is None else \
+        f"{share:.1%} (torch.profiler)"
+
+
+def phase_host(dev, card: str, unet_ms: float):
+    t_phase = time.perf_counter()
+    bw, f32_peak, _ = card_rates(card)
+    ucfg = UNetConfig()
+    server = UNet(ucfg, seed=0).to(dev).eval()
+    clients = [UNet(ucfg, seed=1 + c).to(dev).eval() for c in range(2)]
+    x = torch.randn((8,) + IMG, device=dev)
+    t = torch.full((8,), 50, dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        t_fwd = cuda_time_ms(lambda: server(x, t), iters=10, warmup=2)
+    print(f"[host] paper U-Net x 3 models, 8 slots, cosine T={T}, "
+          f"cuda_masked, lane noise drawn on the card (lane_philox) | the "
+          f"U-Net forward at 8 lanes here {t_fwd:.2f} ms (phase 4's "
+          f"{unet_ms:.2f}): the convolutions cuDNN runs in this process",
+          flush=True)
+    profile_device("U-Net forward at 8 lanes (phase 4d)",
+                   lambda: server(x, t), reps=1)
+
+    # (a) one window staged by hand: run eagerly, then captured and
+    # replayed from the same staged inputs
+    eng = host_engine(server, dev)
+    k = eng.ticks_per_dispatch
+    with torch.inference_mode():
+        x0 = stage_window(eng, slice_requests(5))
+        eng._window(False, lane_philox)
+        want = (eng._x.clone(), eng._xo.clone())
+        eng._x.copy_(x0)
+        eng._run_window(False, lane_philox)       # eager, then captured
+        eng._x.copy_(x0)
+        eng._run_window(False, lane_philox)       # replayed
+        torch.cuda.synchronize()
+        same = torch.equal(eng._x, want[0]) and torch.equal(eng._xo, want[1])
+        e_ms = events_ms(lambda: eng._window(False, lane_philox), 3) / k
+        g_ms = events_ms(lambda: eng._run_window(False, lane_philox), 5) / k
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eng._run_window(False, lane_philox)
+        host_us = (time.perf_counter() - t0) * 1e6 / 5
+        torch.cuda.synchronize()
+    print(f"[host] (a) one window of k={k} on 7 lanes (DDPM and DDIM): "
+          f"replayed graph bitwise the eager window (slot array and "
+          f"gathered rows): {same} | ms a tick: graph {g_ms:.3f}, eager "
+          f"{e_ms:.3f} (CUDA events, windows back to back) | a replay's "
+          f"host time {host_us:.1f} us | phase 4's U-Net forward "
+          f"{unet_ms:.2f} ms", flush=True)
+    if not same:
+        raise AssertionError("the replayed window differs from the eager "
+                             "one")
+    eng.close()
+    del eng
+
+    # (b) the lane-noise kernel against its plain version
+    rows = {}
+    for S in (8, 32):
+        g = torch.Generator().manual_seed(S)
+        args = [torch.randint(0, 2 ** 62, (S,), generator=g),
+                torch.randint(0, 4, (S,), generator=g),
+                torch.randint(0, T, (S,), generator=g)]
+        active = torch.ones(S, dtype=torch.bool)
+        active[3::4] = False
+        cpu_args = args + [active]
+        dargs = [a.to(dev) for a in cpu_args] + [1, IMG]
+        out = ops.lane_noise(*dargs)
+        ref = kref.lane_noise_ref(*dargs)
+        ref_cpu = kref.lane_noise_ref(*cpu_args, 1, IMG)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        bit = torch.equal(out, ref) and torch.equal(out.cpu(), ref_cpu)
+        n_act = int(active.sum())
+        nbytes = kln.noise_bytes(out)
+        int_ops, flt_ops = kln.noise_ops(out, n_act)
+        # every operation at the float32 rate (the card's table has no
+        # int32 rate)
+        t_bytes, t_ops = nbytes / bw, (int_ops + flt_ops) / f32_peak
+        bound = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        cold = cold_time_ms(ops.lane_noise, dargs)
+        warm = warm_time_ms(ops.lane_noise, dargs)
+        plain = cold_time_ms(kref.lane_noise_ref, dargs)
+        floor = graph_time_ms(lambda: torch.cuda._sleep(0), [()] * 50,
+                              replays=20)
+        print(f"[host] (b) lane_noise S={S} ({n_act} drawing, {IMG}): "
+              f"bitwise the plain version on the card and on the CPU: {bit} "
+              f"(max |d| {err:.1e}) | kernel cold {cold * 1e3:.3f} us, warm "
+              f"{warm * 1e3:.3f} us | plain {plain * 1e3:.1f} us | bound "
+              f"{bound * 1e3:.3f} us ({by}: {nbytes} B; {int_ops:.3g} "
+              f"integer and {flt_ops:.3g} float operations) | an empty "
+              f"1-block kernel {floor * 1e3:.3f} us", flush=True)
+        if not bit:
+            raise AssertionError("lane_noise differs from its plain version")
+        rows[S] = (err, cold, plain, bound, by)
+
+    # (c) every (async_depth, finish_mode, finish_async_depth) against the
+    # synchronous drain run, bitwise
+    warm = [Request(req_id=i, seed=i, cut_ratio=0.75, sampler="ddim")
+            for i in range(2)]
+    runs = {}
+    for depth, mode, fdepth in HOST_MODES:
+        eng = host_engine(server, dev, 4, depth, mode, fdepth)
+        eng.serve(warm)                   # captures the window graph
+        ops.reset_launch_counts()
+        if (depth, mode, fdepth) in (HOST_MODES[0], HOST_MODES[-1]):
+            res, share, _ = busy_share(
+                lambda: eng.serve(host_requests(), clients))
+        else:
+            res, share = eng.serve(host_requests(), clients), None
+        fin_ticks = ops.launch_counts()["traj_masked_step"] - \
+            res.summary["ticks"]
+        runs[(depth, mode, fdepth)] = res
+        s = res.summary
+        base = runs[HOST_MODES[0]]
+        same = bitwise(res, base) and set(res.completions) == set(
+            base.completions)
+        print(f"[host] (c) async_depth {depth}, {mode} "
+              f"(finish_async_depth {fdepth}): {s['ticks']} server ticks in "
+              f"{s['windows']} windows, {fin_ticks} finisher lane ticks of "
+              f"{eng.slots} lanes, wall {res.wall_s:.3f}s | "
+              f"{s['ticks_per_s']:.2f} ticks/s "
+              f"({1e3 / s['ticks_per_s']:.2f} ms/tick over the loop) | "
+              f"{s['images_per_s']:.3f} images/s | finish "
+              f"{s['finish_s']:.3f}s in {s['finish_batches']} batch(es), "
+              f"overlap_frac {s['overlap_frac']:.3f} | device busy "
+              f"{share_text(share)} | bitwise the synchronous drain run: "
+              f"{same}", flush=True)
+        if not same:
+            raise AssertionError(f"async_depth {depth} {mode}/{fdepth} "
+                                 "differs from the synchronous drain run")
+        if (depth, mode, fdepth) != HOST_MODES[-1]:
+            eng.close()
+
+    # (g) launches through replays and copies, server only, on the last
+    # engine (async_depth 2), warm; then the device's busy share over a
+    # served window at depth 2 and depth 1
+    copies = eng.h2d_copies
+    ops.reset_launch_counts()
+    res_g, share2, n_ev = busy_share(lambda: eng.serve(host_requests()))
+    counts = ops.launch_counts()
+    s = res_g.summary
+    w = s["windows"]
+    print(f"[host] (g) server only, async_depth 2: {s['ticks']} ticks in "
+          f"{w} windows of k={k} | traj_masked_step {counts['traj_masked_step']}"
+          f" launches ({counts['traj_masked_step'] / s['ticks']:.3f} a "
+          f"tick), lane_noise {counts['lane_noise']} "
+          f"({counts['lane_noise'] / w:.3f} a window: k ticks and the "
+          f"admissions' x_T) | host-to-device copies "
+          f"{eng.h2d_copies - copies} ({(eng.h2d_copies - copies) / w:.3f} "
+          f"a window) | {eng.captures} graph(s) captured | device busy "
+          f"{share_text(share2)} over {n_ev} device events", flush=True)
+    if counts["traj_masked_step"] != s["ticks"] or \
+            counts["lane_noise"] != (k + 1) * w or \
+            eng.h2d_copies - copies != w:
+        raise AssertionError("launches or copies a window are not one "
+                             "step and one draw a tick, one draw and one "
+                             "copy a window")
+    eng.close()
+    eng = host_engine(server, dev, 4, 1)
+    eng.serve(warm)
+    res_1, share1, _ = busy_share(lambda: eng.serve(host_requests()))
+    print(f"[host] (g) server only, async_depth 1: "
+          f"{1e3 / res_1.summary['ticks_per_s']:.2f} ms/tick (depth 2: "
+          f"{1e3 / s['ticks_per_s']:.2f}, both under the profiler) | "
+          f"device busy {share_text(share1)}", flush=True)
+
+    # (f) k = 4 against k = 1
+    res_k1 = host_engine(server, dev, 1).serve(host_requests(), clients)
+    same_k = bitwise(res_k1, runs[HOST_MODES[0]])
+    print(f"[host] (f) k=1 vs k=4 (synchronous drain): bitwise {same_k} | "
+          f"k=1 {res_k1.summary['ticks']} ticks, "
+          f"{1e3 / res_k1.summary['ticks_per_s']:.2f} ms/tick", flush=True)
+    if not same_k:
+        raise AssertionError("k=1 differs from k=4")
+
+    # (e) a sampler registered into spare columns against the same sampler
+    # in the static menu, and no new capture
+    dyn = make_sampler(T, "ddim", 10, 0.0)
+    reqs = [Request(req_id=i, seed=70 + i, batch=1 + i, cut_ratio=0.5,
+                    client_idx=i, sampler="dyn") for i in range(2)]
+    static = host_engine(server, dev, samplers=dict(slice_samplers(),
+                                                    dyn=dyn))
+    ref = static.serve(reqs, clients)
+    static.close()
+    eng = host_engine(server, dev, spare_columns=32)
+    eng.serve(warm, clients)
+    captures = eng.captures
+    tid = eng.register_sampler("dyn", dyn)
+    res_e = eng.serve(reqs, clients)
+    same_e = bitwise(res_e, ref)
+    print(f"[host] (e) 'dyn' ({dyn.describe()}) registered into spare "
+          f"columns as trajectory {tid}: bitwise the static menu's "
+          f"{same_e} | graph captures {captures} before, {eng.captures} "
+          f"after", flush=True)
+    if not same_e or eng.captures != captures:
+        raise AssertionError("the registered sampler differs from the "
+                             "static one, or registration captured a graph")
+    eng.close()
+
+    # (d) guided against unguided ticks on the same engine (graphs)
+    gcfg = dataclasses.replace(UNetConfig(), num_classes=GUIDE_CLASSES)
+    gserver = UNet(gcfg, seed=0).to(dev).eval()
+    eng = guide_engine(gserver, "cuda_masked", 4, dev, None)
+    one = lambda i: 1                                      # noqa: E731
+    eng.serve(guide_requests(["ddpm", "ddpm_g"], 2, salt=5, batch_of=one,
+                             cut=0.9))
+    tick = {}
+    for name in ("ddpm", "ddpm_g", "ddpm"):
+        res_d = eng.serve(guide_requests([name], 4, salt=11, batch_of=one,
+                                         cut=0.75))
+        tick.setdefault(name, []).append(1e3 / res_d.summary["ticks_per_s"])
+    print(f"[host] (d) 4 requests of 1 image at c=0.75, graphs: ms a tick "
+          f"unguided {tick['ddpm'][0]:.2f} / {tick['ddpm'][1]:.2f}, guided "
+          f"{tick['ddpm_g'][0]:.2f} (in turns on one engine; "
+          f"{eng.captures} graphs captured)", flush=True)
+    eng.close()
+    del server, clients, gserver, eng
+    torch.cuda.empty_cache()
+    print(f"[host] phase wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1801,14 +2172,16 @@ def main():
     rows = phase_kernels(dev, card)
     attn_rows = phase_attention(dev, card)
     ssm_rows = phase_ssm(dev, card)
-    _, slice_ms_tick = phase_slice(dev)
+    _, unet_ms = phase_slice(dev)
     phase_train(dev, card)
-    g = phase_guided(dev, card, slice_ms_tick)
+    g = phase_guided(dev, card, unet_ms)
+    noise_rows = phase_host(dev, card, unet_ms)
     lm_counts = phase_lm(dev, card)
     hybrid_counts = phase_hybrid(dev, card)
     # the step kernels' launches on this slice's path, guided and gated
     # serving (phase 4's are printed in its own lines)
     counts = {"traj_masked_step": g["cuda_masked"]["traj_masked_step"],
+              "lane_noise": g["cuda_masked"]["lane_noise"],
               "ddpm_step": g["triton"]["ddpm_step"],
               "flash_attention": lm_counts["flash_attention"],
               "ssm_scan": hybrid_counts["ssm_scan"]}
@@ -1826,6 +2199,16 @@ def main():
                         "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                         "bound_ms": b, "bound_by": by,
                         "library_ms": None})
+    if counts["lane_noise"] == 0:
+        raise AssertionError("lane_noise never launched on phase 4c's run")
+    err, t_k, t_p, b, by = noise_rows[8]
+    kernels.append({"name": "lane_noise", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/lane_noise.cu",
+                    "replaces": "src/repro/diffusion/backend.py:214 "
+                                "(jax.random.normal, not a TPU kernel)",
+                    "launches": counts["lane_noise"], "max_abs_err": err,
+                    "ms": t_k, "plain_ms": t_p, "bound_ms": b,
+                    "bound_by": by, "library_ms": None})
     err, t_k, t_p, b, by, lib = attn_rows[(ATTN_SHAPE, torch.bfloat16, 0)]
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -13,11 +13,17 @@ then ``k, k_n = split(k)`` each step).  The port does not reproduce
 threefry: each draw is a function of (request seed, image, role, step)
 alone, with role ∈ {"init", "server", "client"} and step the trajectory
 position (0 for the x_T draw).  A *noise source* is any callable
-``source(seed, image, role, step, shape) -> float32 CPU tensor``;
-:func:`lane_normal` is the default, :class:`InjectedNoise` replays given
-draws (the parity tests feed it the reference's threefry noise).  Because a
-draw never depends on the slot, the tick or the window depth, an engine
-lane is replayed by :func:`split_sample_lane`.
+``source(seed, image, role, step, shape) -> float32 CPU tensor``.
+:data:`lane_philox` is the default: a counter-based draw (Philox4x32-10)
+that also has a batched form on the device, ``source.batch(seeds, images,
+role, steps, active, shape)``, which the serving engine calls inside its
+window (the ``lane_noise`` kernel on the card, its plain version on the
+CPU, bit for bit the same).  :func:`lane_normal` (a CPU
+``torch.Generator``) and :class:`InjectedNoise` (replays given draws: the
+parity tests feed it the reference's threefry noise) stay as named sources
+without a batched form; the engine stages their draws from the host.
+Because a draw never depends on the slot, the tick or the window depth, an
+engine lane is replayed by :func:`split_sample_lane`.
 
 Training draws follow the same rule: each is a function of (seed, round,
 client, role) alone, with role one of server-t, server-ε, server label
@@ -115,11 +121,45 @@ def lane_seed(seed: int, image: int, role: str, step: int) -> int:
 
 def lane_normal(seed: int, image: int, role: str, step: int,
                 shape) -> torch.Tensor:
-    """The default noise source: a standard normal of ``shape`` from a CPU
+    """A noise source drawing a standard normal of ``shape`` from a CPU
     ``torch.Generator`` seeded by :func:`lane_seed` — the same numbers on
-    every device."""
+    every device (the default before :data:`lane_philox`)."""
     g = torch.Generator().manual_seed(lane_seed(seed, image, role, step))
     return torch.randn(tuple(shape), generator=g, dtype=torch.float32)
+
+
+class LanePhilox:
+    """The default noise source: each element is a Philox4x32-10 draw keyed
+    by the request seed, counter (element quad, step, image, role), turned
+    normal by Box-Muller (:func:`repro_torch.kernels.ops.lane_noise`).  A
+    seed must lie in [0, 2^63).
+
+    ``source(seed, image, role, step, shape)`` is one draw on the CPU (the
+    kernel's plain version); ``device=`` draws it on another device.
+    :meth:`batch` draws one row a lane on the lanes' device, in one launch
+    of the kernel on the card."""
+
+    def __call__(self, seed: int, image: int, role: str, step: int, shape,
+                 device: DeviceLike = "cpu") -> torch.Tensor:
+        dev = torch.device(device)
+
+        def one(v):
+            return torch.full((1,), int(v), dtype=torch.int64, device=dev)
+        return self.batch(one(seed), one(image), role, one(step),
+                          torch.ones((1,), dtype=torch.bool, device=dev),
+                          shape)[0]
+
+    def batch(self, seeds, images, role: str, steps, active,
+              shape) -> torch.Tensor:
+        """(S,) + shape: row s the draw of (seeds[s], images[s], role,
+        steps[s]) where ``active``, zeros elsewhere.  seeds, images, steps
+        (S,) int64 and active (S,) bool, all on one device."""
+        from repro_torch.kernels import ops
+        return ops.lane_noise(seeds, images, steps, active, ROLES[role],
+                              tuple(shape))
+
+
+lane_philox = LanePhilox()
 
 
 class InjectedNoise:
@@ -135,10 +175,22 @@ class InjectedNoise:
 
 
 def _batch_noise(source: NoiseSource, seed: int, images, role: str,
-                 shape) -> Callable[[int], torch.Tensor]:
-    """Step-noise function of a batch of a request's images."""
-    return lambda step: torch.stack(
-        [source(seed, i, role, step, shape) for i in images])
+                 shape, device: DeviceLike = "cpu"
+                 ) -> Callable[[int], torch.Tensor]:
+    """Step-noise function of a batch of a request's images: drawn on
+    ``device`` by a source with a batched form, else stacked on the CPU."""
+    images = list(images)
+    if not hasattr(source, "batch"):
+        return lambda step: torch.stack(
+            [source(seed, i, role, step, shape) for i in images])
+    dev = torch.device(device)
+    n = len(images)
+    seeds = torch.full((n,), seed, dtype=torch.int64, device=dev)
+    imgs = torch.tensor(images, dtype=torch.int64, device=dev)
+    on = torch.ones((n,), dtype=torch.bool, device=dev)
+    return lambda step: source.batch(
+        seeds, imgs, role, torch.full((n,), step, dtype=torch.int64,
+                                      device=dev), on, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -326,15 +378,15 @@ def split_sample(sched: DiffusionSchedule, plan: CutPlan,
     serving engine draws.  Returns x_0 (and the disclosed tensor if
     ``return_intermediate``)."""
     dev = resolve_device(device)
-    src = noise or lane_normal
+    src = noise or lane_philox
     images, img_shape = range(shape[0]), tuple(shape[1:])
-    x_t = _batch_noise(src, seed, images, "init", img_shape)(0).to(dev)
+    x_t = _batch_noise(src, seed, images, "init", img_shape, dev)(0).to(dev)
     x_mid = _server_segment(sched, plan, sampler, server_fn,
                             _batch_noise(src, seed, images, "server",
-                                         img_shape), x_t, backend)
+                                         img_shape, dev), x_t, backend)
     x0 = _client_segment(sched, plan, sampler, client_fn,
-                         _batch_noise(src, seed, images, "client", img_shape),
-                         x_mid, backend)
+                         _batch_noise(src, seed, images, "client", img_shape,
+                                      dev), x_mid, backend)
     if return_intermediate:
         return x0, x_mid
     return x0
@@ -352,16 +404,27 @@ def split_sample_lane(sched: DiffusionSchedule, plan: CutPlan,
     tests compare engine lanes against this."""
     x0, x_mid = split_sample(sched, plan, server_fn, client_fn, seed,
                              (1,) + tuple(shape), True, backend, sampler,
-                             _one_image(noise or lane_normal, image), device)
+                             _OneImage(noise or lane_philox, image), device)
     if return_intermediate:
         return x0[0], x_mid[0]
     return x0[0]
 
 
-def _one_image(source: NoiseSource, image: int) -> NoiseSource:
-    """View of ``source`` whose image 0 is ``image``."""
-    return lambda seed, _i, role, step, shape: source(seed, image, role,
-                                                      step, shape)
+class _OneImage:
+    """View of a noise source whose image 0 is ``image`` (its batched form
+    too, where the source has one)."""
+
+    def __init__(self, source: NoiseSource, image: int):
+        self.source, self.image = source, image
+        if hasattr(source, "batch"):
+            self.batch = self._batch
+
+    def __call__(self, seed, _image, role, step, shape):
+        return self.source(seed, self.image, role, step, shape)
+
+    def _batch(self, seeds, images, role, steps, active, shape):
+        return self.source.batch(seeds, torch.full_like(images, self.image),
+                                 role, steps, active, shape)
 
 
 def disclosure_start(sched: DiffusionSchedule, seed: int, x0_client,
@@ -369,14 +432,14 @@ def disclosure_start(sched: DiffusionSchedule, seed: int, x0_client,
     """The start of a disclosure chain: x_0 noised to x_T with the "init"
     draws, and the step-noise function of its "server" draws.  Runs on
     x0_client's device."""
-    src = noise or lane_normal
+    src = noise or lane_philox
     images, img_shape = range(x0_client.shape[0]), tuple(x0_client.shape[1:])
     dev = x0_client.device
-    eps = _batch_noise(src, seed, images, "init", img_shape)(0).to(dev)
+    eps = _batch_noise(src, seed, images, "init", img_shape, dev)(0).to(dev)
     t_top = torch.full((x0_client.shape[0],), sched.T, dtype=torch.int64,
                        device=dev)
     return (ddpm.q_sample(sched, x0_client, t_top, eps),
-            _batch_noise(src, seed, images, "server", img_shape))
+            _batch_noise(src, seed, images, "server", img_shape, dev))
 
 
 def disclosed_at_pos(sched: DiffusionSchedule, sampler: Sampler,

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Union
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import ddpm_step as kds
@@ -124,62 +123,42 @@ class StepBackend:
                                       clip=clip)
 
 
-def make_lane_tick(masked_index: Callable, guided_index: Callable, kmax: int,
+def make_lane_tick(masked_index: Callable, guided_index: Callable,
                    conditional: bool = False) -> Callable:
     """Build the masked lane tick the engine's server windows and its client
-    finisher share (counterpart of ``backend.py:153``).
+    finisher share (counterpart of ``backend.py:153``), from device inputs:
 
-        x, pos, done = lane_tick(model, menu, x, pos, end, traj, gate,
-                                 lane_noise, y, pair, cond)
+        x = lane_tick(model, tables, x, t, cols, active, noise, y, pair,
+                      cond, guided)
 
-    ``menu`` is the trajectory menu as data: ``tables`` — the (5, C)
-    concatenated coefficient table on x's device, gathered per lane by
-    column — ``offsets`` — each trajectory's first column — and ``ts_pad``
-    — the (n_menu, kmax) padded timestep rows the model conditions on (both
-    host numpy).  ``pos``/``end``/``traj``/``gate`` are host numpy (S,)
-    arrays: the host tracks every lane's trajectory position, so no tick
-    waits on the device.  A lane steps only while ``gate & (pos < end)``;
-    once ``pos`` reaches ``end`` it HOLDS x and pos bitwise (the masked
-    select), so retiring at a window boundary reads the exact cut tensor at
-    any window depth.  ``lane_noise(pos, stepping)`` returns the (S, ...)
-    noise of this tick on x's device (rows of lanes not stepping are
-    unused).  ``y``/``pair``/``cond`` (host numpy (S,)) are the
+    Every argument but ``model`` and ``guided`` is a tensor on x's device,
+    so a window of ticks makes no host-to-device copy and a CUDA graph can
+    hold it: ``t`` (S,) the timesteps the model conditions on, ``cols`` (S,)
+    each lane's column of the (5, C) coefficient table ``tables``,
+    ``active`` (S,) bool the lanes that step (the caller's ``gate & (pos <
+    end)``: the host tracks every lane's trajectory position, so no tick
+    waits on the device), ``noise`` (S, ...) the tick's draws (rows of
+    lanes not stepping are unused).  A lane not stepping HOLDS x bitwise
+    (the masked select), so retiring at a window boundary reads the exact
+    cut tensor at any window depth.  ``y``/``pair``/``cond`` (S,) are the
     conditional-serving lane state: the class label a ``conditional`` model
     sees (the null label for unguided and shadow lanes), the partner lane
     of a guided pair (own index when solo) and the primary-lane flag.  One
     model call covers both lanes of every pair.  ``masked_index`` and
     ``guided_index`` are a backend's ``masked_index_step`` and
-    ``guided_masked_index_step`` with their clip bound: a tick with a
-    paired lane takes the guided one (the combine and the shadow's noise
-    borrow in front of the one step); a tick whose lanes are all solo takes
-    the masked step directly, which is what the combine reduces to there,
-    bit for bit, without its dozen eager launches of host time.
+    ``guided_masked_index_step`` with their clip bound: ``guided`` ticks (a
+    paired lane in the slot array) take the guided one (the combine and the
+    shadow's noise borrow in front of the one step); a tick whose lanes are
+    all solo takes the masked step directly, which is what the combine
+    reduces to there, bit for bit, without its dozen launches.
     """
-    def lane_tick(model, menu, x, pos, end, traj, gate, lane_noise, y, pair,
-                  cond):
-        stepping = gate & (pos < end)
-        pos_c = np.clip(pos, 0, kmax - 1)
-        dev = x.device
-        t_lane = torch.from_numpy(menu["ts_pad"][traj, pos_c]).to(dev)
-        if conditional:
-            eps_hat = model(x, t_lane, torch.from_numpy(y).to(dev))
-        else:
-            eps_hat = model(x, t_lane)
-        noise = lane_noise(pos_c, stepping)
-        cols = torch.from_numpy(
-            (menu["offsets"][traj] + pos_c).astype(np.int32)).to(dev)
-        active = torch.from_numpy(stepping).to(dev)
-        if (pair != np.arange(len(pair))).any():
-            x = guided_index(x, cols, eps_hat, noise, active,
-                             torch.from_numpy(pair).to(dev),
-                             torch.from_numpy(cond).to(dev),
-                             tables=menu["tables"])
-        else:
-            x = masked_index(x, cols, eps_hat, noise, active,
-                             tables=menu["tables"])
-        pos = np.where(stepping, pos + 1, pos)
-        done = stepping & (pos >= end)        # x now holds the cut tensor
-        return x, pos, done
+    def lane_tick(model, tables, x, t, cols, active, noise, y, pair, cond,
+                  guided: bool):
+        eps_hat = model(x, t, y) if conditional else model(x, t)
+        if guided:
+            return guided_index(x, cols, eps_hat, noise, active, pair, cond,
+                                tables=tables)
+        return masked_index(x, cols, eps_hat, noise, active, tables=tables)
     return lane_tick
 
 

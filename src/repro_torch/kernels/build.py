@@ -28,10 +28,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]    # registers and spills, shown by build(verbose)
 
-# flags one source adds to NVCC_FLAGS.  traj_masked_step's float32 output
-# equals its plain version bit for bit only if no product and sum contract
-# into an FMA; the other sources keep nvcc's default contraction.
-SOURCE_FLAGS: Dict[str, List[str]] = {"traj_masked_step": ["-fmad=false"]}
+# flags one source adds to NVCC_FLAGS.  traj_masked_step's and lane_noise's
+# float32 outputs equal their plain versions bit for bit only if no product
+# and sum contract into an FMA; the other sources keep nvcc's default
+# contraction.
+SOURCE_FLAGS: Dict[str, List[str]] = {"traj_masked_step": ["-fmad=false"],
+                                      "lane_noise": ["-fmad=false"]}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas's registers, spills and shared memory) of each source

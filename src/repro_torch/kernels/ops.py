@@ -6,8 +6,10 @@ for a tensor on the CPU, and only then.  For a CUDA tensor it checks device,
 dtype, shape and contiguity, launches its kernel
 (:mod:`repro_torch.kernels.ddpm_step`,
 :mod:`repro_torch.kernels.flash_attention`,
-:mod:`repro_torch.kernels.ssm_scan`) or raises, and adds one to its
-``launches`` attribute; nothing falls back.
+:mod:`repro_torch.kernels.ssm_scan`, :mod:`repro_torch.kernels.lane_noise`)
+or raises, and adds one to its ``launches`` attribute; nothing falls back.
+A CUDA graph that holds kernels launches each of them once a replay: its
+owner counts a replay with :func:`add_launches`.
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ import torch
 
 from repro_torch.kernels import ddpm_step as _ddpm
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import lane_noise as _ln
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.ref import (attention_ref, ddpm_step_ref,
-                                     ssm_scan_ref, traj_masked_step_ref)
+                                     lane_noise_ref, ssm_scan_ref,
+                                     traj_masked_step_ref)
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -231,9 +235,43 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 ssm_scan.launches = 0
 
 
+def lane_noise(seeds: torch.Tensor, images: torch.Tensor,
+               steps: torch.Tensor, active: torch.Tensor, role: int,
+               shape) -> torch.Tensor:
+    """Per-lane standard normals (the CUDA kernel): row s of the (S,) +
+    ``shape`` float32 result is the draw keyed by (seeds[s], images[s],
+    role, steps[s]), zeros where ``active`` is False; on seeds' device.
+    seeds (each in [0, 2^63)), images, steps: (S,) int64; active: (S,)
+    bool; role: a non-negative int (``collafuse.ROLES``)."""
+    shape = tuple(int(n) for n in shape)
+    if seeds.device.type == "cpu":
+        return lane_noise_ref(seeds, images, steps, active, role, shape)
+    _check_cuda("lane_noise", seeds, images, steps, active)
+    s = seeds.shape[0]
+    for name, t in (("seeds", seeds), ("images", images), ("steps", steps)):
+        if t.dtype != torch.int64 or t.shape != (s,):
+            raise ValueError(f"lane_noise: {name} must be ({s},) int64")
+    if active.dtype != torch.bool or active.shape != (s,):
+        raise ValueError(f"lane_noise: active must be ({s},) bool")
+    if not 0 <= int(role) < 2 ** 32:
+        raise ValueError(f"lane_noise: role {role} outside [0, 2^32)")
+    if s > 65535:
+        raise ValueError(f"lane_noise: {s} lanes > 65535 (grid.y)")
+    out = torch.empty((s,) + shape, dtype=torch.float32, device=seeds.device)
+    if out.numel() == 0:
+        return out
+    _ln.launch_lane_noise(out, seeds, images, steps, active, role)
+    lane_noise.launches += 1
+    return out
+
+
+lane_noise.launches = 0
+
+
 # the kernel wrappers that count their launches, by kernel name
 KERNELS = {"ddpm_step": ddpm_step, "traj_masked_step": traj_masked_step,
-           "flash_attention": flash_attention, "ssm_scan": ssm_scan}
+           "flash_attention": flash_attention, "ssm_scan": ssm_scan,
+           "lane_noise": lane_noise}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -244,3 +282,16 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Put the counters back to ``counts`` (a capture records launches
+    without running them)."""
+    for name, n in counts.items():
+        KERNELS[name].launches = n
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count one replay of a CUDA graph that holds ``counts`` launches."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

@@ -9,6 +9,8 @@ serving engine, then finishes every request on its client's private model::
         launcher --T 10 --requests 4 --slots 4
     python -m repro_torch.launch.serve_diffusion --num-classes 4 \
         --guidance 1.5 --min-kid 0.5 --calib 16   # guided, KID-gated
+    python -m repro_torch.launch.serve_diffusion --ticks-per-dispatch 4 \
+        --async-depth 2 --finish-async-depth 2 --spare-columns 32 --mix
 
 ``--config paper`` is the paper's U-Net (128x128x1, base 64, mults
 (1,2,4,8), 2 res blocks, attention at 16); ``--config launcher`` is the
@@ -17,12 +19,17 @@ reference launcher's small model.  Weights are random, drawn from
 cycle over the requests); ``--guidance w`` adds a classifier-free guided
 ``ddpm_g`` menu entry and routes requests through it; ``--min-kid`` gates
 admission on the disclosure KID, calibrated on ``--calib`` synthetic
-images.  The default device is CUDA; without a card the launcher raises
-unless ``--device cpu`` is given.
+images.  ``--async-depth`` windows are in flight; the client segment streams
+(``--finish-mode stream``, the default) or drains after the server loop;
+``--spare-columns`` leaves room for an ad-hoc ``dyn`` sampler, registered
+between the warm-up and the measured serve without a new graph capture.
+The default device is CUDA; without a card the launcher raises unless
+``--device cpu`` is given.
 """
 import argparse
 import dataclasses
 import json
+import time
 
 
 def _parse_args(argv=None):
@@ -79,6 +86,28 @@ def _parse_args(argv=None):
     ap.add_argument("--ticks-per-dispatch", type=int, default=1,
                     help="k lane ticks per window; admission and retirement "
                          "happen at window boundaries")
+    ap.add_argument("--async-depth", type=int, default=1,
+                    help="windows in flight: 1 = synchronous, 2 = plan and "
+                         "launch window N+1 while window N runs")
+    ap.add_argument("--finish-mode", choices=["stream", "drain"],
+                    default="stream",
+                    help="client segment: stream = finish waves launched at "
+                         "window boundaries while later server windows run "
+                         "(default); drain = one pass after the server "
+                         "queue empties.  x0 is bitwise the same")
+    ap.add_argument("--finish-async-depth", type=int, default=1,
+                    help="streamed finish waves in flight before the oldest "
+                         "is waited on")
+    ap.add_argument("--spare-columns", type=int, default=0,
+                    help="preallocate N spare coefficient-table columns; "
+                         "the launcher registers a 'dyn' DDIM trajectory "
+                         "into them (again between its two serves, with no "
+                         "new graph capture) and, with --mix, routes "
+                         "requests through it")
+    ap.add_argument("--compare-sequential", action="store_true",
+                    help="also time one split_sample call per request "
+                         "(serve_sequential) and print the engine's "
+                         "speed-up")
     ap.add_argument("--arrival-every", type=int, default=0,
                     help="0 = all at tick 0; k = one request every k ticks")
     ap.add_argument("--seed", type=int, default=0)
@@ -107,7 +136,8 @@ def main(argv=None):
     from repro_torch.diffusion.schedule import cosine_schedule
     from repro_torch.models.unet import UNet
     from repro_torch.serve import (AdmissionPolicy, EngineConfig, Request,
-                                   ServeEngine, make_scheduler)
+                                   ServeEngine, make_scheduler,
+                                   serve_sequential)
 
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -133,7 +163,13 @@ def main(argv=None):
             args.T, "ddim", args.num_steps or max(2, args.T // 2), args.eta)
     if args.guidance is not None:
         samplers["ddpm_g"] = make_sampler(args.T, guidance=args.guidance)
-    request_samplers = (list(samplers) if args.mix else
+    dyn_sampler = None
+    if args.spare_columns:
+        dyn_sampler = make_sampler(args.T, "ddim",
+                                   min(args.spare_columns,
+                                       max(2, args.T // 4)), args.eta)
+    request_samplers = (list(samplers) + (["dyn"] if dyn_sampler else [])
+                        if args.mix else
                         ["ddpm_g" if args.guidance is not None
                          else args.sampler])
     traffic = ("mix of " + "/".join(request_samplers) if args.mix
@@ -142,8 +178,11 @@ def main(argv=None):
           f"image={ucfg.image_size} slots={args.slots} "
           f"requests={args.requests} T={args.T} policy={args.policy} "
           f"backend={args.step_backend} sampler={traffic} "
-          f"k={args.ticks_per_dispatch} num_classes={args.num_classes} "
-          f"guidance={args.guidance} min_kid={args.min_kid}", flush=True)
+          f"k={args.ticks_per_dispatch} async_depth={args.async_depth} "
+          f"finish={args.finish_mode}/{args.finish_async_depth} "
+          f"spare_columns={args.spare_columns} "
+          f"num_classes={args.num_classes} guidance={args.guidance} "
+          f"min_kid={args.min_kid}", flush=True)
 
     server = UNet(ucfg, seed=args.seed).to(device).eval()
     clients = [UNet(ucfg, seed=args.seed + 1 + c).to(device).eval()
@@ -165,23 +204,39 @@ def main(argv=None):
         calib_sets, _ = make_client_datasets(ClientDataConfig(
             n_clients=1, per_client=args.calib, image_size=ucfg.image_size,
             holdout=2, seed=args.seed))
-        # one policy for both engines below: the second reuses its scores
         admission = AdmissionPolicy(sched, calib_sets[0].to(device),
                                     min_kid=args.min_kid, samplers=samplers)
 
-    def engine():
-        cfg = EngineConfig(
-            sched=sched, image_shape=(ucfg.image_size, ucfg.image_size,
-                                      ucfg.in_channels),
-            slots=args.slots,
-            scheduler=make_scheduler(args.policy, args.T, samplers=samplers),
-            step_backend=args.step_backend, samplers=samplers,
-            ticks_per_dispatch=args.ticks_per_dispatch, device=device,
-            num_classes=args.num_classes, admission=admission)
-        return ServeEngine(cfg, server)
-
-    engine().serve(list(requests), clients)       # warm-up: builds, caches
-    res = engine().serve(list(requests), clients)
+    cfg = EngineConfig(
+        sched=sched, image_shape=(ucfg.image_size, ucfg.image_size,
+                                  ucfg.in_channels),
+        slots=args.slots,
+        scheduler=make_scheduler(args.policy, args.T, samplers=samplers),
+        step_backend=args.step_backend, samplers=samplers,
+        ticks_per_dispatch=args.ticks_per_dispatch,
+        async_depth=args.async_depth, finish_mode=args.finish_mode,
+        finish_async_depth=args.finish_async_depth,
+        spare_columns=args.spare_columns, device=device,
+        num_classes=args.num_classes, admission=admission)
+    eng = ServeEngine(cfg, server)
+    if dyn_sampler is not None:
+        eng.register_sampler("dyn", dyn_sampler)
+    # warm-up: builds the kernels, captures the window graphs, fills the
+    # gate's score cache
+    eng.serve(list(requests), clients)
+    captures = eng.captures
+    if dyn_sampler is not None:
+        # registered again at the serve boundary: written in place into
+        # the spare columns the captured graphs read
+        eng.register_sampler("dyn", dyn_sampler)
+    res = eng.serve(list(requests), clients)
+    if eng.captures != captures:
+        raise RuntimeError(f"the measured serve captured "
+                           f"{eng.captures - captures} new graph(s)")
+    if dyn_sampler is not None:
+        print(f"dynamic menu: {eng.registered_samplers()} "
+              f"(dyn={dyn_sampler.describe()}, 0 new graph captures)",
+              flush=True)
     s = res.summary
     print(f"engine: {s['requests']} requests ({s['images']} images) in "
           f"{res.wall_s:.2f}s over {s['ticks']} ticks | "
@@ -189,6 +244,10 @@ def main(argv=None):
           f"p50/p95 latency {s['latency_ticks_p50']:.0f}/"
           f"{s['latency_ticks_p95']:.0f} ticks | "
           f"util {s['utilization_mean']:.2f}", flush=True)
+    print(f"windows: {s['windows']} of k={s['ticks_per_dispatch']}, "
+          f"async_depth {s['async_depth']}, {eng.captures} graph(s) "
+          f"captured, {eng.h2d_copies} host-to-device copies over both "
+          "serves", flush=True)
     print(f"client finish ({s['finish_mode']}): "
           f"{s['finish_s'] * 1e3:.1f}ms in {s['finish_batches']} "
           f"batch(es), overlap_frac {s['overlap_frac']:.2f} "
@@ -210,6 +269,17 @@ def main(argv=None):
     for comp in res.completions.values():
         assert comp.x0 is not None and np.isfinite(comp.x0).all(), \
             f"non-finite output for request {comp.request.req_id}"
+    if args.compare_sequential:
+        seq_cfg = dataclasses.replace(cfg, samplers=dict(eng.samplers))
+        serve_sequential(seq_cfg, requests[:1], server, clients)   # warm
+        t0 = time.perf_counter()
+        serve_sequential(seq_cfg, requests, server, clients)
+        seq_s = time.perf_counter() - t0
+        s["sequential_s"] = seq_s
+        s["speedup_vs_sequential"] = seq_s / res.wall_s
+        print(f"sequential split_sample: {seq_s:.2f}s -> speedup "
+              f"{seq_s / res.wall_s:.2f}x", flush=True)
+    eng.close()
     if args.json:
         with open(args.json, "w") as f:
             json.dump(s, f, indent=1)

@@ -102,8 +102,9 @@ class AdmissionPolicy:
     ``samplers``, ``server_fn`` (x, t) and ``cond_server_fn`` (x, t, y) may
     be left unset and bound by the engine (:meth:`bind`).  ``noise`` is the
     calibration chains' noise source (default
-    :func:`~repro_torch.core.collafuse.lane_normal`), drawn at seed
-    :data:`CALIB_SEED`, so every score and decision is deterministic.
+    :data:`~repro_torch.core.collafuse.lane_philox`, the engine's), drawn
+    at seed :data:`CALIB_SEED`, so every score and decision is
+    deterministic.
 
     ``model_calls`` counts the server-model calls scoring made on the
     calibration batch, ``cache_hits`` the scores served from the cache, and

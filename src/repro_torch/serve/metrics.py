@@ -147,18 +147,28 @@ class ServeMetrics:
         return out
 
 
-def finish_summary(mode: str, finish_s: float, batches: int = 0,
-                   lanes: int = 0) -> Dict:
+def finish_summary(mode: str, finish_s: float, tail_s: float = 0.0,
+                   batches: int = 0, lanes: int = 0) -> Dict:
     """Accounting of the client-finish segment, merged into the serve
-    summary.  Only the ``"drain"`` finisher exists in the port so far: it
-    runs after the server loop, so none of it overlaps server compute
-    (``overlap_frac`` 0, the whole of ``finish_s`` is tail)."""
-    assert mode == "drain", mode
+    summary.  ``finish_s`` is the host time spent in the finish path (stage,
+    launch, reap).  In ``"stream"`` mode most of it runs while server
+    windows are in flight; only ``tail_s``, the drain after the last window
+    retired, is serial, so ``overlap_frac = 1 − tail_s / finish_s``.  In
+    ``"drain"`` mode the whole segment runs after the server loop
+    (``overlap_frac`` 0) and the caller adds ``finish_s`` to the wall; in
+    stream mode the loop's wall already covers it."""
+    if mode not in ("stream", "drain"):
+        raise ValueError(f"finish mode {mode!r} not in ('stream', 'drain')")
+    if mode == "drain":
+        overlap = 0.0
+        tail_s = finish_s
+    else:
+        overlap = 1.0 - tail_s / finish_s if finish_s > 1e-12 else 1.0
     return {
         "finish_mode": mode,
         "finish_s": finish_s,
-        "finish_tail_s": finish_s,
-        "overlap_frac": 0.0,
+        "finish_tail_s": tail_s,
+        "overlap_frac": float(min(1.0, max(0.0, overlap))),
         "finish_batches": batches,
         "finish_lanes": lanes,
     }

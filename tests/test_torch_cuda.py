@@ -632,3 +632,171 @@ def test_training_round_batched_matches_looped_and_cpu_on_cuda():
             gmax, gmean = _param_gap(a, b)
             assert gmax <= TRAIN_PARAM_MAX and gmean <= TRAIN_PARAM_MEAN, \
                 (key, gmax, gmean)
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's host path: the lane-noise kernel, captured windows,
+# spare columns and the streamed finisher on the card
+# ---------------------------------------------------------------------------
+def _noise_inputs(S, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    seeds = torch.randint(0, 2 ** 62, (S,), generator=g, dtype=torch.int64)
+    images = torch.randint(0, 4, (S,), generator=g, dtype=torch.int64)
+    steps = torch.randint(0, 100, (S,), generator=g, dtype=torch.int64)
+    active = torch.ones(S, dtype=torch.bool)
+    active[1::3] = False
+    return seeds, images, steps, active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 8, 32])
+@pytest.mark.parametrize("shape", [(128, 128, 1), (5, 3, 1), (16, 16, 3)])
+def test_lane_noise_kernel_matches_plain_on_cuda(S, shape):
+    """Bitwise against the plain version, on the card and on the CPU (the
+    16-byte store path and the ragged one)."""
+    _require_cuda()
+    args = _noise_inputs(S, S)
+    dev = [t.cuda() for t in args]
+    before = ops.lane_noise.launches
+    out = ops.lane_noise(*dev, 1, shape)
+    ref = kref.lane_noise_ref(*dev, 1, shape)
+    torch.cuda.synchronize()
+    assert ops.lane_noise.launches == before + 1
+    assert out.shape == (S,) + shape and out.dtype == torch.float32
+    assert torch.equal(out, ref)
+    assert torch.equal(out.cpu(), kref.lane_noise_ref(*args, 1, shape))
+    assert not out[~dev[3]].any()
+    from repro_torch.core.collafuse import lane_philox
+    key = (int(args[0][0]), int(args[1][0]), "server", int(args[2][0]))
+    one = lane_philox(*key, shape, device="cuda")
+    assert one.is_cuda and torch.equal(one.cpu(), lane_philox(*key, shape))
+
+
+@pytest.mark.cuda
+def test_lane_noise_wrapper_raises_on_what_the_kernel_does_not_take():
+    _require_cuda()
+    seeds, images, steps, active = (t.cuda() for t in _noise_inputs(4))
+    with pytest.raises(ValueError, match="seeds"):
+        ops.lane_noise(seeds.int(), images, steps, active, 1, (8, 8, 1))
+    with pytest.raises(ValueError, match="steps"):
+        ops.lane_noise(seeds, images, steps[:3], active, 1, (8, 8, 1))
+    with pytest.raises(ValueError, match="active"):
+        ops.lane_noise(seeds, images, steps, active.int(), 1, (8, 8, 1))
+    with pytest.raises(ValueError, match="tensors on cpu"):
+        ops.lane_noise(seeds, images.cpu(), steps, active, 1, (8, 8, 1))
+
+
+def _host_engine(k=3, slots=4, graphs=True, spare=0, menu=None, **kw):
+    from repro_torch.configs import UNetConfig
+    from repro_torch.models.unet import UNet
+    from repro_torch import serve as tserve
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    menu = menu or {"ddpm": tsm.make_sampler(100),
+                    "ddim": tsm.make_sampler(100, "ddim", 20)}
+    server = UNet(UNetConfig().reduced(), seed=0).cuda().eval()
+    return tserve.ServeEngine(tserve.EngineConfig(
+        sched=tsch.cosine_schedule(100), image_shape=(16, 16, 1),
+        slots=slots, scheduler=tserve.make_scheduler("cut_ratio", 100,
+                                                     samplers=menu),
+        step_backend="cuda_masked", samplers=menu, ticks_per_dispatch=k,
+        cuda_graphs=graphs, spare_columns=spare, device="cuda", **kw),
+        server)
+
+
+def _host_requests(n=6, sampler=None):
+    from repro_torch.serve import Request
+    return [Request(req_id=i, seed=900 + i, batch=1 + i % 2,
+                    cut_ratio=(0.75, 0.5, 0.25)[i % 3], client_idx=i % 2,
+                    arrival_tick=i, sampler=sampler or ("ddim", "ddpm")[i % 2])
+            for i in range(n)]
+
+
+def _clients():
+    from repro_torch.configs import UNetConfig
+    from repro_torch.models.unet import UNet
+    return [UNet(UNetConfig().reduced(), seed=s).cuda().eval()
+            for s in (1, 2)]
+
+
+def _bitwise_runs(a, b):
+    assert set(a.completions) == set(b.completions)
+    for rid, ca in a.completions.items():
+        cb = b.completions[rid]
+        assert np.array_equal(ca.x_mid, cb.x_mid), rid
+        assert np.array_equal(ca.x0, cb.x0), rid
+
+
+@pytest.mark.cuda
+def test_captured_window_is_bitwise_the_eager_window_on_cuda():
+    """One window staged by hand, run eagerly, then captured and replayed
+    from the same inputs: the slot array and the gathered rows bitwise;
+    a whole serve with graphs bitwise one without."""
+    _require_cuda()
+    from repro_torch.core.collafuse import lane_philox
+    from repro_torch.serve import engine as teng
+    eng = _host_engine()
+    with torch.inference_mode():
+        eng._static_buffers(staged=False)
+        lanes = teng._Lanes.empty(eng.slots, 0)
+        for i, r in enumerate(_host_requests(3)[:2]):
+            eng._admit(r, [2 * i, 2 * i + 1][:r.batch], lanes)
+        admitted = lanes.req >= 0
+        host = torch.empty(eng._plan_bytes, dtype=torch.uint8)
+        hv = {n: v.numpy() for n, v in
+              teng._views(host, eng._plan_layout).items()}
+        eng._plan_window(lanes, admitted, hv)
+        eng._plan_buf.copy_(host)
+        x0 = eng._x.clone()
+        eng._window(False, lane_philox)
+        want = (eng._x.clone(), eng._xo.clone())
+        eng._x.copy_(x0)
+        eng._run_window(False, lane_philox)        # eager, then capture
+        assert eng.captures == 1
+        eng._x.copy_(x0)
+        before = ops.launch_counts()
+        eng._run_window(False, lane_philox)        # replay
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        assert torch.equal(eng._x, want[0]) and torch.equal(eng._xo, want[1])
+        assert after["traj_masked_step"] - before["traj_masked_step"] == 3
+        assert after["lane_noise"] - before["lane_noise"] == 4
+    clients = _clients()
+    g = _host_engine(k=4).serve(_host_requests(), clients)
+    e = _host_engine(k=4, graphs=False).serve(_host_requests(), clients)
+    _bitwise_runs(g, e)
+
+
+@pytest.mark.cuda
+def test_register_sampler_adds_no_capture_on_cuda():
+    _require_cuda()
+    dyn = tsm.make_sampler(100, "ddim", 10)
+    static = _host_engine(menu={"ddpm": tsm.make_sampler(100), "dyn": dyn})
+    ref = static.serve(_host_requests(3, "dyn"))
+    eng = _host_engine(menu={"ddpm": tsm.make_sampler(100)}, spare=16)
+    eng.serve(_host_requests(3, "ddpm"))
+    captures, copies = eng.captures, eng.h2d_copies
+    eng.register_sampler("dyn", dyn)
+    res = eng.serve(_host_requests(3, "dyn"))
+    assert eng.captures == captures >= 1
+    assert eng.h2d_copies - copies == res.summary["windows"]
+    for rid, c in ref.completions.items():
+        assert np.array_equal(res.completions[rid].x_mid, c.x_mid), rid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,fdepth", [(1, 1), (2, 2)])
+def test_stream_is_bitwise_drain_on_cuda(depth, fdepth):
+    """The streamed finisher on its own stream, waves of 2·slots lanes,
+    against the drain finisher: x_mid and x0 bitwise (every client call at
+    the one finisher width)."""
+    _require_cuda()
+    clients = _clients()
+    drain = _host_engine(finish_mode="drain").serve(_host_requests(8),
+                                                    clients)
+    stream = _host_engine(async_depth=depth, finish_mode="stream",
+                          finish_async_depth=fdepth).serve(
+                              _host_requests(8), clients)
+    _bitwise_runs(drain, stream)
+    assert stream.summary["finish_batches"] >= 1
+    assert 0.0 <= stream.summary["overlap_frac"] <= 1.0

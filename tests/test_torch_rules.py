@@ -165,4 +165,5 @@ def test_reset_launch_counts():
     ops.ddpm_step.launches = 3
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"ddpm_step": 0, "traj_masked_step": 0,
-                                   "flash_attention": 0, "ssm_scan": 0}
+                                   "flash_attention": 0, "ssm_scan": 0,
+                                   "lane_noise": 0}

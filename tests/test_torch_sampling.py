@@ -148,16 +148,18 @@ def test_split_sample_lane_matches_reference(models, kind, cut_ratio):
 
 
 def test_split_sample_batch_is_its_lanes(models):
-    """Image i of ``split_sample`` draws what lane i draws."""
+    """Image i of ``split_sample`` draws what lane i draws (under
+    ``lane_normal``, the source this check was written for)."""
     _, (tsrv, tcli) = models
     ts = tsch.cosine_schedule(T)
     plan = tcf.CutPlan(T, 0.5)
     x0, mid = tcf.split_sample(ts, plan, tsrv, tcli, 3, (2,) + SHAPE,
-                               return_intermediate=True, device="cpu")
+                               return_intermediate=True, device="cpu",
+                               noise=tcf.lane_normal)
     for i in range(2):
         l0, lmid = tcf.split_sample_lane(ts, plan, tsrv, tcli, 3, i, SHAPE,
                                          return_intermediate=True,
-                                         device="cpu")
+                                         device="cpu", noise=tcf.lane_normal)
         torch.testing.assert_close(mid[i], lmid, **TOL)
         torch.testing.assert_close(x0[i], l0, **TOL)
 

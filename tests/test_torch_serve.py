@@ -104,8 +104,8 @@ def _port_engine(server, k=1, slots=3, **kw):
 @pytest.fixture(scope="module")
 def port_k1(slice_models):
     _, _, (server, *clients) = slice_models
-    return _port_engine(server).serve(_port_requests(), clients,
-                                      noise=_noise())
+    return _port_engine(server, finish_mode="drain").serve(
+        _port_requests(), clients, noise=_noise())
 
 
 def test_serve_matches_reference_engine(slice_models, port_k1):
@@ -212,9 +212,9 @@ def test_serve_sequential_matches_engine_lanes(slice_models, port_k1):
 def test_engine_config_validation(slice_models):
     _, _, (server, *_) = slice_models
     sched = tsch.cosine_schedule(T)
-    with pytest.raises(ValueError, match="drain"):
+    with pytest.raises(ValueError, match="finish_mode"):
         tserve.EngineConfig(sched=sched, image_shape=SHAPE,
-                            finish_mode="stream", device="cpu")
+                            finish_mode="eager", device="cpu")
     with pytest.raises(ValueError, match="ticks_per_dispatch"):
         tserve.EngineConfig(sched=sched, image_shape=SHAPE,
                             ticks_per_dispatch=0, device="cpu")
@@ -291,8 +291,10 @@ def test_metrics_exact_occupancy_and_finish_summary():
     assert s["utilization_mean"] == pytest.approx((3 + 3 + 1) / 12)
     f = tserve.finish_summary("drain", 0.5, batches=2, lanes=3)
     assert f["overlap_frac"] == 0.0 and f["finish_tail_s"] == 0.5
-    with pytest.raises(AssertionError):
-        tserve.finish_summary("stream", 0.5)
+    f = tserve.finish_summary("stream", 0.5, 0.125, batches=2, lanes=3)
+    assert f["overlap_frac"] == 0.75 and f["finish_tail_s"] == 0.125
+    with pytest.raises(ValueError, match="finish mode"):
+        tserve.finish_summary("eager", 0.5)
 
 
 def test_flops_split_matches_reference():
