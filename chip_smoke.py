@@ -42,7 +42,9 @@ Phases, each printing its own lines:
    batched trainer, a warm-up round and 8 timed rounds, each round's server
    and mean client loss, wall time and step times (CUDA events), the
    steps' rate against the f32 peak (3x ``flops_per_image`` an image),
-   peak memory, a profiled round; the losses must fall; (b) the looped
+   peak memory, a profiled round; the losses must fall; with obs on, one
+   ``train_round`` span a round and the loss gauges equal to the losses
+   (phase 4e (d)); (b) the looped
    trainer from the same models and draws: round 0's losses against (a)'s
    within the CPU tests' tolerance, its round and step times and memory;
    (c) one round at ``reduced()`` on the card and on the CPU: losses and
@@ -85,6 +87,22 @@ Phases, each printing its own lines:
    k = 4, bitwise; (e) a sampler registered into spare columns bitwise the
    static menu's, no new capture; (d) guided against unguided ms a tick on
    one engine with graphs;
+4e. obs — wave packing and the observability stack at full width (phase
+   4d's engine at async_depth 2): (a) the reference ``hetero_packing``
+   gate's mix scaled to 8 slots and 12 requests (batch-8 dense DDPM heads
+   at cut 0.2 between batch-1 DDIM fillers, one sampler in spare columns)
+   served pack off and pack on after a warm-up: x_mid bitwise, no new
+   capture, one step a tick and k + 1 draws a window, ticks and every
+   admit and retire tick equal to the same mix served on the CPU by a
+   small U-Net; ticks, wall, images/s, ``fragmentation_frac`` and
+   occupancy by class of each; (b) phase 4d (c)'s traffic streamed, obs
+   off and on in turns: bitwise, captures and copies a window unchanged,
+   ticks/s within 5 %, the trace valid with one ``dispatch`` span a
+   window, timelines in stage order, the registry's JSON-lines, and each
+   span's total host ms; (c) ``torch.profiler`` over each serve's first 4
+   windows: bitwise, and both profiles name ``traj_masked_step`` and
+   ``lane_noise``; its (d), one ``train_round`` span a round and the loss
+   gauges, runs inside phase 4b's trainer;
 5. LM slice — Yi-6B at full width and depth in bf16 (random weights from a
    seed): (a) prefill of 4x2048 tokens through the flash kernel, 32
    launches a call, timed and profiled; (b) the same batch through
@@ -110,9 +128,11 @@ import functools
 import io
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -147,8 +167,11 @@ from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.unet import UNet, flops_per_image  # noqa: E402
+from repro_torch.obs import (STAGES, load_trace, read_jsonl,  # noqa: E402
+                             validate_events)
 from repro_torch.serve import (AdmissionPolicy, EngineConfig,  # noqa: E402
-                               Request, ServeEngine, make_scheduler)
+                               ObsConfig, Request, ServeEngine,
+                               make_scheduler)
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 
 # Published H100 rates (NVIDIA data sheets; dense, no sparsity): memory
@@ -740,7 +763,9 @@ def phase_train(dev, card: str):
         return UNet(ucfg, seed=seed)
 
     t0 = time.perf_counter()
-    tr = CollaFuseTrainer(cfg, factory, device=dev, flops_per_call=fpi)
+    # obs on (phase 4e (d)): a train_round span a round and the loss gauges
+    tr = CollaFuseTrainer(cfg, factory, device=dev, flops_per_call=fpi,
+                          obs=ObsConfig())
     n_img = TRAIN_CLIENTS * TRAIN_BATCH
     print(f"[train] paper U-Net x {TRAIN_CLIENTS + 1} (server + "
           f"{TRAIN_CLIENTS} clients), {tr.plan.describe()}, cosine T={T}, "
@@ -793,6 +818,23 @@ def phase_train(dev, card: str):
         if not hist[-1][key] < hist[0][key]:
             raise AssertionError(f"{key} did not fall: {hist[0][key]} -> "
                                  f"{hist[-1][key]}")
+    spans = [e for e in tr.obs.tracer.events()
+             if e.get("ph") == "X" and e["name"] == "train_round"]
+    snap = tr.obs.registry.snapshot()
+    gauges = {k: snap[f"train_{k}"]["series"][0]["value"]
+              for k in ("server_loss", "client_loss_mean")}
+    span_ms = [round(e["dur"] / 1e3, 1) for e in spans]
+    rounds = [e["args"]["round"] for e in spans]
+    print(f"[obs] (d) trainer with obs on: {len(spans)} train_round spans "
+          f"for {len(hist)} rounds (rounds {rounds}, host ms {span_ms}), "
+          f"train_rounds_total "
+          f"{snap['train_rounds_total']['series'][0]['value']:.0f} | loss "
+          f"gauges {gauges} equal the last round's losses: "
+          f"{all(gauges[k] == hist[-1][k] for k in gauges)}", flush=True)
+    if rounds != list(range(len(hist))) or \
+            any(gauges[k] != hist[-1][k] for k in gauges):
+        raise AssertionError("train_round spans or loss gauges disagree "
+                             "with the rounds")
     profile_device("training round (batched)",
                    lambda: tr.train_round(batches[-1]), reps=1,
                    mode=contextlib.nullcontext)
@@ -1617,6 +1659,289 @@ def phase_host(dev, card: str, unet_ms: float):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: wave packing, its telemetry, and the observability stack
+# ---------------------------------------------------------------------------
+# the reference's hetero_packing gate (benchmarks/run.py) at T = 100 on 8
+# slots: every 3rd request a dense DDPM head taking the whole pool at cut
+# 0.2, between them batch-1 fillers rotating over these classes (the last
+# one registered in spare columns)
+PACK_FILLERS = [("ddim20", 0.2), ("ddim10", 0.8), ("ddim20", 0.8),
+                ("ddim7", 0.5)]
+PACK_REQUESTS = 12
+# obs_overhead's bound: ticks/s with obs on within 5 % of obs off
+OBS_TICKS_TOL = 0.05
+# the names the reference's engine publishes into its registry
+OBS_NAMES = ("serve_admitted_total", "serve_retired_total",
+             "serve_latency_ticks", "serve_windows_total",
+             "serve_ticks_total", "serve_active_lanes",
+             "serve_boundary_lag_ticks", "serve_fragmentation_free_lanes",
+             "serve_queue_depth", "serve_inflight_requests",
+             "serve_finish_batches_total", "serve_finish_lanes_total")
+SPAN_NAMES = ("admit", "dispatch", "launch", "sync_wait", "retire",
+              "finish_clients", "client_finish_dispatch",
+              "client_finish_sync")
+
+
+def pack_requests(salt: int, n: int = PACK_REQUESTS):
+    reqs, filler = [], 0
+    for i in range(n):
+        if i % 3 == 2:
+            smp, cut, batch = "ddpm", 0.2, 8
+        else:
+            smp, cut = PACK_FILLERS[filler % len(PACK_FILLERS)]
+            batch, filler = 1, filler + 1
+        reqs.append(Request(req_id=i, seed=salt * 1000 + i, batch=batch,
+                            cut_ratio=cut, sampler=smp))
+    return reqs
+
+
+def pack_engine(server, dev, pack: bool, image_shape=None):
+    """The mix's engine: FIFO (pack on or off), 8 slots, k = 4,
+    async_depth 2, cuda_masked, DDPM + DDIM K = 20 and 10 static, DDIM K = 7
+    registered into 8 spare columns."""
+    samplers = {"ddpm": make_sampler(T),
+                "ddim20": make_sampler(T, "ddim", 20, 0.0),
+                "ddim10": make_sampler(T, "ddim", 10, 0.0)}
+    eng = ServeEngine(EngineConfig(
+        sched=cosine_schedule(T), image_shape=image_shape or IMG, slots=8,
+        scheduler=make_scheduler("fifo", T, samplers=samplers, pack=pack),
+        step_backend="cuda_masked", samplers=samplers, ticks_per_dispatch=4,
+        async_depth=2, spare_columns=8, device=dev), server)
+    eng.register_sampler("ddim7", make_sampler(T, "ddim", 7, 0.0))
+    return eng
+
+
+def pack_schedule(res):
+    return res.summary["ticks"], {rid: (c.admit_tick, c.retire_tick)
+                                  for rid, c in res.completions.items()}
+
+
+class ScaleEps(torch.nn.Module):
+    """A one-parameter ε-model, ε̂ = w·x: the tiny model of the CPU serve."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.tensor(0.1))
+
+    def forward(self, x, t):
+        return self.w * x
+
+
+def pack_cpu_schedule():
+    """The same mix served on the CPU by a one-parameter model on 4x4
+    images, pack off and on: the schedule depends on the host alone."""
+    cpu = torch.device("cpu")
+    out = {}
+    for pack in (False, True):
+        res = pack_engine(ScaleEps(), cpu, pack, (4, 4, 1)).serve(
+            pack_requests(7))
+        out[pack] = pack_schedule(res)
+    return out
+
+
+def mix_text(s) -> str:
+    occ = ", ".join(f"{c}: {v}" for c, v in sorted(
+        s["occupancy_by_class"].items(), key=lambda kv: -kv[1]))
+    return (f"fragmentation_frac {s['fragmentation_frac']:.4f} | "
+            f"occupancy by class (lane-ticks) {occ}")
+
+
+def span_breakdown(events):
+    """{span name: [host ms of each span]} over the "X" events."""
+    out = {}
+    for e in events:
+        if e.get("ph") == "X":
+            out.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    return out
+
+
+def phase_obs(dev, card: str):
+    t_phase = time.perf_counter()
+    ucfg = UNetConfig()
+    server = UNet(ucfg, seed=0).to(dev).eval()
+    clients = [UNet(ucfg, seed=1 + c).to(dev).eval() for c in range(2)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    print(f"[obs] paper U-Net, 8 slots, cosine T={T}, k=4, async_depth 2, "
+          f"cuda_masked, lane noise drawn on the card | {card} | files "
+          f"under a temporary directory", flush=True)
+
+    # (a) the heterogeneous mix, pack off then on, one engine each: a
+    # warm-up that captures the window kind, the sampler registered again,
+    # then the measured serve; the CPU serve of the same mix first
+    t0 = time.perf_counter()
+    cpu = pack_cpu_schedule()
+    print(f"[obs] (a) the mix on the CPU (a one-parameter model, 4x4): "
+          f"ticks pack "
+          f"off {cpu[False][0]}, on {cpu[True][0]}: predicted ticks-to-drain "
+          f"{cpu[False][0] / cpu[True][0]:.3f}x "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    runs = {}
+    for pack in (False, True):
+        eng = pack_engine(server, dev, pack)
+        eng.serve(pack_requests(3)[:2])
+        captures, copies = eng.captures, eng.h2d_copies
+        eng.register_sampler("ddim7", make_sampler(T, "ddim", 7, 0.0))
+        ops.reset_launch_counts()
+        res = eng.serve(pack_requests(7))
+        counts = ops.launch_counts()
+        s = res.summary
+        runs[pack] = res
+        same_cpu = pack_schedule(res) == cpu[pack]
+        print(f"[obs] (a) pack {'on' if pack else 'off'}: {s['ticks']} ticks "
+              f"in {s['windows']} windows, wall {res.wall_s:.3f}s, "
+              f"{s['ticks_per_s']:.2f} ticks/s, {s['images_per_s']:.3f} "
+              f"images/s ({s['images']} images) | {mix_text(s)} | "
+              f"traj_masked_step {counts['traj_masked_step']}, lane_noise "
+              f"{counts['lane_noise']} launches, host-to-device copies "
+              f"{eng.h2d_copies - copies}, captures {captures} before, "
+              f"{eng.captures} after | ticks and every admit and retire "
+              f"tick equal the CPU serve's: {same_cpu}", flush=True)
+        if eng.captures != captures:
+            raise AssertionError("the measured serve captured a graph")
+        if counts["traj_masked_step"] != s["ticks"] or \
+                counts["lane_noise"] != 5 * s["windows"]:
+            raise AssertionError("launches are not one step a tick and "
+                                 "k + 1 draws a window")
+        if not same_cpu:
+            raise AssertionError(f"pack={pack}: the schedule differs from "
+                                 "the CPU serve of the same mix")
+        eng.close()
+    off, on = runs[False], runs[True]
+    diff = [rid for rid in off.completions
+            if not np.array_equal(off.completions[rid].x_mid,
+                                  on.completions[rid].x_mid)]
+    so, sn = off.summary, on.summary
+    print(f"[obs] (a) pack on vs off: x_mid bitwise for every request "
+          f"{not diff and set(off.completions) == set(on.completions)} | "
+          f"ticks-to-drain {so['ticks'] / sn['ticks']:.3f}x, images/s "
+          f"{sn['images_per_s'] / so['images_per_s']:.3f}x", flush=True)
+    if diff or set(off.completions) != set(on.completions):
+        raise AssertionError(f"pack on differs from pack off at requests "
+                             f"{diff}")
+
+    # (b) obs off against obs on, phase 4d (c)'s traffic streamed, in turns
+    # off, on, on, off on two warm engines
+    trace = os.path.join(tmp, "trace.json")
+    jsonl = os.path.join(tmp, "metrics.jsonl")
+    warm = [Request(req_id=i, seed=i, cut_ratio=0.75, sampler="ddim")
+            for i in range(2)]
+    engs = {False: host_engine(server, dev, 4, 2, "stream"),
+            True: host_engine(server, dev, 4, 2, "stream", obs=ObsConfig(
+                trace_path=trace, metrics_path=jsonl, metrics_every=4))}
+    for eng in engs.values():
+        eng.serve(warm, clients)
+    res_b, rates, deltas = {}, {False: [], True: []}, {}
+    for on_ in (False, True, True, False):
+        eng = engs[on_]
+        if on_:
+            eng.obs.tracer.clear()
+            if os.path.exists(jsonl):
+                os.remove(jsonl)
+        captures, copies = eng.captures, eng.h2d_copies
+        ops.reset_launch_counts()
+        res = eng.serve(host_requests(), clients)
+        counts = ops.launch_counts()
+        if counts["traj_masked_step"] == 0 or counts["lane_noise"] == 0:
+            raise AssertionError("a kernel of the path never launched")
+        rates[on_].append(res.summary["ticks_per_s"])
+        deltas.setdefault(on_, []).append(
+            (eng.captures - captures,
+             (eng.h2d_copies - copies) / res.summary["windows"]))
+        res_b.setdefault(on_, res)
+    b_off, b_on = res_b[False], res_b[True]
+    same = bitwise(b_on, b_off) and set(b_on.completions) == set(
+        b_off.completions) and b_on.decisions == b_off.decisions
+    for key in ("ticks", "windows", "utilization_mean"):
+        same = same and b_on.summary[key] == b_off.summary[key]
+    events = load_trace(trace)
+    n_ev = validate_events(events)
+    spans = span_breakdown(events)
+    n_dispatch = len(spans.get("dispatch", []))
+    stages_ok = all(
+        [e["stage"] for e in tl] == sorted(
+            (e["stage"] for e in tl), key=STAGES.index)
+        and tl[-1]["stage"] == "client_finished"
+        for tl in b_on.timelines.values())
+    lines = read_jsonl(jsonl)
+    names_ok = all(n in lines[-1]["metrics"] for n in OBS_NAMES)
+    r_off, r_on = float(np.mean(rates[False])), float(np.mean(rates[True]))
+    print(f"[obs] (b) obs off vs on ({b_on.summary['ticks']} ticks in "
+          f"{b_on.summary['windows']} windows, streamed finisher): "
+          f"completions, decisions, ticks and utilization bitwise {same} | "
+          f"ticks/s off {rates[False][0]:.3f} / {rates[False][1]:.3f}, on "
+          f"{rates[True][0]:.3f} / {rates[True][1]:.3f} (in turns: off, on, "
+          f"on, off): on/off {r_on / r_off:.4f} (bound {1 - OBS_TICKS_TOL}) "
+          f"| captures and copies a window, off {deltas[False]}, on "
+          f"{deltas[True]}", flush=True)
+    print(f"[obs] (b) trace: {n_ev} events, valid; dispatch spans "
+          f"{n_dispatch} for {b_on.summary['windows']} windows | "
+          f"{len(b_on.timelines)} timelines in stage order ending "
+          f"client_finished: {stages_ok} | JSON-lines: {len(lines)} "
+          f"snapshots, the reference's instrument names present: "
+          f"{names_ok}", flush=True)
+    print("[obs] (b) host time by span over the obs-on serve (the host's "
+          "clock only: 'dispatch' is planning, staging the one copy and "
+          "replaying the graph, not the window's device time, which with "
+          "async_depth 2 shows in 'sync_wait' at a later boundary; "
+          "'launch' is the replay's call inside 'dispatch'; "
+          "'client_finish_*' nest inside 'finish_clients'):", flush=True)
+    wall_ms = b_on.wall_s * 1e3
+    for name in SPAN_NAMES:
+        d = np.asarray(spans.get(name, [0.0]))
+        print(f"[obs]   {name:24s} {d.sum():10.3f} ms in "
+              f"{len(spans.get(name, [])):4d} spans (median "
+              f"{np.median(d):8.3f} ms, max {d.max():8.3f} ms; "
+              f"{d.sum() / wall_ms:6.1%} of the {wall_ms:.1f} ms serve)",
+              flush=True)
+    if not same:
+        raise AssertionError("obs on differs from obs off")
+    if n_dispatch != b_on.summary["windows"] or any(
+            n not in spans for n in
+            ("sync_wait", "retire", "admit", "finish_clients")):
+        raise AssertionError("the trace lacks a dispatch span a window or a "
+                             "host-loop span")
+    if not stages_ok or not names_ok:
+        raise AssertionError("timelines out of order or registry names "
+                             "missing")
+    if len(set(deltas[False] + deltas[True])) != 1:
+        raise AssertionError("obs changed the captures or the copies a "
+                             "window")
+    if r_on < (1 - OBS_TICKS_TOL) * r_off:
+        raise AssertionError(f"obs on costs more than {OBS_TICKS_TOL:.0%} "
+                             "ticks/s")
+    engs[True].close()
+
+    # (c) torch.profiler over the first 4 windows of each serve: its
+    # warm-up serve captures the window's graph under the profiler
+    pdir = os.path.join(tmp, "profile")
+    eng = host_engine(server, dev, 4, 2, "stream", obs=ObsConfig(
+        trace=False, profile_dir=pdir, profile_windows=4))
+    eng.serve(warm, clients)
+    res_c = eng.serve(host_requests(), clients)
+    same_c = bitwise(res_c, b_off) and set(res_c.completions) == set(
+        b_off.completions)
+    named = {}
+    for name in sorted(os.listdir(pdir)):
+        with open(os.path.join(pdir, name)) as f:
+            text = f.read()
+        named[name] = (len(text), "traj_masked_step" in text,
+                       "lane_noise" in text)
+    print(f"[obs] (c) profile_windows 4: bitwise (b)'s obs-off run "
+          f"{same_c} | profiles (bytes, names traj_masked_step, names "
+          f"lane_noise): {named}", flush=True)
+    if not same_c or len(named) != 2 or not all(
+            a and b for _, a, b in named.values()):
+        raise AssertionError("the profiled run differs, or a profile does "
+                             "not name both kernels")
+    eng.close()
+    engs[False].close()
+    del server, clients, eng, engs
+    torch.cuda.empty_cache()
+    print(f"[obs] phase wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: flash_attention at one Yi-6B layer's prefill shape
 # ---------------------------------------------------------------------------
 def attention_bound_ms(q, k, v, window, card):
@@ -2176,6 +2501,7 @@ def main():
     phase_train(dev, card)
     g = phase_guided(dev, card, unet_ms)
     noise_rows = phase_host(dev, card, unet_ms)
+    phase_obs(dev, card)
     lm_counts = phase_lm(dev, card)
     hybrid_counts = phase_hybrid(dev, card)
     # the step kernels' launches on this slice's path, guided and gated

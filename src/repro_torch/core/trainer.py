@@ -31,9 +31,11 @@ client, role) (``collafuse.TrainDraws``), so both engines see the same
 draws by construction.  Parameters are ``{name: tensor}`` dicts on the
 trainer's device; ``model_factory(seed) -> nn.Module`` supplies the
 backbone (built on the CPU, its parameters copied to the device; the module
-itself stays the CPU template ``functional_call`` runs).  The reference's
-``obs`` hooks wait for the port of ``repro.obs``; its ``mesh`` has no
-counterpart on one card.
+itself stays the CPU template ``functional_call`` runs).  ``obs``
+(:mod:`repro_torch.obs`) makes each round a ``train_round`` span and
+publishes ``train_rounds_total`` and the round's losses; the losses are
+host floats already, so it adds no device sync.  The reference's ``mesh``
+has no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.diffusion.backend import get_backend
 from repro_torch.diffusion.sampler import make_sampler
 from repro_torch.diffusion.schedule import DiffusionSchedule, get_schedule
+from repro_torch.obs import resolve_obs
 from repro_torch.optim import adamw
 
 
@@ -91,9 +94,12 @@ class CollaFuseTrainer:
                  model_factory: Callable[[int], torch.nn.Module],
                  device: DeviceLike = "cuda",
                  flops_per_call: Optional[float] = None,
-                 draws: Any = None):
+                 draws: Any = None, obs=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # None (off), an ObsConfig, or an Observability shared with an
+        # engine
+        self.obs = resolve_obs(obs)
         if cfg.num_classes < 0:
             raise ValueError("num_classes must be >= 0")
         if not 0.0 <= cfg.label_drop < 1.0:
@@ -273,15 +279,29 @@ class CollaFuseTrainer:
         else:
             labels = None
         uniform = len({tuple(b.shape) for b in batches}) == 1
-        if self.cfg.batched and uniform:
-            metrics = self._train_round_batched(batches, labels)
-        else:
-            # ragged batches cannot stack on a client axis: the looped
-            # engine pools them by concatenation (same results)
-            metrics = self._train_round_looped(batches, labels)
+        rnd = len(self.metrics_history)
+        with self.obs.tracer.span("train_round", cat="train", round=rnd):
+            if self.cfg.batched and uniform:
+                metrics = self._train_round_batched(batches, labels)
+            else:
+                # ragged batches cannot stack on a client axis: the looped
+                # engine pools them by concatenation (same results)
+                metrics = self._train_round_looped(batches, labels)
         metrics.update(collafuse.flops_split(self.plan, self.flops_per_call,
                                              batches[0].shape[0]))
         self.metrics_history.append(metrics)
+        if self.obs:
+            reg = self.obs.registry
+            reg.counter("train_rounds_total",
+                        "protocol rounds completed").inc()
+            if "server_loss" in metrics:
+                reg.gauge("train_server_loss",
+                          "shared-backbone loss, last round"
+                          ).set(metrics["server_loss"])
+            if "client_loss_mean" in metrics:
+                reg.gauge("train_client_loss_mean",
+                          "mean private-model loss, last round"
+                          ).set(metrics["client_loss_mean"])
         return metrics
 
     def _train_round_batched(self, batches, labels) -> Dict:

@@ -9,7 +9,9 @@ card (counterpart of ``repro/launch/serve.py``)::
 Each request wave is a batch of random prompts.  The service fills a fresh
 KV cache by chaining ``decode_step`` over the prompt positions, as the
 reference does, takes the first new token by argmax, and then decodes the
-rest, sampling each token from the logits with a ``torch.Generator``.
+rest, sampling each token from the logits with a ``torch.Generator``.  ``--trace-out`` exports a
+Chrome trace with a ``prefill`` and a ``decode`` span a request; each span
+ends after the device is synchronized, so it covers the device's work.
 ``--reduced`` (the default, as in the reference) serves the config's tiny
 member; ``--no-reduced`` serves it at full width and depth.  Weights are
 random, drawn from ``--seed``.  The default device is CUDA; without a card
@@ -30,6 +32,9 @@ def _parse_args(argv=None):
     ap.add_argument("--tokens", type=int, default=8)
     ap.add_argument("--window", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-out", default="",
+                    help="export a Chrome trace-event JSON with one span "
+                         "per prefill and decode wave (Perfetto-loadable)")
     return ap.parse_args(argv)
 
 
@@ -46,8 +51,11 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.launch.steps import make_decode_step
     from repro_torch.models import transformer as tf
+    from repro_torch.obs import NULL_TRACER, Tracer
 
     device = resolve_device(args.device)
+    tracer = Tracer(process_name="llm-serve") if args.trace_out \
+        else NULL_TRACER
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -72,19 +80,25 @@ def main(argv=None):
                               device=device)
         sync()
         t0 = time.perf_counter()
-        for pos in range(s):            # fill the cache, one position a step
-            logits, cache = decode(params, cache,
-                                   {"tokens": prompts[:, pos:pos + 1]}, pos)
-        last = logits[:, -1]
-        sync()
+        with tracer.span("prefill", cat="llm", request=req, batch=b,
+                         prompt_len=s):
+            for pos in range(s):        # fill the cache, a position a step
+                logits, cache = decode(params, cache,
+                                       {"tokens": prompts[:, pos:pos + 1]},
+                                       pos)
+            last = logits[:, -1]
+            sync()
         t_prefill = time.perf_counter() - t0
         tok = torch.argmax(last, dim=-1)[:, None]
         t0 = time.perf_counter()
-        for i in range(args.tokens - 1):
-            logits, cache = decode(params, cache, {"tokens": tok}, s + i)
-            probs = torch.softmax(logits[:, -1].to(torch.float32), dim=-1)
-            tok = torch.multinomial(probs, 1, generator=gen)
-        sync()
+        with tracer.span("decode", cat="llm", request=req,
+                         tokens=args.tokens):
+            for i in range(args.tokens - 1):
+                logits, cache = decode(params, cache, {"tokens": tok}, s + i)
+                probs = torch.softmax(logits[:, -1].to(torch.float32),
+                                      dim=-1)
+                tok = torch.multinomial(probs, 1, generator=gen)
+            sync()
         t_dec = time.perf_counter() - t0
         if not bool(torch.isfinite(logits).all()):
             raise RuntimeError(f"request {req}: non-finite logits")
@@ -95,6 +109,10 @@ def main(argv=None):
         print(f"request {req}: prefill {b}x{s} {t_prefill:.2f}s | "
               f"decode {steps} steps x {b} {t_dec:.2f}s ({tok_s:.1f} tok/s)",
               flush=True)
+    if args.trace_out:
+        tracer.export(args.trace_out)
+        print(f"wrote trace {args.trace_out} "
+              f"({len(tracer.events())} events)", flush=True)
     print("serving loop OK", flush=True)
     return stats
 

@@ -11,6 +11,8 @@ serving engine, then finishes every request on its client's private model::
         --guidance 1.5 --min-kid 0.5 --calib 16   # guided, KID-gated
     python -m repro_torch.launch.serve_diffusion --ticks-per-dispatch 4 \
         --async-depth 2 --finish-async-depth 2 --spare-columns 32 --mix
+    python -m repro_torch.launch.serve_diffusion --mix --pack \
+        --trace-out trace.json --metrics-out metrics.jsonl
 
 ``--config paper`` is the paper's U-Net (128x128x1, base 64, mults
 (1,2,4,8), 2 res blocks, attention at 16); ``--config launcher`` is the
@@ -23,8 +25,13 @@ images.  ``--async-depth`` windows are in flight; the client segment streams
 (``--finish-mode stream``, the default) or drains after the server loop;
 ``--spare-columns`` leaves room for an ad-hoc ``dyn`` sampler, registered
 between the warm-up and the measured serve without a new graph capture.
-The default device is CUDA; without a card the launcher raises unless
-``--device cpu`` is given.
+``--pack`` turns on wave packing and the launcher prints the slot pool's
+fragmentation and occupancy by class.  ``--trace-out`` exports the
+measured serve's Chrome trace (host-loop spans, one track a request),
+``--metrics-out`` appends registry snapshots every ``--metrics-every``
+windows, and ``--profile-dir`` writes a ``torch.profiler`` trace of each
+serve's first ``--profile-windows`` windows.  The default device is CUDA;
+without a card the launcher raises unless ``--device cpu`` is given.
 """
 import argparse
 import dataclasses
@@ -71,6 +78,11 @@ def _parse_args(argv=None):
                     help="requests cycle over the whole menu (dense ddpm + "
                          "a strided ddim, + ddpm_g under --guidance) instead "
                          "of one --sampler")
+    ap.add_argument("--pack", action="store_true",
+                    help="wave packing in the scheduler: same-(sampler, "
+                         "cut, guidance) candidates behind the head fill "
+                         "each window's freed slots (admission order "
+                         "changes, completions are bitwise the same)")
     ap.add_argument("--min-kid", type=float, default=None,
                     help="KID-gated admission floor: each request's "
                          "disclosure is scored on a calibration batch before "
@@ -113,6 +125,20 @@ def _parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default="",
                     help="write the serve summary to this path")
+    ap.add_argument("--trace-out", default="",
+                    help="export a Chrome trace-event JSON of the host "
+                         "loop's spans and one track a request (load in "
+                         "chrome://tracing or ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default="",
+                    help="append registry snapshots (JSON-lines) every "
+                         "--metrics-every windows")
+    ap.add_argument("--metrics-every", type=int, default=1,
+                    help="snapshot cadence in windows for --metrics-out")
+    ap.add_argument("--profile-dir", default="",
+                    help="write a torch.profiler trace of each serve's "
+                         "first --profile-windows windows into this "
+                         "directory")
+    ap.add_argument("--profile-windows", type=int, default=4)
     return ap.parse_args(argv)
 
 
@@ -135,9 +161,9 @@ def main(argv=None):
     from repro_torch.diffusion.sampler import make_sampler
     from repro_torch.diffusion.schedule import cosine_schedule
     from repro_torch.models.unet import UNet
-    from repro_torch.serve import (AdmissionPolicy, EngineConfig, Request,
-                                   ServeEngine, make_scheduler,
-                                   serve_sequential)
+    from repro_torch.serve import (AdmissionPolicy, EngineConfig,
+                                   ObsConfig, Request, ServeEngine,
+                                   make_scheduler, serve_sequential)
 
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -180,7 +206,7 @@ def main(argv=None):
           f"backend={args.step_backend} sampler={traffic} "
           f"k={args.ticks_per_dispatch} async_depth={args.async_depth} "
           f"finish={args.finish_mode}/{args.finish_async_depth} "
-          f"spare_columns={args.spare_columns} "
+          f"spare_columns={args.spare_columns} pack={args.pack} "
           f"num_classes={args.num_classes} guidance={args.guidance} "
           f"min_kid={args.min_kid}", flush=True)
 
@@ -207,17 +233,25 @@ def main(argv=None):
         admission = AdmissionPolicy(sched, calib_sets[0].to(device),
                                     min_kid=args.min_kid, samplers=samplers)
 
+    obs = None
+    if args.trace_out or args.metrics_out or args.profile_dir:
+        obs = ObsConfig(trace_path=args.trace_out or None,
+                        metrics_path=args.metrics_out or None,
+                        metrics_every=args.metrics_every,
+                        profile_dir=args.profile_dir or None,
+                        profile_windows=args.profile_windows)
     cfg = EngineConfig(
         sched=sched, image_shape=(ucfg.image_size, ucfg.image_size,
                                   ucfg.in_channels),
         slots=args.slots,
-        scheduler=make_scheduler(args.policy, args.T, samplers=samplers),
+        scheduler=make_scheduler(args.policy, args.T, samplers=samplers,
+                                 pack=args.pack),
         step_backend=args.step_backend, samplers=samplers,
         ticks_per_dispatch=args.ticks_per_dispatch,
         async_depth=args.async_depth, finish_mode=args.finish_mode,
         finish_async_depth=args.finish_async_depth,
         spare_columns=args.spare_columns, device=device,
-        num_classes=args.num_classes, admission=admission)
+        num_classes=args.num_classes, admission=admission, obs=obs)
     eng = ServeEngine(cfg, server)
     if dyn_sampler is not None:
         eng.register_sampler("dyn", dyn_sampler)
@@ -255,6 +289,12 @@ def main(argv=None):
     print(f"flops: server {s['server_flops']:.3g} client "
           f"{s['client_flops']:.3g} (client_fraction "
           f"{s['client_fraction']:.3f})", flush=True)
+    if "fragmentation_frac" in s:
+        top = ", ".join(f"{c}:{v}" for c, v in sorted(
+            s["occupancy_by_class"].items(), key=lambda kv: -kv[1])[:4])
+        print(f"slot pool (pack={args.pack}): fragmentation_frac "
+              f"{s['fragmentation_frac']:.4f} | occupancy by class "
+              f"(lane-ticks): {top}", flush=True)
     if admission is not None:
         a = s["admission"]
         dk = a.get("disclosure_kid", {})
@@ -269,6 +309,18 @@ def main(argv=None):
     for comp in res.completions.values():
         assert comp.x0 is not None and np.isfinite(comp.x0).all(), \
             f"non-finite output for request {comp.request.req_id}"
+    if res.timelines:
+        rid = min(res.timelines)
+        print(f"request {rid} lifecycle: " + " -> ".join(
+            f"{e['stage']}@t{e['tick']}" if "tick" in e else e["stage"]
+            for e in res.timelines[rid]), flush=True)
+    if args.trace_out:
+        print(f"wrote trace {args.trace_out} "
+              f"({len(eng.obs.tracer.events())} events)", flush=True)
+    if args.metrics_out:
+        print(f"wrote metrics {args.metrics_out}", flush=True)
+    if args.profile_dir:
+        print(f"wrote profiles into {args.profile_dir}", flush=True)
     if args.compare_sequential:
         seq_cfg = dataclasses.replace(cfg, samplers=dict(eng.samplers))
         serve_sequential(seq_cfg, requests[:1], server, clients)   # warm

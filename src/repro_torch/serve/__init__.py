@@ -1,4 +1,7 @@
-"""Continuous-batching CollaFuse serving: the stable surface."""
+"""Continuous-batching CollaFuse serving: the stable surface.  Observability
+(:mod:`repro_torch.obs`) is re-exported here, so serve callers need one
+import: ``EngineConfig(obs=ObsConfig(...))``."""
+from repro_torch.obs import NULL_OBS, Observability, ObsConfig
 from repro_torch.serve.admission import AdmissionDecision, AdmissionPolicy
 from repro_torch.serve.engine import (Completion, EngineConfig, ServeEngine,
                                       ServeResult, serve_sequential)
@@ -8,6 +11,7 @@ from repro_torch.serve.scheduler import (CutRatioScheduler, FIFOScheduler,
                                          Request, make_scheduler)
 
 __all__ = ["AdmissionDecision", "AdmissionPolicy", "Completion",
-           "CutRatioScheduler", "EngineConfig", "FIFOScheduler", "Request",
-           "ServeEngine", "ServeMetrics", "ServeResult", "admission_summary",
+           "CutRatioScheduler", "EngineConfig", "FIFOScheduler", "NULL_OBS",
+           "Observability", "ObsConfig", "Request", "ServeEngine",
+           "ServeMetrics", "ServeResult", "admission_summary",
            "finish_summary", "make_scheduler", "serve_sequential"]

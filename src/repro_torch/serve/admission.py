@@ -49,6 +49,7 @@ from repro_torch.diffusion.backend import BackendLike
 from repro_torch.diffusion.sampler import (Sampler, assert_same_menu,
                                            sample_trajectory)
 from repro_torch.diffusion.schedule import DiffusionSchedule
+from repro_torch.obs.trace import NULL_TRACER
 
 ADMIT, BUMP, REJECT = "admit", "bump", "reject"
 # the noise seed of every calibration chain (the reference's PRNGKey(4242))
@@ -146,6 +147,9 @@ class AdmissionPolicy:
         self.model_calls = 0
         self.cache_hits = 0
         self.score_s = 0.0
+        # the engine attaches its tracer, so cache FILLS (the model work,
+        # not the cache hits) show as spans on the serve timeline
+        self.tracer = NULL_TRACER
 
     # ------------------------------------------------------------------
     def _same_outputs(self, a, b, *args) -> bool:
@@ -233,6 +237,7 @@ class AdmissionPolicy:
         p._kid_cache = self._kid_cache            # shared, floor-independent
         p._chains = self._chains
         p.params_version = self.params_version
+        p.tracer = self.tracer
         return p
 
     def release_chains(self) -> None:
@@ -272,7 +277,9 @@ class AdmissionPolicy:
         smp = self.samplers[sampler_name]
         assert 0 <= pos <= smp.K, (pos, smp.K)
         t0 = time.perf_counter()
-        with torch.inference_mode():
+        with self.tracer.span("admission_score", cat="admission",
+                              sampler=sampler_name, pos=int(pos)), \
+                torch.inference_mode():
             self._extend_chain(sampler_name, smp, ck[2], int(pos))
         self.score_s += time.perf_counter() - t0   # each score syncs
         return self._kid_cache[ck]

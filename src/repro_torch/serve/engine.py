@@ -46,6 +46,21 @@
 * ``spare_columns`` preallocates identity columns in the coefficient table;
   :meth:`ServeEngine.register_sampler` writes an ad-hoc sampler into them
   in place, and the captured graphs serve it without a new capture.
+* A scheduler built with ``pack=True`` admits step-homogeneous WAVES (same
+  sampler, cut and guidance behind the head of the order).  Before each
+  dispatch the engine reports the window's class mix
+  (``"<sampler>@<effective cut>@<w>"`` lanes), its free lanes and whether
+  arrived demand waited, from the host's lane state:
+  ``fragmentation_frac`` and ``occupancy_by_class`` in the summary.
+* ``EngineConfig.obs`` (:mod:`repro_torch.obs`) adds host-loop spans
+  (``admit``, ``dispatch`` with the graph's ``launch`` inside it,
+  ``sync_wait``, ``retire``, ``finish_clients``),
+  a live metrics registry snapshotted to JSON-lines, per-request
+  timelines and ``torch.profiler`` windows.  Spans take the host's clock:
+  ``dispatch`` is the host's time to plan, stage and launch a window, and
+  the window's device time shows in the ``sync_wait`` of the boundary that
+  waits for it.  Obs off is the default and costs nothing; obs on reads no
+  device value and changes no launch, copy or capture.
 
 Noise: lane i of a request draws ``source(seed, i, role, step)`` — x_T with
 role "init", server steps "server", client steps "client", keyed by the
@@ -57,7 +72,7 @@ a batched form (``InjectedNoise``, ``lane_normal``) is drawn on the host and
 staged, one more copy a window.  A guided pair's shadow lane steps with its
 primary's draw.
 
-Waiting for later slices: wave packing, pod mode and observability.
+Waiting for a later slice: pod mode.
 """
 from __future__ import annotations
 
@@ -83,6 +98,7 @@ from repro_torch.diffusion.sampler import (Sampler, assert_same_menu,
                                            default_samplers)
 from repro_torch.diffusion.schedule import DiffusionSchedule
 from repro_torch.kernels import ops
+from repro_torch.obs import NULL_OBS, Observability, ObsConfig, resolve_obs
 from repro_torch.serve.admission import AdmissionDecision, AdmissionPolicy
 from repro_torch.serve.metrics import ServeMetrics, finish_summary
 from repro_torch.serve.scheduler import FIFOScheduler, Request
@@ -110,6 +126,8 @@ class ServeResult:
     # requests appear here and not in completions
     decisions: Dict[int, AdmissionDecision] = \
         dataclasses.field(default_factory=dict)
+    # per-request lifecycle records (empty unless obs timelines are on)
+    timelines: Dict[int, List[Dict]] = dataclasses.field(default_factory=dict)
 
     @property
     def rejected(self) -> Dict[int, AdmissionDecision]:
@@ -137,7 +155,9 @@ class EngineConfig:
     ``num_classes`` is the null one) and requests may name guided
     samplers.  ``admission`` is an optional KID gate, calibrated for the
     same T; the engine binds its server model and menu into it and shares
-    it with the scheduler.
+    it with the scheduler.  ``obs`` is None (off, the default), an
+    :class:`~repro_torch.obs.ObsConfig` or a shared
+    :class:`~repro_torch.obs.Observability`.
     """
 
     sched: DiffusionSchedule
@@ -157,8 +177,14 @@ class EngineConfig:
     device: Any = "cuda"
     num_classes: int = 0
     admission: Optional[AdmissionPolicy] = None
+    obs: Any = None
 
     def __post_init__(self):
+        if self.obs is not None and not (
+                isinstance(self.obs, (ObsConfig, Observability))
+                or self.obs is NULL_OBS):
+            raise TypeError(f"obs must be None, ObsConfig or Observability; "
+                            f"got {type(self.obs).__name__}")
         object.__setattr__(self, "image_shape", tuple(self.image_shape))
         if self.slots < 1:
             raise ValueError(f"slots={self.slots} must be >= 1")
@@ -291,10 +317,12 @@ class _FinishPipeline:
 
     def __init__(self, engine: "ServeEngine",
                  client_models: Sequence[torch.nn.Module],
-                 source: NoiseSource):
+                 source: NoiseSource, metrics: ServeMetrics):
         self._eng = engine
         self._models = client_models
         self._source = source
+        self._metrics = metrics
+        self._tracer = engine.obs.tracer
         self._depth = engine.finish_async_depth
         self._wave_lanes = 2 * engine.slots
         self._ready: Dict[tuple, List] = {}     # class -> [(steps, comp)]
@@ -328,41 +356,54 @@ class _FinishPipeline:
         return taken
 
     def _dispatch(self, comps: List[Completion]) -> None:
-        self._pending.append(self._eng._launch_finish(comps, self._models,
-                                                      self._source))
+        lanes = sum(c.request.batch for c in comps)
+        with self._tracer.span("client_finish_dispatch",
+                               requests=len(comps), lanes=lanes):
+            self._pending.append(self._eng._launch_finish(
+                comps, self._models, self._source))
         self.batches += 1
-        self.lanes += sum(c.request.batch for c in comps)
+        self.lanes += lanes
+        self._metrics.on_finish_dispatch(len(comps), lanes)
+
+    def _collect(self) -> None:
+        fin = self._pending.popleft()
+        with self._tracer.span("client_finish_sync",
+                               lanes=len(fin.placement)):
+            self._eng._collect_finish(fin)
 
     def flush(self, queue_drained: bool = False) -> None:
         if not self._ready and not self._pending:
             return
         t0 = time.perf_counter()
-        while self._pending and self._pending[0].ready():
-            self._eng._collect_finish(self._pending.popleft())
-        floor = self._wave_lanes // 2 if queue_drained else self._wave_lanes
-        for key in [k for k, n in self._staged.items() if n >= floor]:
-            self._dispatch(self._take_wave(key))
-            while len(self._pending) >= self._depth:
-                self._eng._collect_finish(self._pending.popleft())
+        with self._tracer.span("finish_clients", mode="stream"):
+            while self._pending and self._pending[0].ready():
+                self._collect()
+            floor = self._wave_lanes // 2 if queue_drained \
+                else self._wave_lanes
+            for key in [k for k, n in self._staged.items() if n >= floor]:
+                self._dispatch(self._take_wave(key))
+                while len(self._pending) >= self._depth:
+                    self._collect()
         self.host_s += time.perf_counter() - t0
 
     def drain(self) -> None:
         if not self._ready and not self._pending:
             return
         t0 = time.perf_counter()
-        rest = sorted((item for b in self._ready.values() for item in b),
-                      key=lambda sc: -sc[0])
-        self._ready.clear()
-        self._staged.clear()
-        while rest:
-            comps, lanes = [], 0
-            while rest and lanes < self._wave_lanes:
-                _, comp = rest.pop(0)
-                comps.append(comp)
-                lanes += comp.request.batch
-            self._dispatch(comps)
-        while self._pending:
-            self._eng._collect_finish(self._pending.popleft())
+        with self._tracer.span("finish_clients", mode="stream", tail=True):
+            rest = sorted((item for b in self._ready.values() for item in b),
+                          key=lambda sc: -sc[0])
+            self._ready.clear()
+            self._staged.clear()
+            while rest:
+                comps, lanes = [], 0
+                while rest and lanes < self._wave_lanes:
+                    _, comp = rest.pop(0)
+                    comps.append(comp)
+                    lanes += comp.request.batch
+                self._dispatch(comps)
+            while self._pending:
+                self._collect()
         dt = time.perf_counter() - t0
         self.host_s += dt
         self.tail_s += dt
@@ -420,6 +461,12 @@ class ServeEngine:
             assert_same_menu(self.scheduler.samplers, self.samplers,
                              "scheduler", "engine")
         self._bind_admission(cfg.admission)
+        # observability, resolved once: NULL_OBS (falsy, every pillar a
+        # cached no-op) when cfg.obs is None
+        self.obs = resolve_obs(cfg.obs)
+        if self.admission is not None:
+            self.admission.tracer = self.obs.tracer
+        self.scheduler.registry = self.obs.registry if self.obs else None
         # the sampler menu as data: every trajectory's (5, K) table
         # concatenated column-wise on the device (gathered per lane by
         # column), then the spare identity columns (c_eps 0, ar 1, σ 0,
@@ -825,7 +872,8 @@ class ServeEngine:
                               non_blocking=True)
             self.h2d_copies += 1
         guided = bool((lanes.pair != np.arange(self.slots)).any())
-        self._run_window(guided, source if batched else None)
+        with self.obs.tracer.span("launch", start_tick=start):
+            self._run_window(guided, source if batched else None)
         rows = None
         if emit.size:
             rows = _host_buffer((emit.size,) + self.image_shape,
@@ -841,8 +889,9 @@ class ServeEngine:
                      metrics) -> None:
         """Wait for one window's rows on the host and retire it."""
         done_seq, emit, rows, event, start, n_active = win
-        if event is not None:
-            event.synchronize()
+        with self.obs.tracer.span("sync_wait", start_tick=start):
+            if event is not None:
+                event.synchronize()
         host_rows = {} if rows is None else dict(zip(emit.tolist(),
                                                      rows.numpy()))
         self._retire(done_seq, self._x, start, n_active, inflight, lanes,
@@ -855,7 +904,9 @@ class ServeEngine:
         boundary lag, free every finished lane, and close requests whose
         last lane retired.  ``x`` is the slot array, where a lane finished
         in this window holds its cut until it is freed here.  A shadow lane
-        frees its slot but emits nothing: a pair is one image."""
+        frees its slot but emits nothing: a pair is one image.  A request's
+        exact finish tick (the timeline's ``exact_tick``) is the latest of
+        its lanes' first done ticks in the host's plan."""
         del x                     # the retirement reads ``rows``
         k = done_seq.shape[0]
         boundary = start + k
@@ -864,21 +915,27 @@ class ServeEngine:
         if not done.size:
             return
         first = done_seq.argmax(axis=0)           # first done tick per lane
-        for lane in done.tolist():
-            rec = inflight[int(lanes.req[lane])]
-            if lane in rows:
-                metrics.on_boundary_lag(int(k - 1 - first[lane]))
-                rec["x_mid"][int(lanes.img[lane])] = rows[lane]
-            rec["remaining"] -= 1
-            if rec["remaining"] == 0:
-                r = rec["request"]
-                del inflight[r.req_id]
-                metrics.on_retire(r.req_id, boundary)
-                completions[r.req_id] = Completion(
-                    request=r, x_mid=rec["x_mid"],
-                    admit_tick=rec["admit_tick"], retire_tick=boundary)
-                self.scheduler.notify_retired(r, boundary)
-            lanes.free(lane, self.num_classes)
+        with self.obs.tracer.span("retire", start_tick=start,
+                                  lanes=int(done.size)):
+            for lane in done.tolist():
+                rec = inflight[int(lanes.req[lane])]
+                if lane in rows:
+                    metrics.on_boundary_lag(int(k - 1 - first[lane]))
+                    rec["x_mid"][int(lanes.img[lane])] = rows[lane]
+                rec["remaining"] -= 1
+                rec["exact_tick"] = max(rec["exact_tick"],
+                                        start + int(first[lane]))
+                if rec["remaining"] == 0:
+                    r = rec["request"]
+                    del inflight[r.req_id]
+                    metrics.on_retire(r.req_id, boundary)
+                    self.obs.request(r.req_id, "retired", tick=boundary,
+                                     exact_tick=rec["exact_tick"])
+                    completions[r.req_id] = Completion(
+                        request=r, x_mid=rec["x_mid"],
+                        admit_tick=rec["admit_tick"], retire_tick=boundary)
+                    self.scheduler.notify_retired(r, boundary)
+                lanes.free(lane, self.num_classes)
 
     # ------------------------------------------------------------------
     def _serve_server(self, requests: List[Request], source: NoiseSource,
@@ -897,15 +954,25 @@ class ServeEngine:
         for r in requests:               # a served dynamic entry is fresh
             if r.sampler in self._dyn:
                 self._dyn[r.sampler]["stamp"] = next(self._use_clock)
+        obs = self.obs
+        tracer = obs.tracer
+        obs.timelines.reset()            # lifecycles are per serve() call
         decisions: Dict[int, AdmissionDecision] = {}
         for r in requests:
             if self._lanes_of(r) > self.slots:    # also fails on bad names
                 raise ValueError(f"request {r.req_id} needs "
                                  f"{self._lanes_of(r)} lanes > capacity "
                                  f"{self.slots}")
+            obs.request(r.req_id, "queued", tick=r.arrival_tick,
+                        batch=r.batch, cut_ratio=r.cut_ratio,
+                        sampler=r.sampler)
             d = self._decision(r)                  # cached; gate once here
             if d is not None:
                 decisions[r.req_id] = d
+                obs.request(r.req_id, "scored", action=d.action,
+                            kid=d.kid, effective_cut=d.effective_cut)
+                if not d.served:
+                    obs.request(r.req_id, "rejected")
         if self.admission is not None:
             self.admission.release_chains()        # the scores stay
 
@@ -939,10 +1006,21 @@ class ServeEngine:
         inflight: Dict[int, Dict] = {}
         completions: Dict[int, Completion] = {}
         pending: collections.deque = collections.deque()
-        metrics = ServeMetrics(S)
+        metrics = ServeMetrics(S, registry=obs.registry if obs else None)
+        # obs plumbing resolved before the loop: the JSON-lines cadence,
+        # the profiler windows and the live queue and in-flight gauges
+        metrics_path = obs.config.metrics_path if obs else None
+        metrics_every = obs.config.metrics_every if obs else 1
+        profiler = obs.window_profiler(self.device)
+        if obs:
+            g_queue = obs.registry.gauge(
+                "serve_queue_depth", "requests waiting in the scheduler")
+            g_inflight = obs.registry.gauge(
+                "serve_inflight_requests", "requests occupying slots")
+        windows_synced = 0
         finisher = unsubscribe = None
         if client_models is not None:
-            finisher = _FinishPipeline(self, client_models, source)
+            finisher = _FinishPipeline(self, client_models, source, metrics)
             unsubscribe = self.scheduler.on_retired(
                 lambda req, tick: finisher.stage(completions[req.req_id]))
         self._serving = True
@@ -959,6 +1037,10 @@ class ServeEngine:
                 r = local_only.popleft()
                 metrics.on_admit(r.req_id, now)
                 metrics.on_retire(r.req_id, now)
+                if obs:
+                    obs.request(r.req_id, "admitted", tick=now, local=True)
+                    obs.request(r.req_id, "retired", tick=now,
+                                exact_tick=now)
                 completions[r.req_id] = Completion(
                     request=r, x_mid=init_draws(r), admit_tick=now,
                     retire_tick=now)
@@ -969,8 +1051,13 @@ class ServeEngine:
                 or len(self.scheduler) > 0 or bool(local_only)
 
         def sync_oldest() -> None:
+            nonlocal windows_synced
             self._sync_window(pending.popleft(), inflight, lanes, completions,
                               metrics)
+            windows_synced += 1
+            if metrics_path and windows_synced % metrics_every == 0:
+                obs.registry.write_jsonl(metrics_path, host=obs.host_id,
+                                         window=windows_synced)
 
         def flush_finisher() -> None:
             if finisher is not None and more_server_work():
@@ -979,18 +1066,35 @@ class ServeEngine:
         try:
             while True:
                 # ---- admission: refill freed slots at the boundary ------
-                drain_local(now)
-                free = np.nonzero(lanes.req < 0)[0].tolist()
-                for req in self.scheduler.select_window(len(free), now, k):
-                    need = self._lanes_of(req)
-                    slots, free = free[:need], free[need:]
-                    self._admit(req, slots, lanes)
-                    admitted[slots] = True
-                    inflight[req.req_id] = {
-                        "request": req, "remaining": need, "admit_tick": now,
-                        "x_mid": np.zeros((req.batch,) + shape, np.float32)}
-                    metrics.on_admit(req.req_id, now)
+                with tracer.span("admit", tick=now):
+                    drain_local(now)
+                    free = np.nonzero(lanes.req < 0)[0].tolist()
+                    admits = self.scheduler.select_window(len(free), now, k)
+                    for req in admits:
+                        need = self._lanes_of(req)
+                        slots, free = free[:need], free[need:]
+                        self._admit(req, slots, lanes)
+                        admitted[slots] = True
+                        # the class of the window mix: lanes sharing it
+                        # retire at one boundary when admitted together
+                        inflight[req.req_id] = {
+                            "request": req, "remaining": need,
+                            "admit_tick": now, "exact_tick": -1,
+                            "cls": f"{req.sampler}@"
+                                   f"{self._effective_cut(req)}@"
+                                   f"{self._sampler_of(req).w:g}",
+                            "x_mid": np.zeros((req.batch,) + shape,
+                                              np.float32)}
+                        metrics.on_admit(req.req_id, now)
+                        if obs:
+                            obs.request(req.req_id, "admitted", tick=now,
+                                        lanes=[int(x) for x in slots])
                 n_active = int((lanes.req >= 0).sum())
+                if obs:
+                    g_queue.set(len(self.scheduler))
+                    g_inflight.set(len(inflight))
+                    tracer.counter("serve_occupancy", lanes=n_active,
+                                   queued=len(self.scheduler))
                 if n_active == 0:
                     if pending:
                         # every lane waits on a window in flight: its sync
@@ -1007,6 +1111,9 @@ class ServeEngine:
                     target = max(now + 1, min(t for t in nxt
                                               if t is not None))
                     metrics.on_idle_gap(target - (now + 1))
+                    if obs:
+                        tracer.instant("idle_jump", from_tick=now,
+                                       to_tick=target)
                     now = target
                     if now > max_ticks:
                         raise RuntimeError(
@@ -1014,9 +1121,26 @@ class ServeEngine:
                             f"ticks) with {len(self.scheduler)} queued / 0 "
                             "in flight")
                     continue
+                # ---- the window's class mix and fragmentation, from the
+                # host's lane state: free lanes entering a window while
+                # arrived demand waits are fragmentation
+                mix: Dict[str, int] = {}
+                for rec in inflight.values():
+                    mix[rec["cls"]] = mix.get(rec["cls"], 0) + \
+                        rec["remaining"]
+                starved = bool(self.scheduler.arrived(now))
+                metrics.on_window_mix(mix, S - n_active, starved, k)
                 # ---- one window: k lane ticks over every lane -----------
-                pending.append(self._dispatch(lanes, admitted, source, now,
-                                              n_active))
+                if profiler is not None:
+                    profiler.before()
+                with tracer.span("dispatch", tick=now, lanes=n_active):
+                    pending.append(self._dispatch(lanes, admitted, source,
+                                                  now, n_active))
+                if profiler is not None:
+                    profiler.after()
+                if obs:
+                    for req in admits:
+                        obs.request(req.req_id, "first_tick", tick=now)
                 admitted[:] = False
                 now += k
                 # ---- the pipeline down to async_depth - 1 windows -------
@@ -1032,6 +1156,8 @@ class ServeEngine:
             self._serving = False
             if unsubscribe is not None:
                 unsubscribe()
+            if profiler is not None:
+                profiler.close()
         if finisher is not None:
             finisher.drain()
         wall = time.perf_counter() - t0
@@ -1054,8 +1180,18 @@ class ServeEngine:
             # not recomputed
             summary.update(finisher.summary())
             summary["finish_async_depth"] = self.finish_async_depth
+        timelines: Dict[int, List[Dict]] = {}
+        if obs:
+            if metrics_path:
+                obs.registry.write_jsonl(metrics_path, host=obs.host_id,
+                                         window=windows_synced, final=True)
+            path = obs.trace_path_for_host()
+            if path:
+                obs.tracer.export(path)
+            timelines = obs.timelines.snapshot()
         return ServeResult(completions=completions, summary=summary,
-                           wall_s=wall, decisions=decisions)
+                           wall_s=wall, decisions=decisions,
+                           timelines=timelines)
 
     # ------------------------------------------------------------------
     # the client segment: both finish modes launch and collect the same way
@@ -1178,7 +1314,11 @@ class ServeEngine:
                 comp.x0 = np.zeros((comp.request.batch,) + self.image_shape,
                                    np.float32)
             comp.x0[i] = row
+        # a request's images all travel in one finish batch
+        done = {id(comp): comp for comp, _ in fin.placement}
+        for comp in done.values():
             comp.client_finished = True
+            self.obs.request(comp.request.req_id, "client_finished")
 
     def _finish_clients(self, result: ServeResult,
                         client_models: Sequence[torch.nn.Module],
@@ -1220,7 +1360,9 @@ class ServeEngine:
         result = self._serve_server(requests, source, max_ticks)
         if client_models is not None:
             t0 = time.perf_counter()
-            self._finish_clients(result, client_models, source)
+            with self.obs.tracer.span("finish_clients", mode="drain",
+                                      requests=len(result.completions)):
+                self._finish_clients(result, client_models, source)
             finish_s = time.perf_counter() - t0
             # the drain finish runs after the server loop's wall timer, so
             # it is added to the wall and throughput recomputed once
@@ -1233,6 +1375,13 @@ class ServeEngine:
             s["finish_async_depth"] = self.finish_async_depth
             s["requests_per_s"] = s["served"] / max(result.wall_s, 1e-9)
             s["images_per_s"] = s["images"] / max(result.wall_s, 1e-9)
+            if self.obs:
+                # the finish span and the client_finished stages landed
+                # after the server loop's export
+                result.timelines = self.obs.timelines.snapshot()
+                path = self.obs.trace_path_for_host()
+                if path:
+                    self.obs.tracer.export(path)
         return result
 
 

@@ -1,11 +1,13 @@
-"""Serving telemetry: per-request latency, tick utilization, FLOP split and
-the admission gate's outcomes (counterpart of ``repro/serve/metrics.py``,
-without the obs registry).
+"""Serving telemetry: per-request latency, tick utilization, FLOP split,
+the slot pool's fragmentation and occupancy by class, and the admission
+gate's outcomes (counterpart of ``repro/serve/metrics.py``).
 
-The engine reports one event per admission and retirement plus the exact
-per-tick occupancy of every window; :meth:`ServeMetrics.summary` folds them
-into the run record, and :func:`finish_summary` adds the client segment's
-accounting.
+The engine reports one event per admission and retirement, the exact
+per-tick occupancy of every window and, before each dispatch, the window's
+class mix; :meth:`ServeMetrics.summary` folds them into the run record, and
+:func:`finish_summary` adds the client segment's accounting.  With a
+``registry`` (:class:`repro_torch.obs.MetricsRegistry`) every event is also
+published live into the reference's named instruments.
 """
 from __future__ import annotations
 
@@ -15,13 +17,17 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.collafuse import CutPlan, flops_split_steps
+from repro_torch.obs.registry import NULL_REGISTRY
 
 
 class ServeMetrics:
-    """Event sink for one engine run."""
+    """Event sink for one engine run.  ``registry`` (default: the disabled
+    one) receives every event live, so a running engine is observable
+    through the registry's JSON-lines snapshots."""
 
-    def __init__(self, capacity: int):
+    def __init__(self, capacity: int, registry=None):
         self.capacity = capacity
+        self.registry = registry if registry is not None else NULL_REGISTRY
         self._admit: Dict[int, Dict] = {}       # req_id -> {tick, wall}
         self._retire: Dict[int, Dict] = {}
         self._util: List[float] = []            # active lanes / capacity
@@ -29,6 +35,11 @@ class ServeMetrics:
         self._windows = 0
         self._idle_ticks = 0
         self._lags: List[int] = []
+        # on_window_mix: lane-ticks per trajectory class, and lane-ticks
+        # that sat EMPTY while arrived demand waited (fragmentation)
+        self._occ_by_class: Dict[str, int] = {}
+        self._frag_slot_ticks = 0
+        self._mix_ticks = 0
 
     def start(self) -> None:
         self._t0 = time.perf_counter()
@@ -40,9 +51,16 @@ class ServeMetrics:
 
     def on_admit(self, req_id: int, tick: int) -> None:
         self._admit[req_id] = {"tick": tick, "wall": self._now()}
+        self.registry.counter(
+            "serve_admitted_total", "requests admitted into slots").inc()
 
     def on_retire(self, req_id: int, tick: int) -> None:
         self._retire[req_id] = {"tick": tick, "wall": self._now()}
+        self.registry.counter(
+            "serve_retired_total", "requests retired at the cut").inc()
+        self.registry.histogram(
+            "serve_latency_ticks", "admit->retire residency in ticks"
+        ).observe(tick - self._admit[req_id]["tick"])
 
     def on_window_exact(self, active_start: int, done_counts) -> None:
         """Exact per-tick occupancy of one window: ``done_counts[j]`` lanes
@@ -53,19 +71,69 @@ class ServeMetrics:
             f"{counts.sum()} lanes done in a window that started with " \
             f"{active_start} active"
         self._windows += 1
+        self.registry.counter("serve_windows_total",
+                              "fused scan windows dispatched").inc()
+        self.registry.counter("serve_ticks_total",
+                              "scan ticks executed").inc(counts.size)
         retired_before = np.concatenate(([0], np.cumsum(counts[:-1])))
         act = active_start - retired_before
         self._util.extend((act / max(self.capacity, 1)).tolist())
+        self.registry.gauge(
+            "serve_active_lanes", "live lanes at the window's last tick"
+        ).set(int(act[-1] - counts[-1]))
+
+    def on_window_mix(self, class_lanes: Dict[str, int], free: int,
+                      starved: bool, ticks: int) -> None:
+        """One window's class mix, reported before its dispatch:
+        ``class_lanes`` maps a class label (``"<sampler>@<effective
+        cut>@<guidance w>"``) to its live lanes (a guided image counts its
+        two), ``free`` is the empty slots, ``starved`` whether ARRIVED
+        demand waited in the queue.  Free slots in a starved window are
+        FRAGMENTATION: capacity the scheduler could not shape the queue
+        into.  Folded into ``fragmentation_frac`` and
+        ``occupancy_by_class``."""
+        for cls, lanes in class_lanes.items():
+            self._occ_by_class[cls] = \
+                self._occ_by_class.get(cls, 0) + lanes * ticks
+        if starved and free > 0:
+            self._frag_slot_ticks += free * ticks
+        self._mix_ticks += ticks
+        self.registry.gauge(
+            "serve_fragmentation_free_lanes",
+            "empty slots entering a window while arrived demand waits"
+        ).set(free if starved else 0)
 
     def on_idle_gap(self, gap: int) -> None:
         """Ticks skipped because no lane was in flight."""
         if gap > 0:
             self._idle_ticks += gap
+            self.registry.counter(
+                "serve_idle_ticks_total",
+                "ticks skipped with no lane in flight").inc(gap)
+
+    def on_finish_dispatch(self, n_requests: int, lanes: int) -> None:
+        """One streamed client-finish wave launched: ``n_requests`` retired
+        requests, ``lanes`` lanes (published to the registry; the summary
+        takes its counts from the finisher)."""
+        self.registry.counter(
+            "serve_finish_batches_total",
+            "streamed client-finish batches dispatched").inc()
+        self.registry.counter(
+            "serve_finish_lanes_total",
+            "lanes handed to the streaming client finisher").inc(lanes)
+        self.registry.histogram(
+            "serve_finish_batch_requests",
+            "requests per streamed client-finish batch",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128)).observe(n_requests)
 
     def on_boundary_lag(self, lag: int) -> None:
         """Ticks between a lane reaching its cut and the window boundary
         that retired it (≤ ticks_per_dispatch − 1)."""
         self._lags.append(lag)
+        self.registry.histogram(
+            "serve_boundary_lag_ticks",
+            "retire boundary minus exact finish tick, per lane",
+            buckets=(0, 1, 2, 4, 8, 16, 32, 64)).observe(lag)
 
     @property
     def ticks(self) -> int:
@@ -138,12 +206,20 @@ class ServeMetrics:
             "client_flops": client_f,
             "client_fraction": client_f / total,
         }
+        if self._mix_ticks:
+            # share of dispatched lane-ticks that sat empty while arrived
+            # demand waited: 0.0 is fragmentation-proof packing
+            out["fragmentation_frac"] = self._frag_slot_ticks / (
+                self.capacity * self._mix_ticks)
+            out["occupancy_by_class"] = dict(
+                sorted(self._occ_by_class.items()))
         if self._lags:
             lags = np.array(self._lags, np.float64)
             out["boundary_lag_mean"] = float(lags.mean())
             out["boundary_lag_p100"] = int(lags.max())
         if decisions:
-            out["admission"] = admission_summary(decisions.values())
+            out["admission"] = admission_summary(decisions.values(),
+                                                 registry=self.registry)
         return out
 
 
@@ -174,10 +250,11 @@ def finish_summary(mode: str, finish_s: float, tail_s: float = 0.0,
     }
 
 
-def admission_summary(decisions, bins: int = 8) -> Dict:
+def admission_summary(decisions, bins: int = 8, registry=None) -> Dict:
     """Fold AdmissionDecisions into a JSON-able record: action counts and a
     histogram of the SERVED disclosure KIDs (bumps included).  With rejects
-    only there is no ``disclosure_kid`` key."""
+    only there is no ``disclosure_kid`` key.  An enabled ``registry``
+    receives the counts as ``serve_admission_actions_total{action=}``."""
     ds = list(decisions)
     kids = np.array([d.kid for d in ds if d.served], np.float64)
     rec = {
@@ -186,6 +263,13 @@ def admission_summary(decisions, bins: int = 8) -> Dict:
         "bumped": sum(1 for d in ds if d.action == "bump"),
         "rejected": sum(1 for d in ds if d.action == "reject"),
     }
+    if registry is not None and registry:
+        actions = registry.counter("serve_admission_actions_total",
+                                   "admission gate outcomes",
+                                   labels=("action",))
+        for act in ("admit", "bump", "reject"):
+            actions.labels(action=act).inc(
+                sum(1 for d in ds if d.action == act))
     if kids.size:
         counts, edges = np.histogram(kids, bins=bins)
         rec["disclosure_kid"] = {

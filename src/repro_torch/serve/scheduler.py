@@ -1,5 +1,5 @@
 """Admission order for the continuous-batching serving engine (counterpart
-of ``repro/serve/scheduler.py``; wave packing arrives with its own slice).
+of ``repro/serve/scheduler.py``).
 
 A :class:`Request` asks for ``batch`` generated images at cut-ratio
 ``cut_ratio``, finished by client ``client_idx``'s private model.  At each
@@ -15,6 +15,18 @@ admit into the free slots:
 With an ``admission`` policy (:mod:`repro_torch.serve.admission`) every
 candidate is gated at selection: a rejected request leaves the queue
 without taking a slot or blocking those behind it.
+
+``pack=True`` is trajectory-aware WAVE PACKING for the engine's k-tick
+windows: after admitting the head of the order, the selection sweeps the
+candidates behind it for same-CLASS requests (lanes that retire at the same
+boundary when admitted together) that fit the remaining budget, so each
+window runs step-homogeneous cohorts whose slots free in chunks.  Packing
+never skips the head: when it does not fit, nothing is admitted and freed
+slots accumulate for it (the blocking rule above), so every request's
+position still strictly decreases (FIFO) or is aging-bounded (SJF).
+Packing changes WHEN a request is admitted, never its numbers: a lane's
+noise depends only on (seed, image, role, step), so completions are bitwise
+those of the unpacked run.
 """
 from __future__ import annotations
 
@@ -52,17 +64,21 @@ class FIFOScheduler:
     """Strict arrival order (head-of-line blocking).  ``samplers`` is the
     engine's menu (injected by the engine when absent); ``admission`` an
     optional :class:`~repro_torch.serve.admission.AdmissionPolicy` (the
-    engine shares its own)."""
+    engine shares its own); ``pack`` turns on wave packing (FIFO's class is
+    (sampler, cut_ratio, guidance w)).  ``registry`` is the engine's
+    metrics registry when observability is on, else None."""
 
     def __init__(self, samplers: Optional[Dict[str, Any]] = None,
-                 admission=None):
+                 admission=None, pack: bool = False):
         self._queue: List[Request] = []
         self._seq = itertools.count()
         self._order: Dict[int, int] = {}
         self.samplers = samplers
         self.admission = admission
+        self.pack = bool(pack)
         self._rejections: List[Any] = []    # decisions dropped at select
         self.aging_promotions = 0           # FIFO never reorders: stays 0
+        self.registry = None                # obs: the engine attaches its own
         self._retired_cbs: List[Callable] = []
 
     # -- retired-request callbacks --------------------------------------
@@ -102,11 +118,24 @@ class FIFOScheduler:
         """Admission order — the only thing policies override."""
         return self.arrived(now)
 
+    def _guidance_of(self, req: Request) -> float:
+        """Guidance scale w of the request's sampler (0.0 for unguided or
+        unknown samplers).  It keys wave classes: guided pairs and solo
+        lanes must not coalesce even at equal trajectory cost."""
+        s = (self.samplers or {}).get(req.sampler)
+        return float(s.w) if s is not None and s.guided else 0.0
+
     def lanes_of(self, req: Request) -> int:
         """Slot-pool lanes the request occupies: one per image, two for a
         guided sampler (a cond+uncond lane pair an image)."""
         s = (self.samplers or {}).get(req.sampler)
         return req.batch * (2 if s is not None and s.guided else 1)
+
+    def _class_of(self, req: Request):
+        """Wave-packing class: (sampler, cut_ratio, guidance w), requests
+        that run the same server steps with the same lane geometry.
+        :class:`CutRatioScheduler` refines the cut to the effective cost."""
+        return (req.sampler, req.cut_ratio, self._guidance_of(req))
 
     def select(self, free_slots: int, now: int) -> List[Request]:
         """One-tick admission — :meth:`select_window` with window=1."""
@@ -119,7 +148,8 @@ class FIFOScheduler:
         behind it, so freed slots accumulate for the head (the liveness
         guarantee for batch > 1 requests).  Under an ``admission`` policy a
         rejected candidate is dropped from the queue and recorded for
-        :meth:`take_rejections`; it blocks nothing."""
+        :meth:`take_rejections`; it blocks nothing.  ``pack`` replaces the
+        walk with :meth:`_pack_waves`, under the same blocking rule."""
         assert window >= 1, window
         served, dropped = [], []
         for r in self._candidates(now):
@@ -129,17 +159,48 @@ class FIFOScheduler:
                     dropped.append((r, d))
                     continue
             served.append(r)
-        picked = []
-        for r in served:
-            if self.lanes_of(r) > free_slots:
-                break
-            picked.append(r)
-            free_slots -= self.lanes_of(r)
+        if self.pack:
+            picked = self._pack_waves(served, free_slots)
+        else:
+            picked = []
+            for r in served:
+                if self.lanes_of(r) > free_slots:
+                    break
+                picked.append(r)
+                free_slots -= self.lanes_of(r)
         gone = set(picked)
         gone.update(r for r, _ in dropped)
         if gone:
             self._queue = [r for r in self._queue if r not in gone]
         self._rejections.extend(d for _, d in dropped)
+        return picked
+
+    def _pack_waves(self, cands: List[Request],
+                    free_slots: int) -> List[Request]:
+        """Wave packing over the gated candidate order.  Loop: the first
+        remaining candidate is the HEAD; if it does not fit the remaining
+        budget, stop (it blocks, and slots accumulate for it); otherwise
+        admit it and sweep the candidates behind it, admitting every
+        same-class one that fits and leaving the rest, in order, for the
+        next head."""
+        remaining = list(cands)
+        picked: List[Request] = []
+        while remaining:
+            head = remaining[0]
+            if self.lanes_of(head) > free_slots:
+                break
+            picked.append(head)
+            free_slots -= self.lanes_of(head)
+            cls = self._class_of(head)
+            rest: List[Request] = []
+            for r in remaining[1:]:
+                if self._class_of(r) == cls and \
+                        self.lanes_of(r) <= free_slots:
+                    picked.append(r)
+                    free_slots -= self.lanes_of(r)
+                else:
+                    rest.append(r)
+            remaining = rest
         return picked
 
     def take_rejections(self) -> List[Any]:
@@ -160,8 +221,9 @@ class CutRatioScheduler(FIFOScheduler):
     honest cheap one."""
 
     def __init__(self, T: int, aging: float = 1.0,
-                 samplers: Optional[Dict[str, Any]] = None, admission=None):
-        super().__init__(samplers=samplers, admission=admission)
+                 samplers: Optional[Dict[str, Any]] = None, admission=None,
+                 pack: bool = False):
+        super().__init__(samplers=samplers, admission=admission, pack=pack)
         assert aging > 0.0, "aging=0 reintroduces starvation"
         self.T = T
         self.aging = aging
@@ -192,6 +254,11 @@ class CutRatioScheduler(FIFOScheduler):
         wait = max(0, now - req.arrival_tick)
         return self.nominal_cost(req) - self.aging * wait
 
+    def _class_of(self, req: Request):
+        """SJF wave class: (sampler, effective server cost, guidance w), so
+        a bumped request packs with the cohort it actually runs with."""
+        return (req.sampler, self.server_cost(req), self._guidance_of(req))
+
     def _candidates(self, now: int) -> List[Request]:
         return sorted(
             self.arrived(now),
@@ -206,16 +273,24 @@ class CutRatioScheduler(FIFOScheduler):
             left = self.arrived(now)
             if left:
                 floor = min(self.server_cost(r) for r in left)
-                self.aging_promotions += sum(
-                    1 for r in picked if self.server_cost(r) > floor)
+                promos = sum(1 for r in picked
+                             if self.server_cost(r) > floor)
+                if promos:
+                    self.aging_promotions += promos
+                    if self.registry is not None:
+                        self.registry.counter(
+                            "serve_aging_promotions_total",
+                            "SJF picks that overtook a cheaper queued "
+                            "request on aged score").inc(promos)
         return picked
 
 
 def make_scheduler(policy: str, T: int, aging: float = 1.0, samplers=None,
-                   admission=None):
+                   admission=None, pack: bool = False):
     if policy == "fifo":
-        return FIFOScheduler(samplers=samplers, admission=admission)
+        return FIFOScheduler(samplers=samplers, admission=admission,
+                             pack=pack)
     if policy == "cut_ratio":
         return CutRatioScheduler(T, aging=aging, samplers=samplers,
-                                 admission=admission)
+                                 admission=admission, pack=pack)
     raise ValueError(f"unknown scheduling policy: {policy!r}")

@@ -6,6 +6,7 @@ dependencies::
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 import importlib.util
+import os
 
 import pytest
 
@@ -686,7 +687,8 @@ def test_lane_noise_wrapper_raises_on_what_the_kernel_does_not_take():
         ops.lane_noise(seeds, images.cpu(), steps, active, 1, (8, 8, 1))
 
 
-def _host_engine(k=3, slots=4, graphs=True, spare=0, menu=None, **kw):
+def _host_engine(k=3, slots=4, graphs=True, spare=0, menu=None, pack=False,
+                 policy="cut_ratio", **kw):
     from repro_torch.configs import UNetConfig
     from repro_torch.models.unet import UNet
     from repro_torch import serve as tserve
@@ -697,8 +699,9 @@ def _host_engine(k=3, slots=4, graphs=True, spare=0, menu=None, **kw):
     server = UNet(UNetConfig().reduced(), seed=0).cuda().eval()
     return tserve.ServeEngine(tserve.EngineConfig(
         sched=tsch.cosine_schedule(100), image_shape=(16, 16, 1),
-        slots=slots, scheduler=tserve.make_scheduler("cut_ratio", 100,
-                                                     samplers=menu),
+        slots=slots, scheduler=tserve.make_scheduler(policy, 100,
+                                                     samplers=menu,
+                                                     pack=pack),
         step_backend="cuda_masked", samplers=menu, ticks_per_dispatch=k,
         cuda_graphs=graphs, spare_columns=spare, device="cuda", **kw),
         server)
@@ -800,3 +803,82 @@ def test_stream_is_bitwise_drain_on_cuda(depth, fdepth):
     _bitwise_runs(drain, stream)
     assert stream.summary["finish_batches"] >= 1
     assert 0.0 <= stream.summary["overlap_frac"] <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# wave packing and observability on the card: bitwise, no new capture
+# ---------------------------------------------------------------------------
+def _het_requests():
+    """A batch-3 head blocking same-class singles, mixed samplers and cuts:
+    traffic that packing reorders under FIFO."""
+    from repro_torch.serve import Request
+    spec = [(1, 0.5, "ddpm"), (3, 0.25, "ddpm"), (1, 0.5, "ddpm"),
+            (1, 0.25, "ddim"), (2, 0.5, "ddim"), (1, 0.75, "ddpm"),
+            (1, 0.5, "ddpm"), (2, 0.25, "ddim")]
+    return [Request(req_id=i, seed=950 + i, batch=b, cut_ratio=c,
+                    client_idx=i % 2, arrival_tick=i // 3, sampler=smp)
+            for i, (b, c, smp) in enumerate(spec)]
+
+
+@pytest.mark.cuda
+def test_pack_is_bitwise_unpacked_on_cuda():
+    """Pack on moves lanes to other slots of the fixed-width window: x_mid
+    bitwise the unpacked run's, and the warm pack-on engine captures no new
+    graph."""
+    _require_cuda()
+    warm = _host_requests(2)
+    runs = {}
+    for pack in (False, True):
+        eng = _host_engine(k=2, pack=pack, policy="fifo")
+        eng.serve(warm)
+        captures = eng.captures
+        runs[pack] = eng.serve(_het_requests())
+        assert eng.captures == captures >= 1
+        eng.close()
+    assert set(runs[True].completions) == set(runs[False].completions)
+    for rid, c in runs[False].completions.items():
+        assert np.array_equal(runs[True].completions[rid].x_mid, c.x_mid), \
+            rid
+    assert [runs[True].completions[i].admit_tick for i in range(8)] != \
+        [runs[False].completions[i].admit_tick for i in range(8)]
+    assert 0.0 <= runs[True].summary["fragmentation_frac"] <= 1.0
+
+
+@pytest.mark.cuda
+def test_obs_is_bitwise_obs_off_on_cuda(tmp_path):
+    """Obs on reads no device value: completions bitwise, the same graph
+    captures and host-to-device copies, one dispatch span a window."""
+    _require_cuda()
+    from repro_torch.obs import ObsConfig, load_trace
+    clients = _clients()
+    runs, engs = {}, {}
+    path = str(tmp_path / "trace.json")
+    for on in (False, True):
+        obs = ObsConfig(trace_path=path, metrics_path=str(
+            tmp_path / "m.jsonl"), metrics_every=2) if on else None
+        engs[on] = _host_engine(k=4, async_depth=2, obs=obs)
+        runs[on] = engs[on].serve(_host_requests(8), clients)
+    _bitwise_runs(runs[False], runs[True])
+    assert (engs[True].captures, engs[True].h2d_copies) == \
+        (engs[False].captures, engs[False].h2d_copies)
+    assert runs[True].summary["ticks"] == runs[False].summary["ticks"]
+    dispatch = [e for e in load_trace(path)
+                if e.get("ph") == "X" and e["name"] == "dispatch"]
+    assert len(dispatch) == runs[True].summary["windows"]
+
+
+@pytest.mark.cuda
+def test_profiled_serve_names_the_kernels_on_cuda(tmp_path):
+    """torch.profiler over the first windows, the first captured under it:
+    the trace names both kernels of the window; completions bitwise the
+    unprofiled run's."""
+    _require_cuda()
+    from repro_torch.obs import ObsConfig
+    d = tmp_path / "prof"
+    eng = _host_engine(k=2, obs=ObsConfig(trace=False, profile_dir=str(d),
+                                          profile_windows=3))
+    res = eng.serve(_host_requests(4))
+    _bitwise_runs(res, _host_engine(k=2).serve(_host_requests(4)))
+    (name,) = os.listdir(d)
+    text = (d / name).read_text()
+    assert "traj_masked_step" in text and "lane_noise" in text
