@@ -103,6 +103,27 @@ Phases, each printing its own lines:
    windows: bitwise, and both profiles name ``traj_masked_step`` and
    ``lane_noise``; its (d), one ``train_round`` span a round and the loss
    gauges, runs inside phase 4b's trainer;
+4f. paper — the paper's healthcare experiment at its own batch, at full
+   width (phase 4b's U-Net and protocol, f32 without TF32): (a) one
+   batched round at 16 images a client in one piece and in chunks of 16
+   under the allocator's history: each step's peak split into the
+   parameters and AdamW state, one chunk's activations, the gradients and
+   the rest (cuDNN workspace and temporaries), the blocks live at the
+   peak, the largest allocation, and the reserved-but-free bytes; (b)
+   round 0 in chunks of 16, 8 and 5 (ragged) on both engines against the
+   unchunked round from the same models and draws: losses within phase
+   4b's tolerance, parameters within the card-against-CPU bound; (c) 150
+   images a client (pooled 450) in chunks of 48, a warm-up and 2 timed
+   rounds on the looped engine (and the batched one when the phase's
+   budget allows): round and step ms, images/s, TFLOP/s against 67, peak
+   memory under the card's, finite losses; (d) the trained trainer saved
+   and restored into a fresh one, state bitwise, its ``trainer.sample``
+   through ``ddpm_step`` bitwise the original's, and the restored models
+   serving phase 4's mix on ``cuda_masked`` bitwise the originals'; (e)
+   ``collafuse_healthcare.evaluate`` on 8 images a client: KID against
+   train and holdout, disclosure MSE and KID; (f) ``cut_ratio_sweep`` at
+   its default size, cuts {0, 0.8, 1}: the client FLOP share monotone in
+   c and all the client's at c = 1;
 5. LM slice — Yi-6B at full width and depth in bf16 (random weights from a
    seed): (a) prefill of 4x2048 tokens through the flash kernel, 32
    launches a call, timed and profiled; (b) the same batch through
@@ -149,12 +170,14 @@ from repro_torch.core.collafuse import (CutPlan, lane_philox,  # noqa: E402
 from repro_torch.core.privacy import (disclosure_report,  # noqa: E402
                                       feature_params)
 from repro_torch.core.trainer import (CollaFuseTrainer,  # noqa: E402
-                                      TrainerConfig)
+                                      TrainerConfig, member_seed)
 from repro_torch.data.synthetic import (ClientDataConfig,  # noqa: E402
                                         image_batches, make_client_datasets)
 from repro_torch.diffusion.backend import get_backend  # noqa: E402
 from repro_torch.diffusion.sampler import make_sampler  # noqa: E402
 from repro_torch.diffusion.schedule import cosine_schedule  # noqa: E402
+from repro_torch.examples import collafuse_healthcare as hc  # noqa: E402
+from repro_torch.examples import cut_ratio_sweep  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import ddpm_step as kds  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
@@ -237,10 +260,9 @@ LM_TOL_MAX, LM_TOL_MEAN = 0.25, 0.03
 HYBRID_TOL_MEAN = 0.6
 BLOCK_TOL_MAX, BLOCK_TOL_MEAN = 2.0 ** -4, 2.0 ** -6
 # phase 4b: CollaFuse split training of the paper U-Net (its §4 setup: cosine
-# T = 100, c = 0.8, 3 clients, lr 1e-3, grad clip 1.0).  The paper's 150
-# images a client do not fit: at 16 a client (48 pooled) the allocator's
-# peak reaches 62 GB of an H100's 80 in f32 (PERF.md), so the batch is cut
-# to 16.
+# T = 100, c = 0.8, 3 clients, lr 1e-3, grad clip 1.0), 16 images a client
+# in one piece (48 pooled; the allocator's peak reaches 62 GB of an H100's
+# 80 in f32, PERF.md); phase 4f trains the paper's 150 a client in chunks.
 TRAIN_CLIENTS, TRAIN_CUT, TRAIN_BATCH, TRAIN_ROUNDS = 3, 0.8, 16, 8
 # batched against looped on the card: the CPU tests' loss tolerance
 # (tests/test_torch_train.py)
@@ -732,13 +754,13 @@ def param_gap(a, b):
     return float(d.max()), float(d.mean())
 
 
-def check_losses(got, want, tol, what):
+def check_losses(got, want, tol, what, tag="train"):
     pairs = [(got["server_loss"], want["server_loss"])] + list(
         zip(got["client_losses"], want["client_losses"]))
     worst = max(abs(g - w) / abs(w) for g, w in pairs)
     ok = all(abs(g - w) <= tol["atol"] + tol["rtol"] * abs(w)
              for g, w in pairs)
-    print(f"[train] {what}: losses max rel |d| {worst:.3e} (rtol "
+    print(f"[{tag}] {what}: losses max rel |d| {worst:.3e} (rtol "
           f"{tol['rtol']}, atol {tol['atol']})", flush=True)
     if not ok:
         raise AssertionError(f"{what}: losses disagree")
@@ -770,7 +792,7 @@ def phase_train(dev, card: str):
     print(f"[train] paper U-Net x {TRAIN_CLIENTS + 1} (server + "
           f"{TRAIN_CLIENTS} clients), {tr.plan.describe()}, cosine T={T}, "
           f"lr {cfg.lr}, clip {cfg.grad_clip}; {TRAIN_BATCH} images a client "
-          f"(paper 150: cut to fit), pooled server batch {n_img}; built in "
+          f"(the paper's 150: phase 4f), pooled server batch {n_img}; built in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     steps = {"server": [], "client": []}
     timed_method(tr, "_server_update", steps["server"])
@@ -1942,6 +1964,503 @@ def phase_obs(dev, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the paper's healthcare experiment at its own batch
+# ---------------------------------------------------------------------------
+# the paper's §4 batch: 150 images a client (the reference's --full), a
+# pooled server batch of 450, in chunks of the healthcare example's
+# default (48 images a forward and backward)
+PAPER_BATCH, PAPER_MICRO = 150, hc.FULL_MICRO_BATCH
+# at phase 4b's 16 images a client: (a) the chunk whose round's memory is
+# broken down beside the unchunked one, (b) the chunks held against the
+# unchunked round (5: ragged, its last chunk shorter)
+MEMORY_CHUNK, CHUNKS_CHECKED = 16, (8, 5)
+PAPER_BUDGET_S = 150.0
+# images generated a client by (e)'s evaluate (the unbiased KID needs 2)
+PAPER_N_GEN = 4
+# a block freed within this many allocator events of its allocation is
+# counted transient (a convolution's workspace lives one call)
+TRANSIENT_EVENTS = 6
+
+
+def trace_peak(events):
+    """Replay the allocator's trace: (bytes allocated above the trace's
+    start at its peak, bytes of segments reserved above the start at that
+    moment, [(size, alloc index, free index or None, frame)] of the blocks
+    allocated in the trace and live at the peak, (size, frame) of the
+    largest allocation)."""
+    live, total, peak, peak_at, frees = {}, 0, 0, -1, {}
+    largest = (0, "")
+    for i, e in enumerate(events):
+        act = e.get("action")
+        if act == "alloc":
+            live[e["addr"]] = i
+            total += e["size"]
+            if e["size"] > largest[0]:
+                largest = (e["size"], frame_of(e))
+            if total > peak:
+                peak, peak_at = total, i
+        elif act == "free_requested" and e["addr"] in live:
+            frees[live.pop(e["addr"])] = i
+            total -= e["size"]
+    open_, seg = {}, 0
+    for e in events[:peak_at + 1]:
+        act = e.get("action")
+        if act == "alloc":
+            open_[e["addr"]] = e
+        elif act == "free_requested":
+            open_.pop(e["addr"], None)
+        elif act == "segment_alloc":
+            seg += e["size"]
+        elif act == "segment_free":
+            seg -= e["size"]
+    index = {id(e): i for i, e in enumerate(events[:peak_at + 1])}
+    blocks = sorted(((e["size"], index[id(e)], frees.get(index[id(e)]),
+                      frame_of(e)) for e in open_.values()), reverse=True)
+    return peak, seg, blocks, largest
+
+
+def frame_of(event) -> str:
+    """The innermost frame of the port (else the innermost of any) that
+    made an allocation; "no Python frame" inside autograd's backward."""
+    frames = event.get("frames") or []
+    for f in frames:
+        if "repro_torch" in f.get("filename", ""):
+            return f"{f.get('name')}:{f.get('line')}"
+    return (f"{frames[0].get('name')}:{frames[0].get('line')}" if frames
+            else "no Python frame")
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def grad_probe(loss_fn, params, args, functorch: bool, vmapped: bool):
+    """One chunk's gradient of ``loss_fn`` at ``params``: (bytes its
+    forward holds at its end, the peak over forward and backward), both
+    above the bytes allocated before.  ``functorch``: the trainer's
+    ``grad_and_value`` (under ``vmap`` when ``vmapped``); else plain
+    autograd over the same forward."""
+    held = []
+
+    def probed(p, *a):
+        out = loss_fn(p, *a)
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+        return out
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if functorch:
+        fn = torch.func.grad_and_value(probed)
+        grads, loss = (torch.func.vmap(fn) if vmapped else fn)(params, *args)
+    else:
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss = (torch.func.vmap(probed) if vmapped else probed)(p, *args)
+        grads = torch.autograd.grad(loss.sum(), list(p.values()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del grads, loss
+    return held[0] - before, peak - before
+
+
+def traced_method(obj, name: str, steps: list, dev) -> None:
+    """Wrap ``obj.name`` so each call appends its memory record: the peak
+    allocated over the call, the allocated and reserved bytes at its start,
+    and the allocator's trace events of the call (history is on)."""
+    fn = getattr(obj, name)
+
+    def events():
+        return torch.cuda.memory._snapshot()["device_traces"][dev.index or 0]
+
+    def wrapped(*args):
+        torch.cuda.synchronize()
+        n0 = len(events())
+        start = (torch.cuda.memory_allocated(dev),
+                 torch.cuda.memory_reserved(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        steps.append((torch.cuda.max_memory_allocated(dev), start,
+                      events()[n0:]))
+        return out
+    setattr(obj, name, wrapped)
+
+
+def memory_round(tr, batches, dev, label):
+    """One round of ``tr`` under the allocator's history: each step's peak
+    split into the state (parameters and AdamW moments), one chunk's
+    activations (a forward's graph held), the gradients and the rest, the
+    rest into blocks live at the peak that die within a few allocator
+    events (a convolution's workspace) and longer-lived ones (backward
+    intermediates); the reserved-but-free bytes at the peak.  Returns the
+    round's metrics and its peak."""
+    n_img = sum(b.shape[0] for b in batches)
+    per_client = batches[0].shape[0]
+    state = tree_bytes(tr.state_tree())
+    grads = {"server": tree_bytes(tr.server_params),
+             "client": tree_bytes(tr.client_stack)}
+    # one chunk of each step through the trainer's grad_and_value and
+    # through plain autograd: what the forward holds, and the peak (inputs
+    # drawn here: the bytes depend on the shapes alone)
+    g = torch.Generator(device=dev).manual_seed(5)
+    chunk = n_img if tr.micro_batch is None else min(tr.micro_batch, n_img)
+    per = (per_client if tr.micro_batch is None
+           else min(per_client, max(1, tr.micro_batch // len(batches))))
+    x = torch.randn((chunk,) + IMG, device=dev, generator=g)
+    t = torch.randint(tr.plan.t_split + 1, T + 1, (chunk,), device=dev,
+                      generator=g)
+    x0 = torch.randn((len(batches), per) + IMG, device=dev, generator=g)
+    tc = torch.randint(1, tr.plan.t_split + 1, (len(batches), per),
+                       device=dev, generator=g)
+    probes = {}
+    for functorch in (True, False):
+        probes[("server", functorch)] = grad_probe(
+            tr._server_loss, tr.server_params, (x, t, x), functorch, False)
+        torch.cuda.empty_cache()
+        probes[("client", functorch)] = grad_probe(
+            tr._client_loss, tr.client_stack, (x0, tc, x0), functorch, True)
+        torch.cuda.empty_cache()
+    del x, x0, t, tc
+    steps = {"server": [], "client": []}
+    traced_method(tr, "_server_update", steps["server"], dev)
+    traced_method(tr, "_client_round", steps["client"], dev)
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000,
+                                             stacks="python")
+    m = tr.train_round(batches)
+    torch.cuda.memory._record_memory_history(enabled=None)
+    for name in ("_server_update", "_client_round"):
+        tr.__dict__.pop(name)
+    gb = 1e9
+    print(f"[paper] (a) {label}: {per_client} images a client, {n_img} "
+          f"pooled; server chunks of {chunk}, client chunks of {per} a "
+          f"client | state {state / gb:.2f} GB (parameters and AdamW "
+          f"moments of 4 models)", flush=True)
+    peaks = []
+    for k in ("server", "client"):
+        (peak, (alloc0, res0), events), = steps[k]
+        top, seg, blocks, largest = trace_peak(events)
+        transient = [b for b in blocks
+                     if b[2] is not None and b[2] - b[1] <= TRANSIENT_EVENTS]
+        held, chunk_peak = probes[(k, True)]
+        p_held, p_peak = probes[(k, False)]
+        at_peak = alloc0 + top
+        peaks.append(peak)
+        print(f"[paper] (a) {label}, {k} step: peak {peak / gb:.2f} GB = "
+              f"state {state / gb:.2f} + one chunk's gradient "
+              f"{chunk_peak / gb:.2f} (its forward holds {held / gb:.2f}; "
+              f"plain autograd: {p_held / gb:.2f} held, peak "
+              f"{p_peak / gb:.2f}) + the rest "
+              f"{(peak - state - chunk_peak) / gb:.2f} (the summed "
+              f"gradients: {grads[k] / gb:.2f}) | at the trace's peak "
+              f"({at_peak / gb:.2f} GB): "
+              f"{sum(b[0] for b in transient) / gb:.2f} GB in blocks freed "
+              f"within {TRANSIENT_EVENTS} allocator events (a convolution's "
+              f"workspace), the largest block "
+              f"{(blocks[0][0] if blocks else 0) / gb:.2f} GB; reserved "
+              f"{(res0 + seg) / gb:.2f} GB, of it free "
+              f"{(res0 + seg - at_peak) / gb:.2f} GB | the step's largest "
+              f"allocation {largest[0] / gb:.2f} GB ({largest[1]})",
+              flush=True)
+    return m, max(peaks)
+
+
+def check_chunked(tr, m, ref, ref_m, what, peak):
+    """(b): a chunked round against the unchunked one from the same models
+    and draws: losses within phase 4b's tolerance, parameters after the
+    step within the card-against-CPU bound."""
+    check_losses(m, ref_m, TRAIN_LOSS_TOL, what, tag="paper")
+    gaps = [param_gap(tr.server_params, ref.server_params)] + [
+        param_gap(a, b) for a, b in zip(tr.client_params, ref.client_params)]
+    gmax, gmean = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    print(f"[paper] (b) {what}: parameters after the step max |d| "
+          f"{gmax:.3e} (bound {TRAIN_PARAM_MAX:.4g}), worst model's mean "
+          f"|d| {gmean:.3e} (bound {TRAIN_PARAM_MEAN:.0e}) | peak "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    if gmax > TRAIN_PARAM_MAX or gmean > TRAIN_PARAM_MEAN:
+        raise AssertionError(f"{what}: parameters disagree")
+
+
+def phase_paper(dev, card: str):
+    t_phase = time.perf_counter()
+    ucfg = UNetConfig()
+    fpi = flops_per_image(ucfg)
+    f32_peak = card_rates(card)[1]
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    t0 = time.perf_counter()
+    data, holdout = make_client_datasets(ClientDataConfig(
+        n_clients=TRAIN_CLIENTS, per_client=PAPER_BATCH,
+        image_size=IMG[0], holdout=16))
+    # the initial models built once; each trainer copies their parameters
+    modules = {member_seed(0, m): UNet(ucfg, seed=member_seed(0, m))
+               for m in range(TRAIN_CLIENTS + 1)}
+    cfg = TrainerConfig(n_clients=TRAIN_CLIENTS, T=T, cut_ratio=TRAIN_CUT,
+                        step_backend="triton")
+
+    def trainer(batched, micro):
+        return CollaFuseTrainer(dataclasses.replace(cfg, batched=batched),
+                                modules.__getitem__, device=dev,
+                                flops_per_call=fpi, micro_batch=micro)
+    print(f"[paper] the paper's protocol at full width: paper U-Net "
+          f"({sum(p.numel() for p in modules[member_seed(0, 0)].parameters()):,} "
+          f"parameters) x {TRAIN_CLIENTS + 1}, cosine T={T}, c={TRAIN_CUT}, "
+          f"lr {cfg.lr}, clip {cfg.grad_clip}, f32 without TF32 | {card}, "
+          f"{total_mem / 1e9:.1f} GB | data and models built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    # (a) where phase 4b's memory goes: one batched round at 16 a client
+    # in one piece and in chunks of 16; (b) every chunked round against
+    # the unchunked one of its engine, round 0 from the same models
+    part_s = {}
+    t_part = time.perf_counter()
+    b16 = [d[:TRAIN_BATCH] for d in data]
+    refs, ref_ms = {True: trainer(True, None)}, {}
+    ref_ms[True], _ = memory_round(refs[True], b16, dev, "one piece")
+    tr = trainer(True, MEMORY_CHUNK)
+    m, peak = memory_round(tr, b16, dev, f"chunk {MEMORY_CHUNK}")
+    check_chunked(tr, m, refs[True], ref_ms[True],
+                  f"batched, chunk {MEMORY_CHUNK}", peak)
+    del tr
+    refs[False] = trainer(False, None)
+    ref_ms[False] = refs[False].train_round(b16)
+    for batched in (True, False):
+        for micro in CHUNKS_CHECKED:
+            torch.cuda.empty_cache()
+            tr = trainer(batched, micro)
+            torch.cuda.reset_peak_memory_stats(dev)
+            m = tr.train_round(b16)
+            check_chunked(tr, m, refs[batched], ref_ms[batched],
+                          f"{'batched' if batched else 'looped'}, chunk "
+                          f"{micro}", torch.cuda.max_memory_allocated(dev))
+            del tr
+    del refs
+    torch.cuda.empty_cache()
+    part_s["(a)+(b)"] = time.perf_counter() - t_part
+
+    # (c) the paper's batch: 150 a client, pooled 450, on the looped
+    # engine (phase 4b's faster), then on the batched one if the phase's
+    # budget allows
+    batches = [next(image_batches(d, PAPER_BATCH, seed=k))
+               for k, d in enumerate(data)]
+
+    def paper_rounds(batched):
+        tr = trainer(batched, PAPER_MICRO)
+        steps = {"server": [], "client": []}
+        timed_method(tr, "_server_update", steps["server"])
+        timed_method(tr, "_client_round" if batched else "_client_update",
+                     steps["client"])
+        n_img = TRAIN_CLIENTS * PAPER_BATCH
+        step_flop = 3 * fpi * n_img
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls, hist = [], []
+        for r in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_round(batches)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            hist.append(m)
+            losses = [m["server_loss"]] + m["client_losses"]
+            if not all(np.isfinite(v) for v in losses):
+                raise AssertionError(f"round {r}: non-finite loss {losses}")
+        per_round = 1 if batched else TRAIN_CLIENTS
+        s_ms = float(np.mean([event_ms(p) for p in steps["server"][1:]]))
+        c_ms = float(np.mean([
+            sum(event_ms(p) for p in steps["client"][i:i + per_round])
+            for i in range(per_round, 3 * per_round, per_round)]))
+        w_ms = float(np.mean(walls[1:]))
+        alloc = torch.cuda.max_memory_allocated(dev)
+        res = torch.cuda.max_memory_reserved(dev)
+        engine = "batched" if batched else "looped"
+        print(f"[paper] (c) {engine}: {PAPER_BATCH} images a client, pooled "
+              f"{n_img}, chunks of at most {PAPER_MICRO} images | warm-up "
+              f"round "
+              f"{walls[0]:.1f} ms; 2 timed rounds: round {w_ms:.1f} ms "
+              f"({n_img / w_ms * 1e3:.1f} images/s), server step "
+              f"{s_ms:.1f} ms ({step_flop / s_ms / 1e9:.1f} TFLOP/s, "
+              f"{step_flop / s_ms / 1e9 / (f32_peak / 1e12):.1%} of "
+              f"{f32_peak / 1e12:.0f}), client step{'s' if not batched else ''} "
+              f"{c_ms:.1f} ms ({step_flop / c_ms / 1e9:.1f} TFLOP/s) | "
+              f"max_memory_allocated {alloc / 1e9:.2f} GB, "
+              f"max_memory_reserved {res / 1e9:.2f} GB of "
+              f"{total_mem / 1e9:.1f} | losses server "
+              f"{[round(m['server_loss'], 5) for m in hist]} client mean "
+              f"{[round(m['client_loss_mean'], 5) for m in hist]}",
+              flush=True)
+        if max(alloc, res) >= total_mem:
+            raise AssertionError("the paper's round took the card's whole "
+                                 "memory")
+        for name in ("_server_update", "_client_round", "_client_update"):
+            tr.__dict__.pop(name, None)
+        return tr, w_ms
+
+    t_part = time.perf_counter()
+    tr, looped_ms = paper_rounds(False)
+    part_s["(c) looped"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (d) the checkpoint: the trained trainer saved and restored into a
+    # fresh one, bitwise; trainer.sample through ddpm_step, bitwise
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_paper_") as tmp:
+        path = os.path.join(tmp, "paper")
+        t0 = time.perf_counter()
+        tr.save(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path + ".npz")
+        rt = trainer(False, PAPER_MICRO)
+        t0 = time.perf_counter()
+        rt.restore(path)
+        restore_s = time.perf_counter() - t0
+    same_state = all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(rt.state_tree()),
+                                          tree_leaves(tr.state_tree())))
+    x_tr = tr.sample(7, (2,) + IMG, client_idx=2)
+    ops.reset_launch_counts()
+    x_rt = rt.sample(7, (2,) + IMG, client_idx=2)
+    n_step = ops.launch_counts()["ddpm_step"]
+    print(f"[paper] (d) checkpoint: {size / 1e9:.2f} GB written in "
+          f"{save_s:.1f}s, restored in {restore_s:.1f}s, round "
+          f"{rt.round} | parameters and AdamW states bitwise {same_state} | "
+          f"trainer.sample of the restored trainer (triton) bitwise the "
+          f"original's {torch.equal(x_rt, x_tr)}, finite "
+          f"{bool(torch.isfinite(x_rt).all())}, ddpm_step launches "
+          f"{n_step}", flush=True)
+    if not same_state or rt.round != 3 or not torch.equal(x_rt, x_tr) or \
+            n_step == 0:
+        raise AssertionError("the restored trainer differs, or its sample "
+                             "did not run ddpm_step")
+
+    part_s["(d) checkpoint"] = time.perf_counter() - t_part
+
+    # (e) the paper's evaluation on the trained models
+    t0 = time.perf_counter()
+    ev = hc.evaluate(rt, ucfg, data, holdout, n_gen=PAPER_N_GEN)
+    for k, r in enumerate(ev["per_client"]):
+        print(f"[paper] (e) client {k}: KID train {r['kid_train']:.5f}, "
+              f"holdout {r['kid_holdout']:.5f} | disclosure at "
+              f"c={TRAIN_CUT}: MSE {r['disclosure']['mse']:.5f} KID "
+              f"{r['disclosure']['kid']:.5f}", flush=True)
+    vals = [ev["kid_train_sum"], ev["kid_holdout_sum"]] + [
+        r["disclosure"][k] for r in ev["per_client"] for k in ("mse", "kid")]
+    print(f"[paper] (e) evaluate ({PAPER_N_GEN} images a client): KID sums "
+          f"train "
+          f"{ev['kid_train_sum']:.5f} holdout {ev['kid_holdout_sum']:.5f}, "
+          f"disclosure MSE mean {ev['disclosure_mse_mean']:.5f} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    if not all(np.isfinite(v) for v in vals):
+        raise AssertionError("evaluate gave a non-finite metric")
+    part_s["(e)"] = time.perf_counter() - t0
+    t_part = time.perf_counter()
+
+    # (d) serving: the restored models against the originals through the
+    # engine on cuda_masked (the models leave for the CPU while the
+    # trainers' cached segments are freed, as in phase 4b (f))
+    served = {}
+    for name, t in (("original", tr), ("restored", rt)):
+        served[name] = ([t.server_model().cpu()] +
+                        [t.client_model(k).cpu()
+                         for k in range(TRAIN_CLIENTS)])
+    del tr, rt
+    torch.cuda.empty_cache()
+    # a warm-up serve of one request first: after training, the first
+    # serve runs other cuDNN plans than later ones (its convolutions take
+    # plans whose workspace the training's memory left room for, then fall
+    # back), so an unwarmed pair need not agree bit for bit
+    runs, counts = {}, {}
+    mix = slice_requests(n_clients=TRAIN_CLIENTS)
+    for name, models, requests in (("warm-up", "original", mix[1:2]),
+                                   ("original", "original", mix),
+                                   ("restored", "restored", mix)):
+        server, *clients = [mdl.to(dev) for mdl in served[models]]
+        eng = slice_engine(server, "cuda_masked", 4, dev)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        runs[name] = eng.serve(list(requests), clients)
+        counts[name] = ops.launch_counts()["traj_masked_step"]
+        eng.close()
+        del server, clients, eng
+        print(f"[paper] (d) serve of the {models} models ({name}): "
+              f"{runs[name].wall_s:.2f}s, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+              f"allocated, {torch.cuda.max_memory_reserved(dev) / 1e9:.2f} "
+              f"GB reserved", flush=True)
+    s = runs["restored"].summary
+    same = bitwise(runs["restored"], runs["original"])
+    diffs = {k: (max_diff(runs[k], runs["original"], "x_mid"),
+                 max_diff(runs[k], runs["original"], "x0"))
+             for k in ("warm-up", "restored")}
+    warm_same = bitwise(runs["warm-up"], runs["original"])
+    print(f"[paper] (d) the restored models serve phase 4's mix on "
+          f"cuda_masked: {s['requests']} requests, {s['ticks']} ticks, "
+          f"{s['images_per_s']:.3f} images/s | bitwise the original "
+          f"models' serve {same} | max |d x_mid|, |d x0| against the "
+          f"original's: restored {diffs['restored'][0]:.3e}, "
+          f"{diffs['restored'][1]:.3e}; the warm-up's request "
+          f"{diffs['warm-up'][0]:.3e}, {diffs['warm-up'][1]:.3e} (bitwise "
+          f"{warm_same}) | traj_masked_step launches "
+          f"{counts['restored']} (original {counts['original']})",
+          flush=True)
+    if not same or counts["restored"] == 0:
+        raise AssertionError("the restored models serve differently, or "
+                             "traj_masked_step did not launch")
+    del served, runs
+    torch.cuda.empty_cache()
+    part_s["(d) serve"] = time.perf_counter() - t_part
+
+    # (f) a cut-down cut_ratio_sweep at the example's default size
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rows = cut_ratio_sweep.main([
+                "--device", "cuda", "--rounds", "2", "--cuts", "0.0",
+                "0.8", "1.0", "--per-client", "16", "--holdout", "16",
+                "--batch", "8", "--n-gen", "8", "--out-dir", tmp])
+    fr = {r["cut_ratio"]: r["client_flop_fraction"] for r in rows}
+    _, _, mono = cut_ratio_sweep.hypotheses(rows)
+    for ln in out.getvalue().splitlines():
+        if ln.startswith(("c=", "H1", "H2c")):
+            print(f"[paper] (f) {ln}", flush=True)
+    print(f"[paper] (f) client FLOP share by cut {fr}: monotone {mono}, "
+          f"c=1.0 gives {fr[1.0]} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    if not mono or fr[1.0] != 1.0:
+        raise AssertionError("the client FLOP share is not monotone in c, "
+                             "or c=1.0 is not all the client's")
+    torch.cuda.empty_cache()
+    part_s["(f)"] = time.perf_counter() - t0
+
+    # (c) on the batched engine, when the budget allows it
+    spent = time.perf_counter() - t_phase
+    need = 3 * looped_ms / 1e3 * 1.5
+    if spent + need <= PAPER_BUDGET_S:
+        t_part = time.perf_counter()
+        tr, batched_ms = paper_rounds(True)
+        part_s["(c) batched"] = time.perf_counter() - t_part
+        print(f"[paper] (c) batched {batched_ms:.1f} ms a round against "
+              f"looped {looped_ms:.1f}: batched {looped_ms / batched_ms:.2f}x "
+              f"the looped speed", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    else:
+        print(f"[paper] (c) batched: not run ({spent:.1f}s spent, ~"
+              f"{need:.0f}s more would pass the {PAPER_BUDGET_S:.0f}s "
+              f"budget)", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[paper] phase wall {wall:.1f}s (budget {PAPER_BUDGET_S:.0f}s): "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in part_s.items()),
+          flush=True)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: flash_attention at one Yi-6B layer's prefill shape
 # ---------------------------------------------------------------------------
 def attention_bound_ms(q, k, v, window, card):
@@ -2502,6 +3021,7 @@ def main():
     g = phase_guided(dev, card, unet_ms)
     noise_rows = phase_host(dev, card, unet_ms)
     phase_obs(dev, card)
+    phase_paper(dev, card)
     lm_counts = phase_lm(dev, card)
     hybrid_counts = phase_hybrid(dev, card)
     # the step kernels' launches on this slice's path, guided and gated

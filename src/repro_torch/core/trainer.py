@@ -34,8 +34,26 @@ backbone (built on the CPU, its parameters copied to the device; the module
 itself stays the CPU template ``functional_call`` runs).  ``obs``
 (:mod:`repro_torch.obs`) makes each round a ``train_round`` span and
 publishes ``train_rounds_total`` and the round's losses; the losses are
-host floats already, so it adds no device sync.  The reference's ``mesh``
-has no counterpart on one card.
+host floats already, so it adds no device sync.
+
+``micro_batch`` takes the place of the reference's ``mesh``: where the
+reference shards the pooled server batch over its mesh's ``data`` axis,
+one card runs a step's batch in chunks, one after the other, and sums
+their gradients before the step's single AdamW update.  At most
+``micro_batch`` images go through one forward and backward: the server's
+pooled batch in chunks of ``micro_batch`` images, the vmapped client step
+in chunks of ``micro_batch // n_clients`` images a client (at least one),
+a looped client's batch in chunks of ``micro_batch``; the last chunk may
+be shorter.  Each chunk's loss is weighted by its share of the batch, so
+the summed loss is the batch's mean and the clip sees the whole batch's
+global norm.  The draws are made for the whole batch before it is cut, so
+chunking regroups the arithmetic and changes nothing drawn.  ``None`` (the
+default), or a chunk no smaller than the batch, runs the batch in one
+piece.
+
+:meth:`save` and :meth:`restore` write and read the whole training state
+(parameters, AdamW states, the round counter) through
+:mod:`repro_torch.checkpoint.io`.
 """
 from __future__ import annotations
 
@@ -46,6 +64,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 from torch.func import functional_call, grad_and_value, vmap
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import collafuse
 from repro_torch.core.collafuse import CutPlan, NoiseSource, TrainDraws
 from repro_torch.device import DeviceLike, resolve_device
@@ -94,8 +113,12 @@ class CollaFuseTrainer:
                  model_factory: Callable[[int], torch.nn.Module],
                  device: DeviceLike = "cuda",
                  flops_per_call: Optional[float] = None,
-                 draws: Any = None, obs=None):
+                 draws: Any = None, obs=None,
+                 micro_batch: Optional[int] = None):
         self.cfg = cfg
+        if micro_batch is not None and micro_batch < 1:
+            raise ValueError(f"micro_batch={micro_batch}: must be >= 1")
+        self.micro_batch = micro_batch
         self.device = resolve_device(device)
         # None (off), an ObsConfig, or an Observability shared with an
         # engine
@@ -137,6 +160,7 @@ class CollaFuseTrainer:
         self.flops_per_call = (flops_per_call if flops_per_call is not None
                                else 6.0 * n_params)
         self.metrics_history: List[Dict] = []
+        self.round = 0                    # rounds trained; keys the draws
         self._server_loss = collafuse.server_loss_fn(self._apply)
         self._client_loss = collafuse.client_loss_fn(
             self.sched, self._apply, num_classes=cfg.num_classes)
@@ -219,8 +243,9 @@ class CollaFuseTrainer:
     # updates
     # ------------------------------------------------------------------
     def _server_update(self, x_t, t, eps, y):
-        grads, loss = grad_and_value(self._server_loss)(
-            self.server_params, x_t, t, eps, y)
+        grads, loss = _chunked_grads(grad_and_value, self._server_loss,
+                                     self.server_params, (x_t, t, eps, y),
+                                     0, self.micro_batch)
         self.server_params, self.server_opt, m = adamw.apply_updates(
             self.server_params, grads, self.server_opt, self.opt_cfg)
         return loss, m["grad_norm"]
@@ -231,8 +256,11 @@ class CollaFuseTrainer:
         losses."""
         # labels and drop masks ride along only where they exist
         extra = tuple(a for a in (y_stack, drop) if a is not None)
-        grads, losses = vmap(grad_and_value(self._client_loss))(
-            self.client_stack, x0_stack, t, eps, *extra)
+        per_client = (None if self.micro_batch is None
+                      else max(1, self.micro_batch // x0_stack.shape[0]))
+        grads, losses = _chunked_grads(
+            lambda f: vmap(grad_and_value(f)), self._client_loss,
+            self.client_stack, (x0_stack, t, eps) + extra, 1, per_client)
         (self._client_stack, self._client_opt_stack,
          _) = adamw.apply_updates_stacked(self.client_stack, grads,
                                           self.client_opt_stack, self.opt_cfg)
@@ -240,8 +268,9 @@ class CollaFuseTrainer:
         return losses
 
     def _client_update(self, params, opt, x0, t, eps, y, drop):
-        grads, loss = grad_and_value(self._client_loss)(params, x0, t, eps,
-                                                         y, drop)
+        grads, loss = _chunked_grads(grad_and_value, self._client_loss,
+                                     params, (x0, t, eps, y, drop), 0,
+                                     self.micro_batch)
         params, opt, _ = adamw.apply_updates(params, grads, opt,
                                              self.opt_cfg)
         return params, opt, loss
@@ -279,7 +308,7 @@ class CollaFuseTrainer:
         else:
             labels = None
         uniform = len({tuple(b.shape) for b in batches}) == 1
-        rnd = len(self.metrics_history)
+        rnd = self.round
         with self.obs.tracer.span("train_round", cat="train", round=rnd):
             if self.cfg.batched and uniform:
                 metrics = self._train_round_batched(batches, labels)
@@ -290,6 +319,7 @@ class CollaFuseTrainer:
         metrics.update(collafuse.flops_split(self.plan, self.flops_per_call,
                                              batches[0].shape[0]))
         self.metrics_history.append(metrics)
+        self.round += 1
         if self.obs:
             reg = self.obs.registry
             reg.counter("train_rounds_total",
@@ -305,7 +335,7 @@ class CollaFuseTrainer:
         return metrics
 
     def _train_round_batched(self, batches, labels) -> Dict:
-        rnd = len(self.metrics_history)
+        rnd = self.round
         x0_stack = torch.stack(batches)
         y_stack = None if labels is None else torch.stack(labels)
         metrics: Dict[str, Any] = {}
@@ -331,7 +361,7 @@ class CollaFuseTrainer:
     def _train_round_looped(self, batches, labels) -> Dict:
         """Reference engine: one update per client (O(n_clients)
         dispatches)."""
-        rnd = len(self.metrics_history)
+        rnd = self.round
         ys = labels if labels is not None else [None] * self.cfg.n_clients
         metrics: Dict[str, Any] = {}
         if self.plan.n_server_steps > 0:
@@ -364,6 +394,45 @@ class CollaFuseTrainer:
             metrics["client_loss_mean"] = sum(closses) / len(closses)
             metrics["client_losses"] = closses
         return metrics
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def state_tree(self) -> Dict:
+        """The training state as one tree of tensors: the server's
+        parameters and AdamW state, and the clients' as [n_clients, ...]
+        stacks (whichever engine runs)."""
+        return {"server": {"params": self.server_params,
+                           "opt": self.server_opt},
+                "clients": {"params": self.client_stack,
+                            "opt": self.client_opt_stack}}
+
+    def save(self, path: str) -> None:
+        """Write :meth:`state_tree` to ``path`` (.npz), the rounds trained
+        as its step."""
+        ckpt_io.save_checkpoint(path, self.state_tree(), step=self.round)
+
+    def restore(self, path: str) -> None:
+        """Read a checkpoint written by :meth:`save` (by a trainer of either
+        engine with the same backbone and ``n_clients``) into this trainer:
+        parameters and AdamW states bitwise, on this trainer's device, and
+        the round counter, so the next round draws what the saved trainer's
+        next round would have drawn."""
+        tree = ckpt_io.restore_checkpoint(path, self.state_tree())
+        self.server_params = tree["server"]["params"]
+        self.server_opt = tree["server"]["opt"]
+        stack, opt_stack = tree["clients"]["params"], tree["clients"]["opt"]
+        if self._client_list is not None:
+            n = self.cfg.n_clients
+            self._client_list = [_clone_tree(adamw.tree_unstack(stack, c))
+                                 for c in range(n)]
+            self._client_opt_list = [
+                _clone_tree(adamw.tree_unstack(opt_stack, c))
+                for c in range(n)]
+        else:
+            self._client_stack, self._client_opt_stack = stack, opt_stack
+        self.round = ckpt_io.checkpoint_step(path) or 0
+        self.metrics_history = []
 
     # ------------------------------------------------------------------
     # the trained models
@@ -431,6 +500,47 @@ class CollaFuseTrainer:
         return collafuse.disclosed_at_split(
             self.sched, self.plan, server_fn, seed, x0,
             backend=self.step_backend, sampler=self.sampler, noise=noise)
+
+
+def _pieces(n: int, size: Optional[int]):
+    """[(start, stop)] cutting range(n) into pieces of at most ``size``
+    (the last one shorter); one piece when ``size`` is None."""
+    if size is None or size >= n:
+        return [(0, n)]
+    return [(lo, min(lo + size, n)) for lo in range(0, n, size)]
+
+
+def _chunked_grads(transform, loss_fn, params, args, axis: int,
+                   size: Optional[int]):
+    """(gradients, loss) of ``transform(loss_fn)`` (``grad_and_value``,
+    or that under ``vmap``) on a batch along ``axis`` of every tensor of
+    ``args`` (None rides along), run in pieces of at most ``size``: each
+    piece's loss weighted by its share of the batch, the gradients and
+    losses summed, so the sums are the whole batch's mean loss and its
+    gradient.  One piece is the plain call."""
+    n = args[0].shape[axis]
+    pieces = _pieces(n, size)
+    if len(pieces) == 1:
+        return transform(loss_fn)(params, *args)
+    grads = loss = None
+    for lo, hi in pieces:
+        w = (hi - lo) / n
+        part = [None if a is None else a.narrow(axis, lo, hi - lo)
+                for a in args]
+        g, v = transform(lambda p, *a: w * loss_fn(p, *a))(params, *part)
+        if grads is None:
+            grads, loss = g, v
+        else:
+            torch._foreach_add_(list(grads.values()),
+                                [g[k] for k in grads])
+            loss = loss + v
+    return grads, loss
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 def _stack_draws(per_client):

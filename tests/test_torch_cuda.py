@@ -635,6 +635,90 @@ def test_training_round_batched_matches_looped_and_cpu_on_cuda():
                 (key, gmax, gmean)
 
 
+# the pooled batch in chunks: chunked against unchunked from the same
+# models and draws.  The chunks' convolutions run at other batch sizes,
+# where cuDNN may pick other algorithms: the losses are held to phase 4b's
+# batched-against-looped tolerance, the parameters after one step to the
+# card-against-CPU bound above
+CHUNK_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _chunk_trainer(cfg, batched, micro_batch, device="cuda"):
+    from repro_torch.core.trainer import CollaFuseTrainer, TrainerConfig
+    from repro_torch.models.unet import UNet
+    return CollaFuseTrainer(TrainerConfig(n_clients=3, T=100, cut_ratio=0.8,
+                                          batched=batched),
+                            lambda s: UNet(cfg, seed=s % 9973),
+                            device=device, micro_batch=micro_batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["reduced", "launcher"])
+@pytest.mark.parametrize("batched", [True, False])
+def test_chunked_training_round_matches_unchunked_on_cuda(config, batched):
+    _require_cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import UNetConfig
+    from repro_torch.data.synthetic import (ClientDataConfig,
+                                            make_client_datasets)
+    from repro_torch.launch.serve_diffusion import launcher_config
+    cfg = UNetConfig().reduced() if config == "reduced" else \
+        launcher_config(16)
+    data, _ = make_client_datasets(ClientDataConfig(
+        n_clients=3, per_client=6, image_size=cfg.image_size, holdout=2))
+    ref = _chunk_trainer(cfg, batched, None)
+    m_ref = ref.train_round(data)
+    for micro in (5, 2):
+        tr = _chunk_trainer(cfg, batched, micro)
+        m = tr.train_round(data)
+        np.testing.assert_allclose(m["server_loss"], m_ref["server_loss"],
+                                   **CHUNK_LOSS_TOL)
+        np.testing.assert_allclose(m["client_losses"],
+                                   m_ref["client_losses"], **CHUNK_LOSS_TOL)
+        for a, b in [(tr.server_params, ref.server_params)] + \
+                list(zip(tr.client_params, ref.client_params)):
+            gmax, gmean = _param_gap(a, b)
+            assert gmax <= TRAIN_PARAM_MAX and gmean <= TRAIN_PARAM_MEAN, \
+                (micro, gmax, gmean)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trips_on_cuda(tmp_path):
+    """A trained trainer on the card saved and restored into a fresh one
+    (and into one on the CPU): parameters and AdamW states bitwise, on each
+    trainer's device; a bf16 leaf on the card bitwise."""
+    _require_cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import UNetConfig
+    from repro_torch.data.synthetic import (ClientDataConfig,
+                                            make_client_datasets)
+    cfg = UNetConfig().reduced()
+    data, _ = make_client_datasets(ClientDataConfig(
+        n_clients=3, per_client=4, image_size=cfg.image_size, holdout=2))
+    tr = _chunk_trainer(cfg, True, 4)
+    tr.train_round(data)
+    tr.save(str(tmp_path / "tr"))
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        return [tree]
+    for dev in ("cuda", "cpu"):
+        fresh = _chunk_trainer(cfg, dev == "cpu", None, device=dev)
+        fresh.restore(str(tmp_path / "tr.npz"))
+        assert fresh.round == 1
+        for a, b in zip(leaves(fresh.state_tree()), leaves(tr.state_tree())):
+            assert a.device.type == dev and torch.equal(a.cpu(), b.cpu())
+    x = torch.randn((3, 5), device="cuda").to(torch.bfloat16)
+    ckpt_io.save_checkpoint(str(tmp_path / "bf16"), {"x": x})
+    back = ckpt_io.restore_checkpoint(str(tmp_path / "bf16"),
+                                      {"x": torch.empty_like(x)})["x"]
+    assert back.is_cuda and back.dtype == torch.bfloat16
+    assert torch.equal(back, x)
+
+
 # ---------------------------------------------------------------------------
 # the serving engine's host path: the lane-noise kernel, captured windows,
 # spare columns and the streamed finisher on the card

@@ -32,6 +32,8 @@ bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "repro" or n.startswith("repro."))
 print("MODULES", len([n for n in sys.modules if n.startswith("repro_torch")]))
+print("NAMES", ",".join(sorted(n for n in sys.modules
+                               if n.startswith("repro_torch."))))
 print("BAD", bad)
 """
 
@@ -43,9 +45,16 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = dict(ln.split(" ", 1) for ln in proc.stdout.splitlines()
-                 if ln.startswith(("MODULES", "BAD")))
+                 if ln.startswith(("MODULES", "NAMES", "BAD")))
     assert int(lines["MODULES"]) >= 20
     assert lines["BAD"] == "[]", lines["BAD"]
+    # the checkpoint module and the examples among what was imported
+    assert {"repro_torch.checkpoint.io", "repro_torch.core.trainer",
+            "repro_torch.examples.collafuse_healthcare",
+            "repro_torch.examples.cut_ratio_sweep",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.privacy_admission_sweep"} <= set(
+                lines["NAMES"].split(","))
 
 
 def test_port_sources_name_no_jax_repro_or_environment():
@@ -114,10 +123,14 @@ def test_trainer_and_training_launcher_default_to_cuda():
 
 def test_guards_cover_the_training_modules():
     """The import and source-word guards above walk every module of the
-    package: the training slice's among them."""
+    package: the training slice's, the checkpoint module and the examples
+    among them."""
     names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"core/trainer.py", "core/privacy.py", "optim/adamw.py",
-            "data/synthetic.py", "launch/clients_sweep.py"} <= names
+            "data/synthetic.py", "launch/clients_sweep.py",
+            "checkpoint/io.py", "examples/collafuse_healthcare.py",
+            "examples/cut_ratio_sweep.py", "examples/quickstart.py",
+            "examples/privacy_admission_sweep.py"} <= names
 
 
 @pytest.mark.parametrize("var,value", [("REPRO_PALLAS_INTERPRET", "0"),
