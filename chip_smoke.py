@@ -124,6 +124,22 @@ Phases, each printing its own lines:
    train and holdout, disclosure MSE and KID; (f) ``cut_ratio_sweep`` at
    its default size, cuts {0, 0.8, 1}: the client FLOP share monotone in
    c and all the client's at c = 1;
+4g. pod — pod mode as two host processes on the one card, joined by a
+   gloo group (run before 4f, with the parent's cache emptied before each
+   child): (a) two ``repro_torch.launch.pod_smoke`` processes (8 slots, 7
+   requests, ``--clients 3 --pack --trace-out``) in stream and in drain
+   mode: the union of their owned rows (x_mid and x0) bitwise the
+   in-process single host's artifact, retire ticks equal, guided pairs
+   across the two blocks, the merged trace one pid a host; (b) the paper
+   U-Net with 4 classes (random weights from a seed), T = 100, DDPM, DDIM
+   K = 20 and guided DDPM (w 1.5), 8 slots, k = 4, async_depth 2, 8
+   requests, served by ``serve_diffusion --devices 2 --mesh-shape 2x1``
+   against ``--devices 1``: the union's difference from the single host
+   (or, where a lane's bits follow the model call's width, which it
+   prints, within the stated tolerance and a second pod run bitwise the
+   first), retire ticks equal, each host's ms a tick, images/s, kernel
+   launches, halo lanes and peak memory, and the pod's images/s against
+   the single host's;
 5. LM slice — Yi-6B at full width and depth in bf16 (random weights from a
    seed): (a) prefill of 4x2048 tokens through the flash kernel, 32
    launches a call, timed and profiled; (b) the same batch through
@@ -151,6 +167,8 @@ import itertools
 import json
 import os
 import re
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -190,8 +208,9 @@ from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.unet import UNet, flops_per_image  # noqa: E402
-from repro_torch.obs import (STAGES, load_trace, read_jsonl,  # noqa: E402
-                             validate_events)
+from repro_torch.launch import pod_smoke  # noqa: E402
+from repro_torch.obs import (STAGES, load_trace, merge_traces,  # noqa: E402
+                             read_jsonl, validate_events)
 from repro_torch.serve import (AdmissionPolicy, EngineConfig,  # noqa: E402
                                ObsConfig, Request, ServeEngine,
                                make_scheduler)
@@ -1974,6 +1993,32 @@ PAPER_BATCH, PAPER_MICRO = 150, hc.FULL_MICRO_BATCH
 # broken down beside the unchunked one, (b) the chunks held against the
 # unchunked round (5: ragged, its last chunk shorter)
 MEMORY_CHUNK, CHUNKS_CHECKED = 16, (8, 5)
+POD_SLOTS = 8
+# the pod smoke's queue: 7 requests put request 5's two guided pairs across
+# the two hosts' blocks (lanes 2, 3 with 4, 5)
+POD_SMOKE_REQUESTS = 7
+# the full-width pod: the paper U-Net with 4 classes, T = 100, the menu
+# DDPM, DDIM K = 20 and ddpm_g at w 1.5, 8 slots, k = 4, async_depth 2,
+# 8 requests on one client; these cuts put guided pairs across the blocks
+POD_FULL_ARGS = ["--config", "paper", "--num-classes", "4", "--guidance",
+                 "1.5", "--mix", "--sampler", "ddim", "--num-steps", "20",
+                 "--T", "100", "--slots", str(POD_SLOTS),
+                 "--ticks-per-dispatch", "4", "--async-depth", "2",
+                 "--requests", "8", "--cut-ratios", "0.5", "0.5", "0.75",
+                 "--clients", "1", "--seed", "0"]
+# extra flags of every child (the CPU rehearsal adds --device cpu)
+POD_CHILD_ARGS: list = []
+POD_CHILD_TIMEOUT_S = 300.0
+# the full-width pod against the single host: a pod host calls the U-Net
+# on its 4 lanes in a solo window, where the single host calls it on 8, and
+# on the card a lane's ε̂ differs by a few ulps between the two widths
+# (phase 4g (b) prints it; tools/pod_width.py).  The chain amplifies that
+# as it amplifies the backends' 1-ulp differences, so the pod is held to
+# the bound phase 4 holds the backends to (check_backends_agree), and a
+# second pod run to the first bitwise
+POD_FULL_TOL = 1e-2
+
+
 PAPER_BUDGET_S = 150.0
 # images generated a client by (e)'s evaluate (the unbiased KID needs 2)
 PAPER_N_GEN = 4
@@ -2180,6 +2225,238 @@ def check_chunked(tr, m, ref, ref_m, what, peak):
           f"{peak / 1e9:.2f} GB", flush=True)
     if gmax > TRAIN_PARAM_MAX or gmean > TRAIN_PARAM_MEAN:
         raise AssertionError(f"{what}: parameters disagree")
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_children(cmds, timeout_s: float = POD_CHILD_TIMEOUT_S):
+    """Start every command at once from ``src/``, each in a session of its
+    own, and wait for all of them; at the deadline kill each one's whole
+    process group.  Raises unless every command exits 0.  Returns each
+    one's standard output."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for i, cmd in enumerate(cmds):
+            out = open(Path(tmp) / f"{i}.out", "w+")
+            procs.append((subprocess.Popen(
+                [str(c) for c in cmd], cwd=ROOT / "src", stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True), out))
+        deadline = time.monotonic() + timeout_s
+        try:
+            for proc, _ in procs:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for proc, _ in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        texts = []
+        for (proc, out), cmd in zip(procs, cmds):
+            out.seek(0)
+            texts.append(out.read())
+            out.close()
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"{' '.join(str(c) for c in cmd[1:4])} exited "
+                    f"{proc.returncode}:\n{texts[-1][-3000:]}")
+        return texts
+
+
+def straddling_pairs(res, slots: int, hosts: int):
+    """(req_id, primary lane, shadow lane) of every guided pair whose two
+    lanes lie in different hosts' blocks, from the admission timelines."""
+    block = slots // hosts
+    out = []
+    for rid, events in sorted(res.timelines.items()):
+        r = res.completions[rid].request
+        for e in events:
+            if e["stage"] == "admitted" and "lanes" in e and \
+                    len(e["lanes"]) == 2 * r.batch:
+                ln = e["lanes"]
+                out += [(rid, ln[i], ln[r.batch + i]) for i in range(r.batch)
+                        if ln[i] // block != ln[r.batch + i] // block]
+    return out
+
+
+def width_gap(dev, ucfg, lanes: int, width: int):
+    """max |Δ| of ``lanes`` lanes through the launcher's server U-Net in
+    calls of ``width`` lanes against one call of all of them."""
+    model = UNet(ucfg, seed=0).to(dev).eval()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((lanes, ucfg.image_size, ucfg.image_size,
+                     ucfg.in_channels), generator=g).to(dev)
+    t = torch.randint(1, T, (lanes,), generator=g).to(dev)
+    y = torch.randint(0, ucfg.num_classes + 1, (lanes,), generator=g).to(dev)
+    with torch.inference_mode():
+        one = model(x, t, y)
+        split = torch.cat([model(x[a:a + width], t[a:a + width],
+                                 y[a:a + width])
+                           for a in range(0, lanes, width)])
+    gap = (one - split).abs().max().item()
+    del model
+    return gap
+
+
+def fresh_width_gaps(tmp: Path):
+    """``tools/pod_width.py`` in a fresh process, as the launcher's hosts
+    start: {(model, width, how): max |Δ|} of a lane's ε̂ against one call
+    of all lanes."""
+    torch.cuda.empty_cache()
+    out = tmp / "pod_width.json"
+    run_children([[sys.executable, ROOT / "tools" / "pod_width.py",
+                   "--slots", POD_SLOTS, "--json", out, *POD_CHILD_ARGS,
+                   *(["--image", IMG[0]] if POD_CHILD_ARGS else [])]])
+    return {(r["model"], r["width"], r["how"]): r["max_abs"]
+            for r in json.loads(out.read_text())["rows"]}
+
+
+def full_pod_run(tmp: Path, label: str, mesh: list):
+    """``serve_diffusion`` at full width with ``mesh`` flags: its merged
+    summary and its joined rows, the parent's cache emptied first."""
+    torch.cuda.empty_cache()
+    out, js = tmp / f"{label}.npz", tmp / f"{label}.json"
+    t0 = time.perf_counter()
+    run_children([[sys.executable, "-m", "repro_torch.launch.serve_diffusion",
+                   *POD_FULL_ARGS, *POD_CHILD_ARGS, *mesh, "--out", out,
+                   "--json", js]])
+    wall = time.perf_counter() - t0
+    rows = np.load(out)
+    return json.loads(js.read_text()), {k: rows[k] for k in rows.files}, wall
+
+
+def rows_gap(a: dict, b: dict):
+    """(same keys, equal ticks, bitwise, max |Δ| of x_mid, of x0) of two
+    joined row sets."""
+    if sorted(a) != sorted(b):
+        return False, False, False, float("inf"), float("inf")
+    ticks = all(np.array_equal(a[k], b[k]) for k in a if k.startswith("ticks"))
+    same = all(np.array_equal(a[k], b[k]) for k in a)
+
+    def gap(prefix):
+        return max(float(np.abs(a[k] - b[k]).max()) for k in a
+                   if k.startswith(prefix))
+    return True, ticks, same, gap("x_mid_"), gap("x0_")
+
+
+def phase_pod(dev, card: str):
+    """4g: pod mode, two host processes on the one card."""
+    t_phase = time.perf_counter()
+    print(f"[4g] pod mode: 2 host processes on one {card}, gloo, "
+          f"{POD_SLOTS} slots", flush=True)
+    # (a) the pod smoke's protocol
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for mode in ("stream", "drain"):
+            t0 = time.perf_counter()
+            res = pod_smoke.serve_pod(
+                1, 0, POD_SLOTS, POD_SMOKE_REQUESTS, 4, 2, clients=3,
+                finish_mode=mode, pack=True, device=dev,
+                obs=ObsConfig(trace=False, timelines=True))
+            ref = pod_smoke.artifact(res, 0)
+            straddle = straddling_pairs(res, POD_SLOTS, 2)
+            del res
+            torch.cuda.empty_cache()
+            port, trace = free_port(), tmp / f"trace_{mode}.json"
+            run_children([[sys.executable, "-m",
+                           "repro_torch.launch.pod_smoke", "--coordinator",
+                           f"127.0.0.1:{port}", "--num-processes", "2",
+                           "--process-id", h, "--out", tmp / f"pod{h}.json",
+                           "--slots", POD_SLOTS, "--requests",
+                           POD_SMOKE_REQUESTS, "--clients", 3,
+                           "--finish-mode", mode, "--pack", "--trace-out",
+                           trace, *POD_CHILD_ARGS] for h in (0, 1)])
+            arts = [json.loads((tmp / f"pod{h}.json").read_text())
+                    for h in (0, 1)]
+            union = pod_smoke.union(arts)
+            same = union == ref
+            ticks = all(union["completions"][r]["retire_tick"] ==
+                        ref["completions"][r]["retire_tick"]
+                        for r in ref["completions"])
+            n_events = merge_traces([f"{trace}.host0", f"{trace}.host1"],
+                                    tmp / "merged.json")
+            pids = sorted({e["pid"] for e in load_trace(tmp / "merged.json")})
+            print(f"[4g] (a) pod_smoke {mode} --clients 3 --pack: union of "
+                  f"{sum(len(a['completions']) for a in arts)} host records "
+                  f"bitwise the single host {same} (x_mid and x0), retire "
+                  f"ticks equal {ticks}, straddling guided pairs "
+                  f"{straddle}, merged trace {n_events} events, pids {pids}"
+                  f", {time.perf_counter() - t0:.1f}s", flush=True)
+            if not (same and ticks and straddle and pids == [0, 1]):
+                raise AssertionError(f"pod smoke ({mode}) failed")
+    # (b) full width: the paper U-Net, serve_diffusion --devices 2 against 1
+    ucfg = dataclasses.replace(UNetConfig(), num_classes=4,
+                               image_size=IMG[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        single, single_rows, single_wall = full_pod_run(
+            tmp, "single", ["--devices", "1", "--mesh-shape", "1x1"])
+        pod, pod_rows, pod_wall = full_pod_run(
+            tmp, "pod", ["--devices", "2", "--mesh-shape", "2x1"])
+        keys, ticks, same, gap_mid, gap_x0 = rows_gap(single_rows, pod_rows)
+        gap = max(gap_mid, gap_x0)
+        block = POD_SLOTS // 2
+        gap_w = width_gap(dev, ucfg, POD_SLOTS, block)
+        fresh = fresh_width_gaps(tmp)
+        print(f"[4g] (b) {pod['mesh']} against data:1xmodel:1, paper U-Net "
+              f"4 classes, {pod['requests']} requests ({pod['images']} "
+              f"images), {pod['ticks']} ticks: union bitwise the single "
+              f"host {same}, max |d| x_mid {gap_mid:.3g} x0 {gap_x0:.3g}, "
+              f"retire ticks equal {ticks}; launcher walls "
+              f"{single_wall:.1f}s and {pod_wall:.1f}s", flush=True)
+        print(f"[4g] (b) the cause: a lane's eps from one U-Net call of "
+              f"{POD_SLOTS} lanes against calls of {block}, max |d| "
+              f"{fresh[('paper_unet', block, 'chunks')]:.3g} in a fresh "
+              f"process (tools/pod_width.py, as the launcher's hosts start; "
+              f"rolled lanes "
+              f"{fresh[('paper_unet', POD_SLOTS, 'rolled')]:.3g}, the "
+              f"pod smoke's MLP {fresh[('pod_mlp', block, 'chunks')]:.3g}) "
+              f"and {gap_w:.3g} in this process after the earlier phases "
+              "(cuDNN's plans follow the width and the process's history)",
+              flush=True)
+        for label, run in (("single", single), ("pod", pod)):
+            for r in run["hosts"]:
+                peak = "n/a" if r["peak_gb"] is None else \
+                    f"{r['peak_gb']:.2f} GB ({r['peak_reserved_gb']:.2f} " \
+                    "reserved)"
+                print(f"[4g] (b) {label} host {r['host']}: "
+                      f"{r['ms_per_tick']:.2f} ms a tick (the measured "
+                      f"serve's wall, streamed finisher included, over "
+                      f"{r['ticks']} ticks), {r['images_per_s']:.3f} "
+                      f"images/s, launches "
+                      f"traj_masked_step {r['launches']['traj_masked_step']} "
+                      f"lane_noise {r['launches']['lane_noise']}, "
+                      f"{r['halo_lanes']} halo lane-windows, peak {peak}",
+                      flush=True)
+        ratio = pod["pod_images_per_s"] / single["pod_images_per_s"]
+        print(f"[4g] (b) images/s: pod {pod['pod_images_per_s']:.3f} "
+              f"against single host {single['pod_images_per_s']:.3f} "
+              f"({ratio:.3f}x; two processes time-slice one card)",
+              flush=True)
+        ok = keys and ticks and all(
+            r["launches"]["traj_masked_step"] > 0 and
+            r["launches"]["lane_noise"] > 0 for r in pod["hosts"]) and \
+            any(r["halo_lanes"] > 0 for r in pod["hosts"])
+        if ok and not same:
+            # a lane's bits follow the call's width: hold the pod to the
+            # stated tolerance, and a second pod run to the first bitwise
+            _, again_rows, _ = full_pod_run(
+                tmp, "pod2", ["--devices", "2", "--mesh-shape", "2x1"])
+            _, ticks2, same2, *gaps2 = rows_gap(pod_rows, again_rows)
+            gap2 = max(gaps2)
+            print(f"[4g] (b) second pod run bitwise the first {same2} "
+                  f"(max |d| {gap2:.3g}), ticks equal {ticks2}; the pod "
+                  f"within {POD_FULL_TOL:g} of the single host "
+                  f"{gap <= POD_FULL_TOL}", flush=True)
+            ok = same2 and ticks2 and gap <= POD_FULL_TOL
+        if not ok:
+            raise AssertionError("full-width pod failed")
+    print(f"[4g] pod phase {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
 def phase_paper(dev, card: str):
@@ -3021,6 +3298,7 @@ def main():
     g = phase_guided(dev, card, unet_ms)
     noise_rows = phase_host(dev, card, unet_ms)
     phase_obs(dev, card)
+    phase_pod(dev, card)
     phase_paper(dev, card)
     lm_counts = phase_lm(dev, card)
     hybrid_counts = phase_hybrid(dev, card)

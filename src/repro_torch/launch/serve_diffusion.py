@@ -1,4 +1,5 @@
-"""Diffusion serving launcher — the continuous-batching engine on one card.
+"""Diffusion serving launcher — the continuous-batching engine on one card
+(or a pod of host processes, ``--devices``).
 
 Runs the CollaFuse server segment for a stream of generation requests
 (mixed cut-ratios / batch sizes / arrival ticks / samplers) through the
@@ -32,10 +33,25 @@ measured serve's Chrome trace (host-loop spans, one track a request),
 windows, and ``--profile-dir`` writes a ``torch.profiler`` trace of each
 serve's first ``--profile-windows`` windows.  The default device is CUDA;
 without a card the launcher raises unless ``--device cpu`` is given.
+
+Pod mode: ``--devices N --mesh-shape Nx1`` starts N host processes (the
+``spawn`` start method, which CUDA needs) joined by a gloo group, each a pod
+host with ``slots / N`` lanes on the device (all on the one card, or the
+CPU) over one shared queue.  Host 0 prints ``mesh=data:Nxmodel:1``, each
+host's ms a tick, images/s, kernel launches and peak memory, and the pod's
+images/s, and writes the merged ``--json`` and ``--out``.  A model axis
+above 1 raises::
+
+    python -m repro_torch.launch.serve_diffusion --devices 2 \
+        --mesh-shape 2x1 --device cpu --config launcher --T 10 \
+        --requests 6 --slots 4
 """
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import socket
 import time
 
 
@@ -139,6 +155,18 @@ def _parse_args(argv=None):
                          "first --profile-windows windows into this "
                          "directory")
     ap.add_argument("--profile-windows", type=int, default=4)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="pod mode: N host processes (torch.multiprocessing, "
+                         "spawn), each a pod host with slots/N lanes on its "
+                         "device (the same card, or the CPU), over one "
+                         "shared queue; 0 = one process, no pod")
+    ap.add_argument("--mesh-shape", default="",
+                    help="DxM, e.g. 2x1: D pod hosts on the data axis; a "
+                         "model axis M > 1 is not ported yet")
+    ap.add_argument("--out", default="",
+                    help="write every completion's x_mid and x0 (the pod's "
+                         "owned rows joined on host 0) and its admit and "
+                         "retire ticks to this .npz")
     return ap.parse_args(argv)
 
 
@@ -153,6 +181,90 @@ def launcher_config(image: int = 8, num_classes: int = 0):
 
 def main(argv=None):
     args = _parse_args(argv)
+    if not (args.devices or args.mesh_shape):
+        _serve(args)
+        return
+    from repro_torch.launch.mesh import host_mesh
+    mesh = host_mesh(args.mesh_shape, args.devices or None)
+    if mesh[0] == 1:
+        _serve(args, mesh=mesh)
+        return
+    import torch.multiprocessing as mp
+    # CUDA needs fresh interpreters: the spawn start method
+    mp.start_processes(_pod_host, args=(args, mesh, _free_port()),
+                       nprocs=mesh[0], start_method="spawn")
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _pod_host(rank: int, args, mesh, port: int) -> None:
+    """One pod host: join the gloo group, then serve as host ``rank``."""
+    import torch
+
+    from repro_torch.launch.mesh import init_pod
+    if args.device == "cpu":
+        # the hosts share the machine's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // mesh[0]))
+    pod = init_pod(f"127.0.0.1:{port}", mesh[0], rank)
+    try:
+        if rank == 0:
+            _serve(args, pod, mesh)
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                _serve(args, pod, mesh)
+    finally:
+        pod.close()
+
+
+def _owned(res) -> dict:
+    """This host's rows of every completion: {req_id: (admit tick, retire
+    tick, batch, owned images, their x_mid rows, their x0 rows)}."""
+    out = {}
+    for rid, comp in res.completions.items():
+        own = [int(i) for i in range(comp.request.batch) if comp.owned[i]]
+        out[rid] = (int(comp.admit_tick), int(comp.retire_tick),
+                    comp.request.batch, own, comp.x_mid[own],
+                    None if comp.x0 is None else comp.x0[own])
+    return out
+
+
+def _merge_rows(parts, path: str) -> None:
+    """Join the hosts' :func:`_owned` rows into one ``.npz``: per request
+    ``x_mid_<id>``, ``x0_<id>`` and ``ticks_<id>`` (admit, retire).  Raises
+    when hosts disagree on a request's ticks or leave a row unowned."""
+    import numpy as np
+    arrays = {}
+    for rid in sorted(parts[0]):
+        admit, retire, batch, _, xm, x0 = parts[0][rid]
+        x_mid = np.zeros((batch,) + xm.shape[1:], np.float32)
+        x_0 = None if x0 is None else np.zeros_like(x_mid)
+        seen = np.zeros(batch, bool)
+        for part in parts:
+            a, r, _, own, xm, x0 = part[rid]
+            if (a, r) != (admit, retire):
+                raise RuntimeError(f"request {rid}: hosts disagree on its "
+                                   f"ticks ({a}, {r}) != ({admit}, {retire})")
+            seen[own] = True
+            x_mid[own] = xm
+            if x_0 is not None:
+                x_0[own] = x0
+        if not seen.all():
+            raise RuntimeError(f"request {rid}: rows {np.nonzero(~seen)[0]} "
+                               "owned by no host")
+        arrays[f"x_mid_{rid}"] = x_mid
+        if x_0 is not None:
+            arrays[f"x0_{rid}"] = x_0
+        arrays[f"ticks_{rid}"] = np.array([admit, retire])
+    np.savez(path, **arrays)
+
+
+def _serve(args, pod=None, mesh=None):
+    """The launcher on one process: the single host, or host
+    ``pod.host_id`` of a pod over the ``mesh`` (data, model) shape."""
     import numpy as np
     import torch
 
@@ -160,6 +272,7 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.diffusion.sampler import make_sampler
     from repro_torch.diffusion.schedule import cosine_schedule
+    from repro_torch.kernels import ops
     from repro_torch.models.unet import UNet
     from repro_torch.serve import (AdmissionPolicy, EngineConfig,
                                    ObsConfig, Request, ServeEngine,
@@ -200,7 +313,8 @@ def main(argv=None):
                          else args.sampler])
     traffic = ("mix of " + "/".join(request_samplers) if args.mix
                else samplers[request_samplers[0]].describe())
-    print(f"serve_diffusion: device={device} config={args.config} "
+    mesh_text = f"mesh=data:{mesh[0]}xmodel:{mesh[1]} " if mesh else ""
+    print(f"serve_diffusion: {mesh_text}device={device} config={args.config} "
           f"image={ucfg.image_size} slots={args.slots} "
           f"requests={args.requests} T={args.T} policy={args.policy} "
           f"backend={args.step_backend} sampler={traffic} "
@@ -251,7 +365,8 @@ def main(argv=None):
         async_depth=args.async_depth, finish_mode=args.finish_mode,
         finish_async_depth=args.finish_async_depth,
         spare_columns=args.spare_columns, device=device,
-        num_classes=args.num_classes, admission=admission, obs=obs)
+        num_classes=args.num_classes, admission=admission, obs=obs,
+        hosts=mesh[0] if mesh else 1, pod=pod)
     eng = ServeEngine(cfg, server)
     if dyn_sampler is not None:
         eng.register_sampler("dyn", dyn_sampler)
@@ -263,7 +378,9 @@ def main(argv=None):
         # registered again at the serve boundary: written in place into
         # the spare columns the captured graphs read
         eng.register_sampler("dyn", dyn_sampler)
+    before = ops.launch_counts()
     res = eng.serve(list(requests), clients)
+    launches = {n: c - before[n] for n, c in ops.launch_counts().items()}
     if eng.captures != captures:
         raise RuntimeError(f"the measured serve captured "
                            f"{eng.captures - captures} new graph(s)")
@@ -331,8 +448,48 @@ def main(argv=None):
         s["speedup_vs_sequential"] = seq_s / res.wall_s
         print(f"sequential split_sample: {seq_s:.2f}s -> speedup "
               f"{seq_s / res.wall_s:.2f}x", flush=True)
+    if mesh:
+        # every host's record and rows, merged on host 0
+        cuda = device.type == "cuda"
+        record = {"host": eng.host_id, "wall_s": res.wall_s,
+                  "ticks": s["ticks"],
+                  "ms_per_tick": res.wall_s * 1e3 / max(s["ticks"], 1),
+                  "images_per_s": s["images_per_s"],
+                  "finish_lanes": s.get("finish_lanes", 0),
+                  "halo_lanes": eng.halo_lanes,
+                  "launches": {n: launches[n] for n in ("traj_masked_step",
+                                                        "lane_noise")},
+                  "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                              if cuda else None),
+                  "peak_reserved_gb": (torch.cuda.max_memory_reserved(device)
+                                       / 1e9 if cuda else None)}
+        gather = pod.all_gather_object if pod is not None \
+            else (lambda obj: [obj])
+        records = gather(record)
+        parts = gather(_owned(res))
+        s["mesh"] = f"data:{mesh[0]}xmodel:{mesh[1]}"
+        s["hosts"] = records
+        s["pod_images_per_s"] = s["images"] / max(r["wall_s"]
+                                                  for r in records)
+        for r in records:
+            print(f"host {r['host']}/{mesh[0]}: {r['ms_per_tick']:.2f} ms a "
+                  f"tick over {r['ticks']} ticks, {r['images_per_s']:.2f} "
+                  f"images/s, {r['finish_lanes']} finish lanes, "
+                  f"{r['halo_lanes']} halo lane-windows, launches "
+                  f"{r['launches']}, peak "
+                  + ("n/a" if r["peak_gb"] is None else
+                     f"{r['peak_gb']:.2f} GB allocated / "
+                     f"{r['peak_reserved_gb']:.2f} reserved"), flush=True)
+        print(f"pod: {s['images']} images, {s['pod_images_per_s']:.3f} "
+              "images/s over the slowest host's wall", flush=True)
+        if args.out and eng.host_id == 0:
+            _merge_rows(parts, args.out)
+            print(f"wrote {args.out}", flush=True)
+    elif args.out:
+        _merge_rows([_owned(res)], args.out)
+        print(f"wrote {args.out}", flush=True)
     eng.close()
-    if args.json:
+    if args.json and eng.host_id == 0:
         with open(args.json, "w") as f:
             json.dump(s, f, indent=1)
         print(f"wrote {args.json}")

@@ -72,7 +72,23 @@ a batched form (``InjectedNoise``, ``lane_normal``) is drawn on the host and
 staged, one more copy a window.  A guided pair's shadow lane steps with its
 primary's draw.
 
-Waiting for a later slice: pod mode.
+POD MODE (``hosts`` > 1): the ``slots`` lanes split into contiguous blocks,
+one a host (:func:`repro_torch.parallel.sharding.lane_owners`).  Every host
+runs the same deterministic loop over the one shared queue: admission, the
+scheduler, packing, the gate and the plan of every lane stay replicated over
+all ``slots`` lanes, so every host retires the same lanes at the same
+boundary.  Each host keeps the cut tensors of its OWNED lanes only
+(``Completion.owned``; an unowned row stays zero) and finishes only those on
+the client models, still at width ``slots`` a call.  With ``pod=None`` the
+hosts are simulated: one process steps the whole slot array and keeps its
+block.  With a pod handle (:func:`repro_torch.launch.mesh.init_pod`) each
+host process holds and steps only its block on its own device, no collective
+runs inside a window, and a guided pair whose partner lies in another host's
+block steps its partner there too as a HALO lane, from the replicated plan
+(the same x_T, label and noise), so its combine needs nothing from across
+the pod.  At the end of a serve the hosts all-gather the digest of their
+schedules (every request's admit and retire tick, ticks, windows) and raise
+if any differs.
 """
 from __future__ import annotations
 
@@ -99,6 +115,7 @@ from repro_torch.diffusion.sampler import (Sampler, assert_same_menu,
 from repro_torch.diffusion.schedule import DiffusionSchedule
 from repro_torch.kernels import ops
 from repro_torch.obs import NULL_OBS, Observability, ObsConfig, resolve_obs
+from repro_torch.parallel import sharding
 from repro_torch.serve.admission import AdmissionDecision, AdmissionPolicy
 from repro_torch.serve.metrics import ServeMetrics, finish_summary
 from repro_torch.serve.scheduler import FIFOScheduler, Request
@@ -115,6 +132,8 @@ class Completion:
     retire_tick: int                   # window boundary the lane retired at
     x0: Optional[np.ndarray] = None    # filled by the client finish
     client_finished: bool = False
+    owned: Optional[np.ndarray] = None  # [batch] bool: rows this host holds
+    #                                     (all True off-pod)
 
 
 @dataclasses.dataclass
@@ -158,6 +177,13 @@ class EngineConfig:
     it with the scheduler.  ``obs`` is None (off, the default), an
     :class:`~repro_torch.obs.ObsConfig` or a shared
     :class:`~repro_torch.obs.Observability`.
+
+    Pod mode: ``hosts`` > 1 splits the lanes into contiguous equal blocks
+    (``slots % hosts == 0``) and this engine is host ``host_id``.  ``pod``
+    is this host's :class:`~repro_torch.launch.mesh.Pod` handle, whose
+    ``hosts`` must match; None simulates the hosts in one process.
+    ``host_id`` defaults to the pod's, else 0; an explicit 0 is honoured
+    (a None check, not truthiness).
     """
 
     sched: DiffusionSchedule
@@ -178,6 +204,9 @@ class EngineConfig:
     num_classes: int = 0
     admission: Optional[AdmissionPolicy] = None
     obs: Any = None
+    hosts: int = 1
+    host_id: Optional[int] = None
+    pod: Any = None
 
     def __post_init__(self):
         if self.obs is not None and not (
@@ -216,6 +245,28 @@ class EngineConfig:
             raise ValueError(f"admission policy calibrated for T="
                              f"{self.admission.sched.T}, engine schedule "
                              f"has T={self.sched.T}")
+        if self.hosts < 1:
+            raise ValueError(f"hosts={self.hosts} must be >= 1")
+        if self.slots % self.hosts:
+            raise ValueError(f"slots={self.slots} not divisible by hosts="
+                             f"{self.hosts}: lane ownership is contiguous "
+                             "equal blocks")
+        if self.host_id is not None and not 0 <= self.host_id < self.hosts:
+            raise ValueError(f"host_id={self.host_id} outside [0, "
+                             f"{self.hosts})")
+        if self.pod is not None:
+            if self.pod.hosts != self.hosts:
+                raise ValueError(f"pod of {self.pod.hosts} hosts, engine "
+                                 f"configured for hosts={self.hosts}")
+            if self.host_id is not None and self.host_id != self.pod.host_id:
+                raise ValueError(f"host_id={self.host_id} but this process "
+                                 f"is the pod's host {self.pod.host_id}")
+
+    def resolved_host_id(self) -> int:
+        """This engine's host: ``host_id``, else the pod's, else 0."""
+        if self.host_id is not None:
+            return self.host_id
+        return self.pod.host_id if self.pod is not None else 0
 
 
 @dataclasses.dataclass
@@ -301,6 +352,11 @@ def _batched(source: NoiseSource) -> bool:
     return hasattr(source, "batch")
 
 
+def _owned_rows(comp: Completion) -> List[int]:
+    """The images of ``comp`` this host finishes: the rows it holds."""
+    return np.nonzero(comp.owned)[0].tolist()
+
+
 class _FinishPipeline:
     """The streamed client finisher (``finish_mode="stream"``, counterpart of
     the reference's ``_FinishPipeline``).  At each window boundary the
@@ -339,7 +395,8 @@ class _FinishPipeline:
         K = self._eng._sampler_of(r).K
         key = (self._eng._traj_ids[r.sampler], cut, K)
         self._ready.setdefault(key, []).append((K - cut, comp))
-        self._staged[key] = self._staged.get(key, 0) + r.batch
+        self._staged[key] = self._staged.get(key, 0) + \
+            len(_owned_rows(comp))
 
     def _take_wave(self, key) -> List[Completion]:
         """Pop one wave off a class bucket, whole requests only."""
@@ -347,7 +404,7 @@ class _FinishPipeline:
         while bucket and lanes < self._wave_lanes:
             _, comp = bucket.pop()
             taken.append(comp)
-            lanes += comp.request.batch
+            lanes += len(_owned_rows(comp))
         if not bucket:
             del self._ready[key]
             del self._staged[key]
@@ -356,7 +413,7 @@ class _FinishPipeline:
         return taken
 
     def _dispatch(self, comps: List[Completion]) -> None:
-        lanes = sum(c.request.batch for c in comps)
+        lanes = sum(len(_owned_rows(c)) for c in comps)
         with self._tracer.span("client_finish_dispatch",
                                requests=len(comps), lanes=lanes):
             self._pending.append(self._eng._launch_finish(
@@ -400,7 +457,7 @@ class _FinishPipeline:
                 while rest and lanes < self._wave_lanes:
                     _, comp = rest.pop(0)
                     comps.append(comp)
-                    lanes += comp.request.batch
+                    lanes += len(_owned_rows(comp))
                 self._dispatch(comps)
             while self._pending:
                 self._collect()
@@ -415,12 +472,14 @@ class _FinishPipeline:
 
 @dataclasses.dataclass
 class _Finish:
-    """One launched finish batch: its rows on their way to ``rows`` (host,
-    in ``placement`` order, each (completion, image)) behind ``event``."""
+    """One launched finish batch of the completions ``comps``: their owned
+    rows on their way to ``rows`` (host, in ``placement`` order, each
+    (completion, image)) behind ``event``."""
 
     rows: torch.Tensor
     placement: List
     event: Optional[Any]
+    comps: List[Completion]
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -432,7 +491,8 @@ class ServeEngine:
 
     ``captures`` counts the CUDA graphs captured over the engine's life,
     ``h2d_copies`` the host-to-device copies its server loop made (one a
-    window, two with a staged noise source)."""
+    window, two with a staged noise source), ``halo_lanes`` the halo lanes
+    a pod host stepped, summed over its windows."""
 
     def __init__(self, config: EngineConfig, server_model: torch.nn.Module):
         cfg = config
@@ -443,6 +503,22 @@ class ServeEngine:
         self.server_model = server_model
         self.image_shape = cfg.image_shape
         self.slots = cfg.slots
+        self.hosts = cfg.hosts
+        self.host_id = cfg.resolved_host_id()
+        self.pod = cfg.pod
+        self._lane_owned = \
+            sharding.lane_owners(cfg.slots, cfg.hosts) == self.host_id
+        # the device's lanes: every lane off a pod; on a pod host its block
+        # (``_own_width``), then on a conditional engine one halo lane for
+        # each owned lane's guided partner (``_width``)
+        if cfg.pod is not None:
+            self._block = sharding.host_block(cfg.slots, cfg.hosts,
+                                              self.host_id)
+            self._own_width = self._block.stop - self._block.start
+            self._width = self._own_width * (2 if cfg.num_classes else 1)
+        else:
+            self._block = slice(0, cfg.slots)
+            self._own_width = self._width = cfg.slots
         self.scheduler = cfg.scheduler if cfg.scheduler is not None \
             else FIFOScheduler()
         self.clip = cfg.clip
@@ -463,7 +539,7 @@ class ServeEngine:
         self._bind_admission(cfg.admission)
         # observability, resolved once: NULL_OBS (falsy, every pillar a
         # cached no-op) when cfg.obs is None
-        self.obs = resolve_obs(cfg.obs)
+        self.obs = resolve_obs(cfg.obs, host_id=self.host_id)
         if self.admission is not None:
             self.admission.tracer = self.obs.tracer
         self.scheduler.registry = self.obs.registry if self.obs else None
@@ -516,7 +592,7 @@ class ServeEngine:
         # the window's static device buffers (made by the first serve) and
         # its graphs, one a kind, sharing one memory pool
         self._plan_layout, self._plan_bytes = _layout(
-            _window_fields(self.ticks_per_dispatch, self.slots))
+            _window_fields(self.ticks_per_dispatch, self._width))
         self._x = self._xo = self._plan_buf = self._plan = None
         self._noise = None                   # staged draws, (k + 1, S, ...)
         self._graphs: Dict[tuple, tuple] = {}
@@ -524,6 +600,7 @@ class ServeEngine:
         self._finish_stream = None
         self.captures = 0
         self.h2d_copies = 0
+        self.halo_lanes = 0
 
     def close(self) -> None:
         """Drop the captured graphs and the window's device buffers, and
@@ -730,7 +807,7 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def _static_buffers(self, staged: bool) -> None:
         if self._x is None:
-            S, shape = self.slots, self.image_shape
+            S, shape = self._width, self.image_shape
             self._x = torch.zeros((S,) + shape, device=self.device)
             self._xo = torch.zeros_like(self._x)
             self._plan_buf = torch.zeros(self._plan_bytes, dtype=torch.uint8,
@@ -738,47 +815,90 @@ class ServeEngine:
             self._plan = _views(self._plan_buf, self._plan_layout)
         if staged and self._noise is None:
             self._noise = torch.zeros(
-                (self.ticks_per_dispatch + 1, self.slots) + self.image_shape,
+                (self.ticks_per_dispatch + 1, self._width) + self.image_shape,
                 device=self.device)
 
     def _plan_window(self, lanes: _Lanes, admitted: np.ndarray,
                      hv: Dict[str, np.ndarray]):
-        """Write one window's plan into the host views ``hv`` and advance
-        the host's lane record through it.  Per tick a lane steps while
+        """Plan one window over every lane of the slot array, advance the
+        host's lane record through it and write this host's device lanes'
+        part into the host views ``hv``.  Per tick a lane steps while
         ``active & (pos < end)`` at its position clipped to kmax − 1, the
         latch of the lane tick; a shadow lane draws nothing (it borrows its
-        primary's noise).  Returns the (k, S) done stack and the lanes the
-        window emits (finished primaries), in the order of their rows."""
-        k = self.ticks_per_dispatch
+        primary's noise).  Returns the (k, slots) done stack and the lanes
+        whose rows the window emits (finished primaries this host owns), in
+        the order of their rows."""
+        k, S = self.ticks_per_dispatch, self.slots
         pos, gate = lanes.pos.copy(), lanes.active.copy()
-        done_seq = np.zeros((k, self.slots), bool)
+        done_seq = np.zeros((k, S), bool)
+        plan = {"t": np.empty((k, S), np.int64),
+                "cols": np.empty((k, S), np.int64),
+                "step": np.empty((k, S), np.int64),
+                "active": np.empty((k, S), bool),
+                "draw": np.empty((k, S), bool)}
         for j in range(k):
             stepping = gate & (pos < lanes.end)
             pos_c = np.clip(pos, 0, self._kmax - 1)
-            hv["t"][j] = self._ts_pad[lanes.traj, pos_c]
-            hv["cols"][j] = self._offsets[lanes.traj] + pos_c
-            hv["step"][j] = pos_c
-            hv["active"][j] = stepping
-            hv["draw"][j] = stepping & ~lanes.shadow
+            plan["t"][j] = self._ts_pad[lanes.traj, pos_c]
+            plan["cols"][j] = self._offsets[lanes.traj] + pos_c
+            plan["step"][j] = pos_c
+            plan["active"][j] = stepping
+            plan["draw"][j] = stepping & ~lanes.shadow
             pos = np.where(stepping, pos + 1, pos)
             done_seq[j] = stepping & (pos >= lanes.end)
             gate = gate & ~done_seq[j]
         lanes.pos, lanes.active = pos, gate
         for name in ("seed", "img", "y", "pair", "cond"):
-            hv[name][:] = getattr(lanes, name)
-        hv["admit"][:] = admitted
-        hv["zero"][:] = 0
-        emit = np.nonzero(done_seq.any(axis=0) & ~lanes.shadow)[0]
-        hv["emit"][:] = 0
-        hv["emit"][:emit.size] = emit
+            plan[name] = getattr(lanes, name)
+        plan["admit"] = admitted
+        emit = np.nonzero(done_seq.any(axis=0) & ~lanes.shadow
+                          & self._lane_owned)[0]
+        lmap = self._device_lanes(lanes)
+        self.halo_lanes += int((lmap[self._own_width:] >= 0).sum())
+        self._localize(plan, emit, lmap, hv)
         return done_seq, emit
+
+    def _device_lanes(self, lanes: _Lanes) -> np.ndarray:
+        """The slot-array lane each device lane carries this window, -1 for
+        an idle one: every lane off a pod; on a pod host its block, then
+        (conditional engine) at ``own_width + j`` the partner of owned lane
+        j when that partner lies in another host's block, the HALO lane.
+        A pair keeps its halo position for its life."""
+        own = np.arange(self._block.start, self._block.stop)
+        if self._width == own.size:
+            return own
+        partner = lanes.pair[own]
+        return np.concatenate([own, np.where(self._lane_owned[partner], -1,
+                                             partner)])
+
+    def _localize(self, plan: Dict[str, np.ndarray], emit: np.ndarray,
+                  lmap: np.ndarray, hv: Dict[str, np.ndarray]) -> None:
+        """Write the slot array's ``plan`` for the device lanes ``lmap``
+        into ``hv``: each live device lane its lane's entries, with the
+        partner index and the emitted rows mapped to device lanes; an idle
+        lane stays solo and inactive at the null label."""
+        live = lmap >= 0
+        src = np.where(live, lmap, 0)
+        to_dev = np.full(self.slots, -1, np.int64)
+        to_dev[lmap[live]] = np.nonzero(live)[0]
+        idle = {"t": 1, "cols": 0, "step": 0, "active": False,
+                "draw": False, "seed": 0, "img": 0, "y": self.num_classes,
+                "cond": True, "admit": False}
+        for name, value in idle.items():
+            hv[name][:] = np.where(live, plan[name][..., src], value)
+        pair = to_dev[plan["pair"][src]]
+        assert (pair[live] >= 0).all(), "a live lane's partner is off-device"
+        hv["pair"][:] = np.where(live, pair, np.arange(lmap.size))
+        hv["zero"][:] = 0
+        hv["emit"][:] = 0
+        hv["emit"][:emit.size] = to_dev[emit]
 
     def _stage_noise(self, source: NoiseSource,
                      hv: Dict[str, np.ndarray]) -> torch.Tensor:
         """A host source's draws for one window: row j < k the tick's
         server draws, row k the admitted lanes' x_T; zeros elsewhere."""
         k, shape = self.ticks_per_dispatch, self.image_shape
-        z = _host_buffer((k + 1, self.slots) + shape, torch.float32,
+        z = _host_buffer((k + 1, self._width) + shape, torch.float32,
                          self.device)
         z.zero_()
 
@@ -798,26 +918,28 @@ class ServeEngine:
         retire gathered into the static ``_xo``.  ``source`` draws on the
         device, or is None for draws staged from the host.  It reads and
         writes only the engine's static buffers, so a CUDA graph can hold
-        it."""
-        P, shape = self._plan, self.image_shape
-        k = self.ticks_per_dispatch
+        it.  A pod host's solo window steps its own block only; its guided
+        one adds the halo lanes, so the model's width is fixed a kind."""
+        n = self._width if guided else self._own_width
+        P = {name: v[..., :n] for name, v in self._plan.items()}
+        shape, k = self.image_shape, self.ticks_per_dispatch
         if source is None:
-            z0 = self._noise[k]
+            z0 = self._noise[k, :n]
         else:
             z0 = source.batch(P["seed"], P["img"], "init", P["zero"],
                               P["admit"], shape)
         x = torch.where(P["admit"].view((-1,) + (1,) * len(shape)), z0,
-                        self._x)
+                        self._x[:n])
         y = P["y"] if self._conditional else None
         for j in range(k):
-            z = self._noise[j] if source is None else source.batch(
+            z = self._noise[j, :n] if source is None else source.batch(
                 P["seed"], P["img"], "server", P["step"][j], P["draw"][j],
                 shape)
             x = self._lane_tick(self.server_model, self._tables, x, P["t"][j],
                                 P["cols"][j], P["active"][j], z, y,
                                 P["pair"], P["cond"], guided)
-        self._x.copy_(x)
-        torch.index_select(self._x, 0, P["emit"], out=self._xo)
+        self._x[:n].copy_(x)
+        torch.index_select(self._x, 0, self._plan["emit"], out=self._xo)
 
     def _run_window(self, guided: bool,
                     source: Optional[NoiseSource]) -> None:
@@ -871,7 +993,7 @@ class ServeEngine:
             self._noise.copy_(self._stage_noise(source, hv),
                               non_blocking=True)
             self.h2d_copies += 1
-        guided = bool((lanes.pair != np.arange(self.slots)).any())
+        guided = bool((hv["pair"] != np.arange(self._width)).any())
         with self.obs.tracer.span("launch", start_tick=start):
             self._run_window(guided, source if batched else None)
         rows = None
@@ -919,9 +1041,11 @@ class ServeEngine:
                                   lanes=int(done.size)):
             for lane in done.tolist():
                 rec = inflight[int(lanes.req[lane])]
-                if lane in rows:
+                if not lanes.shadow[lane]:
                     metrics.on_boundary_lag(int(k - 1 - first[lane]))
+                if lane in rows:
                     rec["x_mid"][int(lanes.img[lane])] = rows[lane]
+                    rec["owned"][int(lanes.img[lane])] = True
                 rec["remaining"] -= 1
                 rec["exact_tick"] = max(rec["exact_tick"],
                                         start + int(first[lane]))
@@ -933,7 +1057,8 @@ class ServeEngine:
                                      exact_tick=rec["exact_tick"])
                     completions[r.req_id] = Completion(
                         request=r, x_mid=rec["x_mid"],
-                        admit_tick=rec["admit_tick"], retire_tick=boundary)
+                        admit_tick=rec["admit_tick"], retire_tick=boundary,
+                        owned=rec["owned"])
                     self.scheduler.notify_retired(r, boundary)
                 lanes.free(lane, self.num_classes)
 
@@ -1043,7 +1168,7 @@ class ServeEngine:
                                 exact_tick=now)
                 completions[r.req_id] = Completion(
                     request=r, x_mid=init_draws(r), admit_tick=now,
-                    retire_tick=now)
+                    retire_tick=now, owned=np.ones(r.batch, bool))
                 self.scheduler.notify_retired(r, now)
 
         def more_server_work() -> bool:
@@ -1084,7 +1209,8 @@ class ServeEngine:
                                    f"{self._effective_cut(req)}@"
                                    f"{self._sampler_of(req).w:g}",
                             "x_mid": np.zeros((req.batch,) + shape,
-                                              np.float32)}
+                                              np.float32),
+                            "owned": np.zeros(req.batch, bool)}
                         metrics.on_admit(req.req_id, now)
                         if obs:
                             obs.request(req.req_id, "admitted", tick=now,
@@ -1185,7 +1311,7 @@ class ServeEngine:
             if metrics_path:
                 obs.registry.write_jsonl(metrics_path, host=obs.host_id,
                                          window=windows_synced, final=True)
-            path = obs.trace_path_for_host()
+            path = obs.trace_path_for_host(self.hosts)
             if path:
                 obs.tracer.export(path)
             timelines = obs.timelines.snapshot()
@@ -1199,8 +1325,9 @@ class ServeEngine:
     def _launch_finish(self, comps: List[Completion],
                        client_models: Sequence[torch.nn.Module],
                        source: NoiseSource) -> _Finish:
-        """Stage and launch the client segment of every lane of ``comps``
-        without waiting: each client's lanes in chunks of ``slots`` lanes
+        """Stage and launch the client segment of every owned lane of
+        ``comps`` without waiting: each client's lanes in chunks of
+        ``slots`` lanes (the single host's width, on a pod host too)
         (padded with idle lanes), a chunk stepped by the lane tick to its
         longest lane's end (finished lanes hold bitwise), every lane solo at
         the null label.  The inputs of all chunks reach the device in one
@@ -1214,7 +1341,7 @@ class ServeEngine:
                 raise ValueError(f"request {r.req_id} names client "
                                  f"{r.client_idx}; {len(client_models)} "
                                  "client models given")
-            for i in range(r.batch):
+            for i in _owned_rows(comp):
                 by_client.setdefault(r.client_idx, []).append((comp, i))
         chunks = [(ci, group[a:a + W]) for ci, group in sorted(
             by_client.items()) for a in range(0, len(group), W)]
@@ -1301,22 +1428,21 @@ class ServeEngine:
             if cuda:
                 event = torch.cuda.Event()
                 event.record()
-        return _Finish(rows=rows, placement=placement, event=event)
+        return _Finish(rows=rows, placement=placement, event=event,
+                       comps=list(comps))
 
     def _collect_finish(self, fin: _Finish) -> None:
         """Wait for one finish batch and scatter its rows into the
-        completions' ``x0``."""
+        completions' ``x0`` (an unowned row stays zero)."""
         if fin.event is not None:
             fin.event.synchronize()
-        rows = fin.rows.numpy()
-        for (comp, i), row in zip(fin.placement, rows):
-            if comp.x0 is None:
-                comp.x0 = np.zeros((comp.request.batch,) + self.image_shape,
-                                   np.float32)
+        for comp in fin.comps:
+            comp.x0 = np.zeros((comp.request.batch,) + self.image_shape,
+                               np.float32)
+        for (comp, i), row in zip(fin.placement, fin.rows.numpy()):
             comp.x0[i] = row
         # a request's images all travel in one finish batch
-        done = {id(comp): comp for comp, _ in fin.placement}
-        for comp in done.values():
+        for comp in fin.comps:
             comp.client_finished = True
             self.obs.request(comp.request.req_id, "client_finished")
 
@@ -1355,8 +1481,19 @@ class ServeEngine:
             self._finish_stream.wait_stream(
                 torch.cuda.current_stream(self.device))
         if client_models is not None and self.finish_mode == "stream":
-            return self._serve_server(requests, source, max_ticks,
-                                      client_models)
+            result = self._serve_server(requests, source, max_ticks,
+                                        client_models)
+        else:
+            result = self._serve_drained(requests, client_models, source,
+                                         max_ticks)
+        if self.pod is not None:
+            self._check_pod_agrees(result)
+        return result
+
+    def _serve_drained(self, requests, client_models, source,
+                       max_ticks) -> ServeResult:
+        """The server loop, then the drain finisher when ``client_models``
+        are given."""
         result = self._serve_server(requests, source, max_ticks)
         if client_models is not None:
             t0 = time.perf_counter()
@@ -1370,7 +1507,7 @@ class ServeEngine:
             s = result.summary
             s.update(finish_summary(
                 "drain", finish_s, batches=1 if result.completions else 0,
-                lanes=sum(c.request.batch
+                lanes=sum(len(_owned_rows(c))
                           for c in result.completions.values())))
             s["finish_async_depth"] = self.finish_async_depth
             s["requests_per_s"] = s["served"] / max(result.wall_s, 1e-9)
@@ -1379,10 +1516,32 @@ class ServeEngine:
                 # the finish span and the client_finished stages landed
                 # after the server loop's export
                 result.timelines = self.obs.timelines.snapshot()
-                path = self.obs.trace_path_for_host()
+                path = self.obs.trace_path_for_host(self.hosts)
                 if path:
                     self.obs.tracer.export(path)
         return result
+
+    def _check_pod_agrees(self, result: ServeResult) -> None:
+        """All-gather every host's :func:`schedule_digest` and raise unless
+        they are one: the agreement the reference's gathered done stack
+        enforced window by window, checked once a serve."""
+        digests = self.pod.all_gather_object(schedule_digest(result))
+        bad = [h for h, d in enumerate(digests) if d != digests[0]]
+        if bad:
+            raise RuntimeError(f"pod hosts {bad} served another schedule "
+                               f"than host 0 (host {self.host_id} of "
+                               f"{self.hosts}): the hosts' queues differ")
+
+
+def schedule_digest(result: ServeResult) -> Dict[str, Any]:
+    """What every pod host must agree on after a serve: each served
+    request's (req_id, admit tick, retire tick), the rejected ids, the
+    ticks and the windows."""
+    return {"requests": sorted((rid, int(c.admit_tick), int(c.retire_tick))
+                               for rid, c in result.completions.items()),
+            "rejected": sorted(result.rejected),
+            "ticks": int(result.summary["ticks"]),
+            "windows": int(result.summary["windows"])}
 
 
 # ---------------------------------------------------------------------------
