@@ -153,7 +153,24 @@ Phases, each printing its own lines:
    (b) the same batch through ``kernel="torch"`` (the chunk loop and
    blockwise attention), logits within the stated tolerance; (c) 64
    chained cached decode steps against (a)'s logits; (d) the serving
-   launcher at full width.
+   launcher at full width;
+7. moe — the MoE family at full width, depth cut (bf16, random weights
+   from a seed): DeepSeek-V2 (MLA, 160 experts top-6, 2 shared) at 4
+   layers and Kimi-K2 (GQA 64/8, 384 experts top-8, 1 shared) at 2, each
+   printed with its reduced depth.  For each: (a) prefill of 4x2048 tokens
+   (2x2048 when a 1-row probe says the peak would pass 75 GB), timed,
+   TFLOP/s, peak memory, profiled, the share of assignments dropped at
+   capacity_factor 1.25, the first MoE layer's time split into router and
+   dispatch, the expert products, the combine and the shared experts (CUDA
+   events); ``flash_attention`` launched once a layer for Kimi-K2, never
+   for MLA; (b) that MoE layer on (a)'s hidden states against a per-expert
+   loop sharing no code with the capacity buffer: kept and dropped counts
+   equal, outputs within the stated bound; for Kimi-K2 also the prefill
+   through ``kernel="torch"``: the share of routing decisions that agree
+   held to a floor, the logits' mean |Δ| to a bound; (c) 64 chained decode
+   steps at batch 1 against the dropless prefill of the same tokens, ms a
+   step and the device's launches a step; (d) the serving launcher on each
+   reduced member and ``examples/serve_decode`` on DeepSeek-V2's.
 
 It then prints the kernels' JSON line, and last the device line.  It exits
 non-zero, without the last line, when CUDA is absent or any phase fails.
@@ -165,6 +182,7 @@ import functools
 import io
 import itertools
 import json
+import math
 import os
 import re
 import signal
@@ -181,6 +199,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import UNetConfig, get_config  # noqa: E402
 from repro_torch.core.collafuse import (CutPlan, lane_philox,  # noqa: E402
@@ -196,6 +215,7 @@ from repro_torch.diffusion.sampler import make_sampler  # noqa: E402
 from repro_torch.diffusion.schedule import cosine_schedule  # noqa: E402
 from repro_torch.examples import collafuse_healthcare as hc  # noqa: E402
 from repro_torch.examples import cut_ratio_sweep  # noqa: E402
+from repro_torch.examples import serve_decode  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import ddpm_step as kds  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
@@ -206,6 +226,7 @@ from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import serve_diffusion as sd_launch  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.unet import UNet, flops_per_image  # noqa: E402
 from repro_torch.launch import pod_smoke  # noqa: E402
@@ -3279,6 +3300,363 @@ def phase_hybrid(dev, card: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the MoE family, DeepSeek-V2 (MLA) and Kimi-K2 (GQA) at full width
+# ---------------------------------------------------------------------------
+# (arch, n_layers): only the depth is cut.  DeepSeek-V2 at 4 layers (the
+# dense layer and 3 MoE layers) holds 13.30e9 parameters, 26.6 GB in bf16;
+# Kimi-K2 at 2 (the dense layer and 1 MoE layer) 19.97e9, 39.9 GB: one of
+# its MoE layers alone is 34.2 GB, so 3 layers (74.1 GB) would not fit.
+MOE_MODELS = (("deepseek-v2-236b", 4), ("kimi-k2-1t-a32b", 2))
+MOE_SHAPE = (4, 2048)
+# DeepSeek-V2's blockwise MLA holds (B, 128, 2048, 2048) float32 scores,
+# 8.6 GB a live copy at B = 4: the batch drops to 2 when a 1-row probe
+# says the allocator's peak would pass this
+MOE_PEAK_GB = 75.0
+MOE_DECODE_STEPS = 64
+# Tolerances, reasoned on a CPU proxy (tools/moe_proxy.py --device cpu: the
+# models' widths and phase 7's depths in bf16, the experts cut to d_ff 256
+# and the vocabulary to 32000, one row of 512 tokens) and, for (b), on the
+# card.  (b) The MoE layer against the per-expert loop: the same kept and
+# dropped counts, exactly.  Outputs: on the CPU both paths take exact
+# float32 products and differ by max |d| 0.0024 of max |out| (one bf16
+# ulp) and mean 2e-6 of mean |out|; on an H100 by max 0.0082-0.0088 and
+# mean 2.9e-4-3.5e-4: the tensor cores' bf16 products with a float32
+# result (cuBLAS) are not the loop's exact float32 sums (a gate product
+# 5.3e-5 apart at 5.47, tools/moe_proxy.py --parts), so 0.4 % of the
+# rounded silu·up flip by one ulp and 6-9 % of the outputs with them.
+# Held: max 2^-5 and mean 2^-9 (half a bf16 ulp on average, 5x the card's);
+# a missing shared expert, an unweighted combine or 1 % of rows misrouted
+# moves the mean by more than 0.01.  (b) Kimi-K2 through kernel="torch"
+# against "flash": 99.07 % of the routing decisions agree (a few near-ties
+# flip on bf16 differences of the hidden state), logits mean |d| 0.0113,
+# max 0.48 (a flipped token moves by a whole expert's share).  Held:
+# agreement >= 97 % and mean <= 0.03; the max is printed, not held.
+# (c) The batch-1 decode chain (MLA's absorbed decode multiplies in another
+# order than the expanded prefill) against the dropless prefill of its 64
+# tokens: mean |d| 0.0265 (DeepSeek-V2) and 0.0106 (Kimi-K2), max 0.50 and
+# 0.46, against a mean |logit| of ~0.8; held: mean <= 0.06, the max
+# printed.  A wrong cache slot or mask reads like unrelated logits, a mean
+# near 1.
+MOE_TOL = dict(layer_max=2.0 ** -5, layer_mean=2.0 ** -9, route_floor=0.97,
+               torch_mean=0.03, decode_max=None, decode_mean=0.06)
+
+
+def moe_config(arch: str, layers: int):
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+@contextlib.contextmanager
+def moe_recorder():
+    """Record every MoE call while the block runs: its input and module
+    (``inputs``) and its routing (``routes``: top_i and keep), by wrapping
+    ``moe_forward`` and ``dispatch_indices`` in their module."""
+    rec = {"inputs": [], "routes": []}
+    fwd, disp = moe_mod.moe_forward, moe_mod.dispatch_indices
+
+    def moe_forward(x, p, cfg):
+        rec["inputs"].append((x, p))
+        return fwd(x, p, cfg)
+
+    def dispatch_indices(top_i, n_experts, capacity):
+        pos, keep = disp(top_i, n_experts, capacity)
+        rec["routes"].append((top_i, keep))
+        return pos, keep
+    moe_mod.moe_forward, moe_mod.dispatch_indices = moe_forward, \
+        dispatch_indices
+    try:
+        yield rec
+    finally:
+        moe_mod.moe_forward, moe_mod.dispatch_indices = fwd, disp
+
+
+def plain_moe(x, p, cfg):
+    """One MoE layer computed independently of the capacity buffer: its
+    own float32 router and top-k; then, expert by expert, the (token, k)
+    assignments to it in row-major order, the first ``capacity`` kept, the
+    kept tokens' SwiGLU in float32 (silu·up and the output rounded to x's
+    dtype, as the reference rounds them), each output times its rounded
+    weight added into a float32 sum; the shared experts alike.  Returns
+    (out in x's dtype, kept, dropped)."""
+    d = x.shape[-1]
+    f32 = torch.float32
+    xf = x.reshape(-1, d)
+    n, k, e = xf.shape[0], cfg.top_k, cfg.n_experts
+    probs = torch.softmax(xf.to(f32) @ p.router.to(f32), dim=-1)
+    top_p, top_i = probs.topk(k, dim=-1)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = max(1, math.ceil(n * k * cfg.capacity_factor / e))
+    out = torch.zeros((n, d), dtype=f32, device=x.device)
+    kept = 0
+
+    def swiglu(xs, wg, wu, wd):
+        h = (F.silu(xs @ wg.to(f32)) * (xs @ wu.to(f32))).to(x.dtype)
+        return (h.to(f32) @ wd.to(f32)).to(x.dtype).to(f32)
+
+    for j in range(e):
+        rows, cols = torch.nonzero(top_i == j, as_tuple=True)  # row-major
+        rows, cols = rows[:cap], cols[:cap]
+        kept += len(rows)
+        if len(rows):
+            y = swiglu(xf[rows].to(f32), p.w_gate[j], p.w_up[j], p.w_down[j])
+            w = top_p[rows, cols].to(x.dtype).to(f32)
+            out.index_add_(0, rows, w[:, None] * y)
+    out = out.to(x.dtype)
+    if p.shared is not None:
+        sh = p.shared
+        out = out + swiglu(xf.to(f32), sh.w_gate, sh.w_up,
+                           sh.w_down).to(x.dtype)
+    return out.reshape(x.shape), kept, n * k - kept
+
+
+def route_agreement(a, b) -> float:
+    """The share of (token, k) decisions of routing ``a`` (N, k) whose
+    expert routing ``b`` also picks for that token."""
+    return float((a[:, :, None] == b[:, None, :]).any(-1).float().mean())
+
+
+def moe_layer_split(x, p, cfg):
+    """Device ms of one MoE layer's parts on input ``x`` (CUDA events, 3
+    calls each after one): router and dispatch (router, slots, scatter),
+    the expert products, the combine, the shared experts, the whole."""
+    xf = x.reshape(-1, x.shape[-1])
+    e = cfg.n_experts
+    cap = moe_mod.capacity(xf.shape[0], cfg.top_k, e, cfg.capacity_factor)
+    top_p, top_i, _ = moe_mod.router_topk(xf, p.router, cfg.top_k)
+    pos, keep = moe_mod.dispatch_indices(top_i, e, cap)
+    buf = moe_mod.scatter_dispatch(xf, top_i, pos, keep, e, cap)
+    ys = moe_mod.expert_ffn(buf, p.w_gate, p.w_up, p.w_down)
+
+    def route():
+        tp, ti, _ = moe_mod.router_topk(xf, p.router, cfg.top_k)
+        ps, kp = moe_mod.dispatch_indices(ti, e, cap)
+        return moe_mod.scatter_dispatch(xf, ti, ps, kp, e, cap)
+    parts = {
+        "router+dispatch": route,
+        "experts": lambda: moe_mod.expert_ffn(buf, p.w_gate, p.w_up,
+                                              p.w_down),
+        "combine": lambda: moe_mod.gather_combine(ys, top_i, top_p, pos,
+                                                  keep),
+    }
+    if p.shared is not None:
+        parts["shared"] = lambda: moe_mod.shared_expert(xf, p.shared)
+    parts["whole"] = lambda: moe_mod.moe_forward(x, p, cfg)
+    with torch.inference_mode():
+        return {name: events_ms(fn, 3) for name, fn in parts.items()}
+
+
+def moe_model(dev, card: str, arch: str, layers: int):
+    """Phase 7's (a)-(c) for one model; returns its prefill's launches."""
+    _, _, bf16_peak = card_rates(card)
+    full = get_config(arch)
+    cfg = moe_config(arch, layers)
+    tag = "moe"
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(q.numel() for q in model.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} params, config says "
+                             f"{cfg.param_count()}")
+    n_moe = cfg.n_layers - cfg.first_dense
+    print(f"[{tag}] {arch}: reduced depth {layers} of {full.n_layers} "
+          f"layers ({cfg.first_dense} dense, {n_moe} MoE), nothing else "
+          f"cut: d_model {cfg.d_model}, {cfg.attn_type} {cfg.n_heads} heads"
+          + (f" / {cfg.n_kv_heads} KV of {cfg.head_dim}"
+             if cfg.attn_type == "gqa" else
+             f" (r {cfg.kv_lora_rank}, qr {cfg.q_lora_rank}, nope "
+             f"{cfg.qk_nope_dim}, rope {cfg.qk_rope_dim}, v "
+             f"{cfg.v_head_dim})")
+          + f", {cfg.n_experts} experts top-{cfg.top_k} + "
+          f"{cfg.n_shared_experts} shared of {cfg.d_ff_expert}, "
+          f"capacity_factor {cfg.capacity_factor}, {cfg.dtype}; {n_params} "
+          f"params ({n_params * 2 / 1e9:.1f} GB) drawn in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    b, s = MOE_SHAPE
+    g = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+    prefill = make_prefill_step(cfg, kernel="flash")
+
+    # (a) the batch: a 1-row probe's peak above the resident weights,
+    # scaled to B rows, against MOE_PEAK_GB
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    prefill(model, {"tokens": tokens[:1]})
+    torch.cuda.synchronize()
+    per_row = torch.cuda.max_memory_allocated(dev) - base
+    est = (base + b * per_row) / 1e9
+    if est > MOE_PEAK_GB:
+        b = 2
+    print(f"[{tag}] (a) batch probe: 1x{s} peaks {per_row / 1e9:.2f} GB "
+          f"above {base / 1e9:.2f} GB resident; {MOE_SHAPE[0]}x{s} would "
+          f"peak ~{est:.1f} GB (limit {MOE_PEAK_GB}): batch {b}x{s} runs",
+          flush=True)
+    batch = {"tokens": tokens[:b]}
+    flops = cfg.flops_per_token_fwd(s) * b * s
+    prefill(model, batch)                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    with moe_recorder() as rec:
+        logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = cfg.n_layers if cfg.attn_type == "gqa" else 0
+    if counts["flash_attention"] != want:
+        raise AssertionError(f"flash_attention launched "
+                             f"{counts['flash_attention']} times in one "
+                             f"prefill, not {want}")
+    if logits.shape != (b, s, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    if len(rec["routes"]) != n_moe:
+        raise AssertionError(f"{len(rec['routes'])} MoE calls, not {n_moe}")
+    cap = moe_mod.capacity(b * s, cfg.top_k, cfg.n_experts,
+                           cfg.capacity_factor)
+    dropped = [float((~keep).float().mean()) for _, keep in rec["routes"]]
+    reps = 2
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        prefill(model, batch)
+    torch.cuda.synchronize()
+    t_pre = (time.perf_counter() - t0) / reps
+    print(f"[{tag}] (a) prefill {b}x{s} kernel=flash: {t_pre * 1e3:.1f} ms, "
+          f"{b * s / t_pre:.0f} tokens/s, {flops / t_pre / 1e12:.1f} TFLOP/s "
+          f"of {bf16_peak / 1e12:.0f} ({flops / t_pre / bf16_peak:.1%}) on "
+          f"{flops:.3e} FLOP | flash_attention launches "
+          f"{counts['flash_attention']} a call | peak memory {peak_gb:.1f} "
+          f"GB | capacity {cap} slots an expert, assignments dropped at cf "
+          f"{cfg.capacity_factor}: "
+          + ", ".join(f"{d:.3%}" for d in dropped) + " by MoE layer",
+          flush=True)
+    prof = profile_device(f"{arch} prefill {b}x{s}",
+                          lambda: prefill(model, batch), reps=1)
+    x, p = rec["inputs"][0]
+    split = moe_layer_split(x, p, cfg)
+    whole = split.pop("whole")
+    print(f"[{tag}] (a) MoE layer 1 on the prefill's {b * s} tokens "
+          f"(CUDA events): {whole:.2f} ms = "
+          + ", ".join(f"{k} {v:.2f} ({v / whole:.1%})"
+                      for k, v in split.items())
+          + f"; {n_moe} MoE layers {n_moe * whole:.1f} ms of the prefill's "
+          f"{t_pre * 1e3:.1f}"
+          + (f" (device busy {sum(prof.values()):.1f} ms)" if prof else ""),
+          flush=True)
+
+    # (b) the first MoE layer on (a)'s hidden states against a per-expert
+    # loop that shares no code with the capacity buffer
+    with torch.inference_mode():
+        got, _ = moe_mod.moe_forward(x, p, cfg)
+        want_out, kept, drop = plain_moe(x, p, cfg)
+    keep0 = rec["routes"][0][1]
+    k_kept = int(keep0.sum())
+    print(f"[{tag}] (b) MoE layer 1 vs the per-expert loop: kept {k_kept} / "
+          f"{kept}, dropped {keep0.numel() - k_kept} / {drop}", flush=True)
+    if (k_kept, keep0.numel() - k_kept) != (kept, drop):
+        raise AssertionError("the capacity buffer kept other assignments "
+                             "than the per-expert loop")
+    dlt = (got.float() - want_out.float()).abs()
+    w = want_out.float().abs()
+    r_max, r_mean = float(dlt.max() / w.max()), float(dlt.mean() / w.mean())
+    print(f"[{tag}] (b) outputs: max |d| {r_max:.5f} of max |out| "
+          f"{float(w.max()):.4f}, mean {r_mean:.6f} of mean |out| "
+          f"(tolerance {MOE_TOL['layer_max']} and {MOE_TOL['layer_mean']})",
+          flush=True)
+    if r_max > MOE_TOL["layer_max"] or r_mean > MOE_TOL["layer_mean"]:
+        raise AssertionError("the MoE layer disagrees with the per-expert "
+                             "loop")
+    del got, want_out, dlt, w, x, p, rec
+    if cfg.attn_type == "gqa":
+        # the same batch through blockwise PyTorch attention: routing and
+        # logits (MLA runs blockwise attention either way)
+        with moe_recorder() as rec_t:
+            logits_t = make_prefill_step(cfg, kernel="torch")(model, batch)
+        with moe_recorder() as rec_f:
+            prefill(model, batch)
+        shares = [route_agreement(a[0], c[0])
+                  for a, c in zip(rec_f["routes"], rec_t["routes"])]
+        print(f"[{tag}] (b) kernel=torch prefill: routing decisions that "
+              "agree with kernel=flash: "
+              + ", ".join(f"{v:.4%}" for v in shares)
+              + f" by MoE layer (floor {MOE_TOL['route_floor']})", flush=True)
+        if min(shares) < MOE_TOL["route_floor"]:
+            raise AssertionError("routing disagrees between the kernels")
+        logit_gap("(b) flash vs torch prefill", logits, logits_t, None,
+                  MOE_TOL["torch_mean"], tag)
+        del logits_t, rec_t, rec_f
+    del logits
+    torch.cuda.empty_cache()
+
+    # (c) batch-1 decode chain against the dropless prefill of its tokens
+    n_dec = MOE_DECODE_STEPS
+    dropless = dataclasses.replace(cfg,
+                                   capacity_factor=float(cfg.n_experts))
+    first = {"tokens": tokens[:1, :n_dec]}
+    ref = make_prefill_step(dropless)(model, first)
+    decode = make_decode_step(cfg)
+    cache = tf.init_cache(cfg, 1, n_dec, device=dev)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with moe_recorder() as rec_d:
+        for pos in range(n_dec):
+            lg, cache = decode(model, cache,
+                               {"tokens": first["tokens"][:, pos:pos + 1]},
+                               pos)
+            outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / n_dec
+    if not all(bool(keep.all()) for _, keep in rec_d["routes"]):
+        raise AssertionError("a batch-1 decode step dropped an assignment")
+    print(f"[{tag}] (c) {n_dec} chained decode steps at batch 1 (capacity "
+          f"{moe_mod.capacity(1, cfg.top_k, cfg.n_experts, cfg.capacity_factor)}"
+          f", nothing dropped): {t_dec * 1e3:.2f} ms a step (wall); the "
+          f"prefill of the same tokens at capacity_factor "
+          f"{dropless.capacity_factor}", flush=True)
+    logit_gap("(c) decode chain vs dropless prefill", torch.stack(outs, 1),
+              ref, MOE_TOL["decode_max"], MOE_TOL["decode_mean"], tag)
+    last = {"tokens": first["tokens"][:, n_dec - 1:]}
+    profile_device(f"{arch} decode step at batch 1",  # rewrites one slot
+                   lambda: decode(model, cache, last, n_dec - 1))
+    del model, cache, ref, outs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_moe(dev, card: str):
+    """Phase 7: each MoE model's (a)-(c), then (d) the launcher on each
+    reduced member and ``serve_decode`` on DeepSeek-V2's."""
+    t_phase = time.perf_counter()
+    counts = {}
+    for arch, layers in MOE_MODELS:
+        counts[arch] = moe_model(dev, card, arch, layers)
+        torch.cuda.empty_cache()
+    for arch, _ in MOE_MODELS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            stats = lm_serve.main(["--arch", arch, "--requests", "2",
+                                   "--batch", "4", "--prompt-len", "16",
+                                   "--tokens", "8"])
+        for line in buf.getvalue().splitlines():
+            print(f"[moe] (d) {line}", flush=True)
+        if "serving loop OK" not in buf.getvalue():
+            raise AssertionError("the launcher did not print 'serving loop "
+                                 "OK'")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_decode.main(["--arch", "deepseek-v2-236b"])
+    for line in buf.getvalue().splitlines():
+        print(f"[moe] (d) serve_decode: {line}", flush=True)
+    if buf.getvalue().splitlines()[-1] != "OK":
+        raise AssertionError("serve_decode did not print 'OK'")
+    print(f"[moe] phase wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3302,6 +3680,8 @@ def main():
     phase_paper(dev, card)
     lm_counts = phase_lm(dev, card)
     hybrid_counts = phase_hybrid(dev, card)
+    torch.cuda.empty_cache()
+    phase_moe(dev, card)
     # the step kernels' launches on this slice's path, guided and gated
     # serving (phase 4's are printed in its own lines)
     counts = {"traj_masked_step": g["cuda_masked"]["traj_masked_step"],

@@ -13,11 +13,18 @@ rest, sampling each token from the logits with a ``torch.Generator``.  ``--trace
 Chrome trace with a ``prefill`` and a ``decode`` span a request; each span
 ends after the device is synchronized, so it covers the device's work.
 ``--reduced`` (the default, as in the reference) serves the config's tiny
-member; ``--no-reduced`` serves it at full width and depth.  Weights are
-random, drawn from ``--seed``.  The default device is CUDA; without a card
-the launcher raises unless ``--device cpu`` is given.
+member; ``--no-reduced`` serves it at full width and depth, and raises a
+``ValueError`` before it allocates anything when the config's weights
+(``param_count()`` times the dtype's bytes) exceed the card's free memory
+(on the CPU: ``CPU_WEIGHT_BYTES``), as DeepSeek-V2's and Kimi-K2's do: one
+card holds neither, and sharding them waits for the DTensor mesh.
+Weights are random, drawn from ``--seed``.  The default device is CUDA;
+without a card the launcher raises unless ``--device cpu`` is given.
 """
 import argparse
+
+# the most bytes of weights the launcher allocates on the CPU
+CPU_WEIGHT_BYTES = 64 << 30
 
 
 def _parse_args(argv=None):
@@ -36,6 +43,26 @@ def _parse_args(argv=None):
                     help="export a Chrome trace-event JSON with one span "
                          "per prefill and decode wave (Perfetto-loadable)")
     return ap.parse_args(argv)
+
+
+def check_weights_fit(cfg, device) -> int:
+    """The bytes of ``cfg``'s weights; raises ``ValueError`` when they
+    exceed the card's free memory, or ``CPU_WEIGHT_BYTES`` on the CPU."""
+    import torch
+    need = cfg.param_count() * torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    if device.type == "cuda":
+        room = torch.cuda.mem_get_info(device)[0]
+        where = f"the card's {room} free bytes"
+    else:
+        room = CPU_WEIGHT_BYTES
+        where = f"the CPU limit of {room} bytes"
+    if need > room:
+        raise ValueError(
+            f"{cfg.arch_id}: {cfg.param_count()} parameters need {need} bytes "
+            f"of {cfg.dtype} weights, more than {where}; serving it needs "
+            "the weights sharded over cards (ROADMAP.md Queue 1 item 4, the "
+            "DTensor mesh)")
+    return need
 
 
 def main(argv=None):
@@ -59,6 +86,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    check_weights_fit(cfg, device)
     print(f"serving {args.arch} ({'reduced' if args.reduced else 'full'}, "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) on "
           f"{device} (window={args.window or 'full'})", flush=True)

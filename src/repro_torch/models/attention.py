@@ -1,6 +1,6 @@
-"""GQA attention: blockwise full / sliding-window attention, the decode step
-over a KV cache, and the GQA module (counterpart of the GQA part of
-``repro/models/attention.py``).
+"""Attention: blockwise full / sliding-window attention, the decode step
+over a KV cache, the GQA module and DeepSeek-V2's MLA (counterpart of the
+GQA and MLA parts of ``repro/models/attention.py``).
 
 ``gqa_forward`` runs the attention core one of two ways: ``kernel="flash"``
 (the default) calls :func:`repro_torch.kernels.ops.flash_attention`, the
@@ -10,10 +10,17 @@ runs :func:`blockwise_attention` in plain PyTorch, the reference's
 ``"jnp"``.  Products of bfloat16 operands are taken in float32 where the
 reference asks for a float32 result (``preferred_element_type``).
 
-MLA, cross-attention, M-RoPE and the sequence-sharded variants wait for
-their slices (``ROADMAP.md``, Queue 1 item 6).  The decode step writes the
-new key and value into the cache in place, where the reference returns a
-new cache: that keeps one copy of a cache in device memory.
+MLA keeps a compressed ``c_kv`` (rank r) and one shared rope key a token.
+``mla_forward`` expands them to per-head keys and values and runs
+:func:`blockwise_attention` with v padded to the qk width, whatever
+``kernel`` says, as the reference does (it reaches no Pallas kernel);
+``mla_decode`` scores against the compressed cache itself, with ``w_uk``
+absorbed into the query and ``w_uv`` applied after the attention.
+
+Cross-attention, M-RoPE and the sequence-sharded variants wait for their
+slices (``ROADMAP.md``, Queue 1 item 4).  The decode steps write the new
+entries into the cache in place, where the reference returns a new cache:
+that keeps one copy of a cache in device memory.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import ModelConfig
@@ -207,3 +215,167 @@ def gqa_decode(x, p: GQAttention, cache: Dict[str, torch.Tensor], pos: int,
     cache["v"][:, slot] = v[:, 0]
     o = decode_attention(q, cache["k"], cache["v"], valid_len=min(pos + 1, t))
     return p.out(o), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA module (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+class MLAttention(nn.Module):
+    """``mla_init``'s parameters in the reference's layouts: w_dkv (d, r),
+    w_krope (d, rope), w_uk (r, H, nope), w_uv (r, H, vh), wo (H, vh, d);
+    and either w_dq (d, qr) and w_uq (qr, H, nope + rope) when
+    ``q_lora_rank`` > 0, or wq (d, H, nope + rope)."""
+
+    def __init__(self, cfg: ModelConfig, dtype=None, device=None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+        nope, rope, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        kw = dict(dtype=dtype, device=device)
+        self.w_dkv = nn.Parameter(torch.empty(d, r, **kw))
+        self.w_krope = nn.Parameter(torch.empty(d, rope, **kw))
+        self.w_uk = nn.Parameter(torch.empty(r, h, nope, **kw))
+        self.w_uv = nn.Parameter(torch.empty(r, h, vh, **kw))
+        self.wo = nn.Parameter(torch.empty(h, vh, d, **kw))
+        if qr:
+            self.w_dq = nn.Parameter(torch.empty(d, qr, **kw))
+            self.w_uq = nn.Parameter(torch.empty(qr, h, nope + rope, **kw))
+            self.wq = None
+        else:
+            self.w_dq = self.w_uq = None
+            self.wq = nn.Parameter(torch.empty(d, h, nope + rope, **kw))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Fan-in truncated normals: a matrix's first axis (d for the maps
+        of x, r for w_uk and w_uv, qr for w_uq), H·vh for wo."""
+        for w in (self.w_dkv, self.w_krope, self.w_dq, self.wq, self.w_uk,
+                  self.w_uv, self.w_uq):
+            if w is not None:
+                trunc_normal_(w, w.shape[0], generator)
+        trunc_normal_(self.wo, self.wo.shape[0] * self.wo.shape[1], generator)
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """(B, S, H, vh) · (H, vh, d) -> (B, S, d) in o's dtype."""
+        b, s = o.shape[:2]
+        return o.reshape(b, s, -1) @ self.wo.reshape(-1, self.wo.shape[2])
+
+
+def _up(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, r) · (r, H, k) -> (B, S, H, k) in c's dtype."""
+    b, s, r = c.shape
+    return (c @ w.reshape(r, -1)).view(b, s, w.shape[1], w.shape[2])
+
+
+def _mla_q(x, p: MLAttention) -> torch.Tensor:
+    """The queries (B, S, H, nope + rope) in x's dtype."""
+    if p.w_dq is not None:
+        return _up(x @ p.w_dq, p.w_uq)
+    return _up(x, p.wq)
+
+
+def _mla_rope_key(x, p: MLAttention, positions, cfg: ModelConfig):
+    """The shared rope key (B, S, 1, rope), rotated."""
+    return apply_rope((x @ p.w_krope)[:, :, None, :], positions,
+                      cfg.rope_theta)
+
+
+def mla_forward(x, p: MLAttention, cfg: ModelConfig, *, positions=None,
+                window: int = 0, kernel: str = "flash"):
+    """Prefill MLA attention: the compressed KV expanded to per-head keys
+    and values, the shared rope key broadcast over the heads, v padded
+    from vh to nope + rope, blockwise attention with scale
+    1/sqrt(nope + rope).  ``kernel`` is accepted and ignored, as in the
+    reference.  x: (B, S, d) -> (B, S, d) in x's dtype."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
+    b, s, _ = x.shape
+    nope, rope, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    h = cfg.n_heads
+    if positions is None:
+        positions = _positions_default(b, s, x.device)
+    q = _mla_q(x, p)
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    c_kv = x @ p.w_dkv
+    k_rope = _mla_rope_key(x, p, positions, cfg)
+    q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
+    k_full = torch.cat([_up(c_kv, p.w_uk), k_rope.expand(b, s, h, rope)],
+                       dim=-1)
+    v = F.pad(_up(c_kv, p.w_uv), (0, nope + rope - vh))
+    o = blockwise_attention(q_full, k_full, v, causal=True, window=window,
+                            softmax_scale=1.0 / math.sqrt(nope + rope))
+    return p.out(o[..., :vh])
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    """c_kv (B, T, r) and k_rope (B, T, rope), zeroed."""
+    return {"c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode(x, p: MLAttention, cache: Dict[str, torch.Tensor], pos: int,
+               cfg: ModelConfig, *, window: int = 0):
+    """One absorbed-weight decode step.  x: (B, 1, d); pos: absolute
+    position (int).  The query's nope part times w_uk scores against the
+    compressed cache directly, plus the rope term; the attention runs in
+    the compressed space and is up-projected through w_uv.  The cache slot
+    is pos (pos % T under a window, a ring buffer).  Writes the cache in
+    place and returns (out, cache)."""
+    b = x.shape[0]
+    pos = int(pos)
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    f32 = torch.float32
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = _mla_q(x, p)                                        # (B,1,H,nope+rope)
+    q_rope = apply_rope(q[..., nope:], posb, cfg.rope_theta)
+    # absorb w_uk into the query: q_c = q_nope · w_ukᵀ -> (B, 1, H, r)
+    q_c = torch.einsum("bshk,rhk->bshr", q[..., :nope], p.w_uk)
+    t = cache["c_kv"].shape[1]
+    slot = pos % t if window else pos
+    cache["c_kv"][:, slot] = (x @ p.w_dkv)[:, 0]
+    cache["k_rope"][:, slot] = _mla_rope_key(x, p, posb, cfg)[:, 0, 0]
+    c_kv, k_rope = cache["c_kv"].to(f32), cache["k_rope"].to(f32)
+    s = (torch.einsum("bshr,btr->bhst", q_c.to(f32), c_kv) +
+         torch.einsum("bshk,btk->bhst", q_rope.to(f32), k_rope)) \
+        * (1.0 / math.sqrt(nope + rope))
+    valid = torch.arange(t, device=x.device) < min(pos + 1, t)
+    pr = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1)
+    # attend in the compressed space, then up-project through w_uv
+    o_c = torch.einsum("bhst,btr->bshr", pr.to(x.dtype).to(f32),
+                       c_kv).to(x.dtype)
+    o = torch.einsum("bshr,rhk->bshk", o_c, p.w_uv)
+    return p.out(o), cache
+
+
+# ---------------------------------------------------------------------------
+# the layer's attention, GQA or MLA as configured
+# ---------------------------------------------------------------------------
+def make_attention(cfg: ModelConfig, dtype=None, device=None) -> nn.Module:
+    """An :class:`MLAttention` when ``cfg.attn_type == "mla"``, else a
+    :class:`GQAttention`."""
+    if cfg.attn_type == "mla":
+        return MLAttention(cfg, dtype, device)
+    return GQAttention(cfg, dtype, device)
+
+
+def attention_forward(x, p: nn.Module, cfg: ModelConfig, *, window: int = 0,
+                      kernel: str = "flash"):
+    """:func:`mla_forward` or :func:`gqa_forward`, by ``p``'s type."""
+    fwd = mla_forward if isinstance(p, MLAttention) else gqa_forward
+    return fwd(x, p, cfg, window=window, kernel=kernel)
+
+
+def attention_decode(x, p: nn.Module, cache, pos: int, cfg: ModelConfig, *,
+                     window: int = 0):
+    """:func:`mla_decode` or :func:`gqa_decode`, by ``p``'s type."""
+    dec = mla_decode if isinstance(p, MLAttention) else gqa_decode
+    return dec(x, p, cache, pos, cfg, window=window)
+
+
+def attention_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                         device) -> Dict[str, torch.Tensor]:
+    """:func:`mla_init_cache` or :func:`gqa_init_cache`, as configured."""
+    init = mla_init_cache if cfg.attn_type == "mla" else gqa_init_cache
+    return init(cfg, batch, cache_len, dtype, device)

@@ -151,7 +151,9 @@ def lm_params(cfg, seed):
     scaled by the fan-in the reference's ``dense_init`` uses (the first
     axis; ``H·hd`` for the attention output map, ``d`` for the embedding;
     a stacked leaf's axis after its stacking: one for ``layers`` and the
-    hybrid's ``rem``, two for its ``groups``), norm scales and the Mamba2
+    hybrid's ``rem``, two for its ``groups``; an expert's own fan-in, d for
+    its (E, d, f) ``w_gate``/``w_up`` and f for its (E, f, d)
+    ``w_down``), norm scales and the Mamba2
     D near 1, A_log ~ 0.3·N(0, 1) and small biases, so every leaf's mapping
     is exercised.  float32 numpy leaves, for both packages."""
     from repro.models import transformer as jtf
@@ -169,7 +171,27 @@ def ssm_params(cfg, seed):
     return _fill_params(shapes, seed)
 
 
+def moe_params(cfg, seed):
+    """Reference MoE params (``moe_init``'s shapes) for ``cfg``, drawn as
+    :func:`lm_params` draws an MoE layer's leaves."""
+    from repro.models import moe as jmoe
+    shapes = jax.eval_shape(lambda k: jmoe.moe_init(k, cfg),
+                            jax.random.PRNGKey(0))
+    return _fill_params(shapes, seed)
+
+
+def mla_params(cfg, seed):
+    """Reference MLA params (``mla_init``'s shapes) for ``cfg``, drawn as
+    :func:`lm_params` draws a layer's attention leaves."""
+    from repro.models import attention as jattn
+    shapes = jax.eval_shape(lambda k: jattn.mla_init(k, cfg),
+                            jax.random.PRNGKey(0))
+    return _fill_params(shapes, seed)
+
+
 _STACKED = {"layers": 1, "groups": 2, "rem": 1}
+# the MoE experts' leaves, drawn at each expert's own fan-in
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def _fill_params(shapes, seed):
@@ -188,6 +210,8 @@ def _fill_params(shapes, seed):
         else:
             fan_in = {"wo": core[0] * core[1],
                       "embedding": core[-1]}.get(names[-1], core[0])
+            if names[-1] in _EXPERT_LEAVES and len(core) == 3:
+                fan_in = core[1]          # (E, d, f) / (E, f, d): d or f
             a = rng.standard_normal(shape) / np.sqrt(fan_in)
         return a.astype(np.float32)
     return jax.tree_util.tree_map_with_path(fill, shapes)

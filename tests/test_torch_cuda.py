@@ -966,3 +966,62 @@ def test_profiled_serve_names_the_kernels_on_cuda(tmp_path):
     (name,) = os.listdir(d)
     text = (d / name).read_text()
     assert "traj_masked_step" in text and "lane_noise" in text
+
+
+# the MoE family's reduced members (f32: E 4, top-2, dropless; DeepSeek-V2
+# with MLA, Kimi-K2 with GQA through the flash kernel's f32 instance):
+# prefill logits on the card against the CPU at the LM parity tests'
+# atol; and Kimi-K2's MoE layer alone in bf16 (the float32-result expert
+# products, ``torch.bmm(..., out_dtype=float32)`` on the card) against the
+# CPU's float32 products of the same bf16 operands, to a bf16 ulp of the
+# largest output
+MOE_CUDA_ATOL, MOE_BF16_REL = 2e-4, 2.0 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_moe_prefill_matches_cpu_on_cuda(arch):
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch).reduced()
+    cpu = tf.init_params(cfg, seed=5, device="cpu")
+    card = tf.Transformer(cfg, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(6))
+    prefill = make_prefill_step(cfg)
+    before = ops.flash_attention.launches
+    got = prefill(card, {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    want = cfg.n_layers if cfg.attn_type == "gqa" else 0
+    assert ops.flash_attention.launches == before + want
+    ref = prefill(cpu, {"tokens": tokens})
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=MOE_CUDA_ATOL)
+
+
+@pytest.mark.cuda
+def test_moe_layer_bf16_matches_cpu_on_cuda():
+    _require_cuda()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b").reduced(),
+                              dtype="bfloat16", capacity_factor=1.25)
+    cpu = tmoe.MoE(cfg, dtype=torch.bfloat16, device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    cpu.shared.reset_parameters(torch.Generator().manual_seed(1))
+    card = tmoe.MoE(cfg, dtype=torch.bfloat16, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2)).bfloat16()
+    with torch.inference_mode():
+        got, aux = tmoe.moe_forward(x.cuda(), card, cfg)
+        ref, aux_ref = tmoe.moe_forward(x, cpu, cfg)
+    assert got.dtype == torch.bfloat16
+    d = (got.cpu().float() - ref.float()).abs()
+    assert float(d.max()) <= MOE_BF16_REL * float(ref.float().abs().max())
+    assert float(aux) == pytest.approx(float(aux_ref), rel=1e-5)

@@ -21,6 +21,7 @@ from repro_torch.examples import collafuse_healthcare as hc  # noqa: E402
 from repro_torch.examples import cut_ratio_sweep  # noqa: E402
 from repro_torch.examples import privacy_admission_sweep  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
+from repro_torch.examples import serve_decode  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")
 torch.set_num_threads(2)
@@ -296,3 +297,39 @@ def test_examples_default_to_the_card():
             main(["--rounds", "1"] if main is not privacy_admission_sweep.main
                  else [])
     assert ttr.CollaFuseTrainer.__init__.__defaults__[0] == "cuda"
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "zamba2-7b", "deepseek-v2-236b",
+                                  "kimi-k2-1t-a32b"])
+def test_serve_decode_main(arch, capsys):
+    """The reduced member served at a few tokens: the reference's lines,
+    its parameter count (the reference's tree), finite logits, ids in the
+    vocabulary."""
+    import jax
+
+    from repro.configs import get_config as jget_config
+    from repro.models import transformer as jtf
+    cfg = jget_config(arch).reduced()
+    shapes = jax.eval_shape(lambda k: jtf.init_params(k, cfg),
+                            jax.random.PRNGKey(0))
+    n = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    out = serve_decode.main(["--device", "cpu", "--arch", arch, "--batch",
+                             "2", "--prompt-len", "5", "--tokens", "4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == (f"{arch} (reduced): {n/1e6:.1f}M params, "
+                        f"family={cfg.family}")
+    assert lines[1].startswith("prefill 2x5: ")
+    assert lines[2].startswith("decoded 4 tokens x 2 seqs in ")
+    assert lines[3] == f"sample token ids: {out[0].tolist()}"
+    assert lines[-1] == "OK"
+    assert out.shape == (2, 4) and int(out.max()) < cfg.vocab_size
+    again = serve_decode.main(["--device", "cpu", "--arch", arch, "--batch",
+                               "2", "--prompt-len", "5", "--tokens", "4"])
+    assert torch.equal(out, again)                 # seeded
+
+
+def test_serve_decode_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_decode.main([])
