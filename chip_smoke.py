@@ -113,7 +113,7 @@ Phases, each printing its own lines:
    round 0 in chunks of 16, 8 and 5 (ragged) on both engines against the
    unchunked round from the same models and draws: losses within phase
    4b's tolerance, parameters within the card-against-CPU bound; (c) 150
-   images a client (pooled 450) in chunks of 48, a warm-up and 2 timed
+   images a client (pooled 450) in chunks of 32, a warm-up and 2 timed
    rounds on the looped engine (and the batched one when the phase's
    budget allows): round and step ms, images/s, TFLOP/s against 67, peak
    memory under the card's, finite losses; (d) the trained trainer saved
@@ -170,7 +170,26 @@ Phases, each printing its own lines:
    held to a floor, the logits' mean |Δ| to a bound; (c) 64 chained decode
    steps at batch 1 against the dropless prefill of the same tokens, ms a
    step and the device's launches a step; (d) the serving launcher on each
-   reduced member and ``examples/serve_decode`` on DeepSeek-V2's.
+   reduced member and ``examples/serve_decode`` on DeepSeek-V2's;
+8. families — the last three LM families at full width and depth (bf16,
+   random weights from a seed): Qwen2-VL-2B (M-RoPE, 256 vision
+   embeddings drawn at the embedding table's scale before 1792 text
+   tokens), MusicGen-large (cross-attention to 64 conditioning
+   embeddings) and xLSTM-125M (9 mLSTM and 3 sLSTM blocks).  For each:
+   (a) prefill of 4x2048 positions, timed, TFLOP/s, peak memory,
+   profiled (xLSTM's at 4x256), ``flash_attention`` launched once a layer
+   (28, 48; never for xLSTM), and for xLSTM the sLSTM loops' share of the
+   prefill (CUDA events around each); (b) for the attention families the
+   same batch through ``kernel="torch"``, logits within Yi's bounds;
+   (c) 64 chained decode steps at batch 1 against the forward: Qwen2-VL's
+   text (pos on all three streams) against the same weights' forward as
+   family "dense" with the same sections, MusicGen's with each layer's
+   ``cross_kv`` filled from the conditioning, xLSTM's against its prefill
+   and, in a float32 twin, 512 steps of the recurrence against the
+   chunked form; ms and launches a step; (d) ``flash_attention`` against
+   ``attention_ref`` at q 4x2048x12x128 with KV 2 and at 4x2048x32x64
+   MHA, bf16, with its time, the plain version's, the bound and SDPA's in
+   turns; (e) the serving launcher on each at full size.
 
 It then prints the kernels' JSON line, and last the device line.  It exits
 non-zero, without the last line, when CUDA is absent or any phase fails.
@@ -228,6 +247,7 @@ from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.unet import UNet, flops_per_image  # noqa: E402
 from repro_torch.launch import pod_smoke  # noqa: E402
 from repro_torch.obs import (STAGES, load_trace, merge_traces,  # noqa: E402
@@ -2986,15 +3006,22 @@ def phase_ssm(dev, card: str):
 def logit_gap(name, got, want, tol_max=LM_TOL_MAX, tol_mean=LM_TOL_MEAN,
               tag="lm"):
     """Max and mean |Δ| of two logit tensors, held to the tolerances (a
-    ``tol_max`` of None holds the mean alone)."""
-    d = (got.float() - want.float()).abs()
-    mx, mean = float(d.max()), float(d.mean())
+    ``tol_max`` of None holds the mean alone); computed a batch row at a
+    time, so no float32 copy of the whole logits is made."""
+    mx, total, top, finite = 0.0, 0.0, 0.0, True
+    for g_row, w_row in zip(got, want):
+        d = (g_row.float() - w_row.float()).abs()
+        mx = max(mx, float(d.max()))
+        total += float(d.sum(dtype=torch.float64))
+        top = max(top, float(w_row.float().abs().max()))
+        finite = finite and bool(torch.isfinite(g_row).all())
+        del d
+    mean = total / got.numel()
     held = (f"max {tol_max} " if tol_max is not None else "") + \
         f"mean {tol_mean}"
-    print(f"[{tag}] {name}: max |dlogit| {mx:.4f} mean {mean:.5f} "
-          f"(tolerance {held}; logits max "
-          f"{float(want.float().abs().max()):.3f})", flush=True)
-    if not torch.isfinite(got).all():
+    print(f"[{tag}] {name}: max |dlogit| {mx:.4g} mean {mean:.4g} "
+          f"(tolerance {held}; logits max {top:.3f})", flush=True)
+    if not finite:
         raise AssertionError(f"{name}: non-finite logits")
     if (tol_max is not None and mx > tol_max) or mean > tol_mean:
         raise AssertionError(f"{name}: logits disagree")
@@ -3657,6 +3684,349 @@ def phase_moe(dev, card: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the last LM families at full width and depth
+# ---------------------------------------------------------------------------
+FAMILY_SHAPE = (4, 2048)
+FAMILY_DECODE_STEPS = 64
+# flash_attention at a Qwen2-VL-2B layer's prefill (12 heads, 2 KV, hd 128)
+# and a MusicGen-large layer's (MHA 32/32, hd 64): (B, S, H, KV, hd)
+VLM_ATTN_SHAPE = (4, 2048, 12, 2, 128)
+AUDIO_ATTN_SHAPE = (4, 2048, 32, 32, 64)
+# xLSTM-125M's float32 twin (the same weights): the mLSTM's recurrence
+# against its chunked form over 2 chunks of 256, at batch 1
+XLSTM_F32_STEPS = 512
+# the sequence length xLSTM-125M's prefill is profiled at
+XLSTM_PROFILE_S = 256
+# Qwen2-VL-2B and MusicGen-large: the flash prefill against
+# kernel="torch" and the cached decode chain against the forward are held
+# to Yi's bounds (LM_TOL_MAX, LM_TOL_MEAN): the same dense layers, 28 and
+# 48 deep.  xLSTM-125M in bf16 has no kernel on its path; its decode (q, k
+# and v unrounded float32, the recurrence) against the prefill (q, k, v
+# rounded to bf16, the chunked form) differs by more than a rounding: a
+# CPU proxy (the full config, bf16, 1 x 64 tokens) read max 0.716 and mean
+# 0.082 against a mean |logit| of 0.79 (bf16 against float32 prefill:
+# 0.917 and 0.095), unrelated logits ~1.1 apart.  Held: mean <= 0.2, the
+# max printed.  The float32 twin reads the chunked form against the
+# recurrence without bf16 rounding: the proxy at 512 tokens (2 chunks)
+# max 9.6e-4, mean 5.5e-5; held: max 5e-3 and mean 5e-4.
+XLSTM_TOL = dict(bf16_mean=0.2, f32_max=5e-3, f32_mean=5e-4)
+
+
+def positions(cfg, batch):
+    """(B, S) of a prefill's positions: a vlm's vision tokens and text."""
+    b, s = batch["tokens"].shape
+    return b, s + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
+
+
+def family_prefill(tag, model, cfg, batch, card, n_flash, prof_batch=None,
+                   reps=3):
+    """(a): a warm-up, one counted prefill (``n_flash`` launches of
+    ``flash_attention``), ``reps`` timed ones, a profiled one (on
+    ``prof_batch`` when given).  Returns (the counted run's logits, launch
+    counts, ms, the profile)."""
+    _, _, bf16_peak = card_rates(card)
+    b, s = positions(cfg, batch)
+    flops = cfg.flops_per_token_fwd(s) * b * s
+    prefill = make_prefill_step(cfg, kernel="flash")
+    prefill(model, batch)                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts["flash_attention"] != n_flash:
+        raise AssertionError(f"{cfg.arch_id}: flash_attention launched "
+                             f"{counts['flash_attention']} times in one "
+                             f"prefill, not {n_flash}")
+    if logits.shape != (b, s, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.arch_id}: prefill logits "
+                             f"{tuple(logits.shape)} not finite or of the "
+                             "wrong shape")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        prefill(model, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"[{tag}] (a) prefill {b}x{s} kernel=flash: {ms:.1f} ms, "
+          f"{b * s / ms * 1e3:.0f} tokens/s, {flops / ms / 1e9:.1f} TFLOP/s "
+          f"of {bf16_peak / 1e12:.0f} ({flops / ms * 1e3 / bf16_peak:.1%}) "
+          f"on {flops:.3e} FLOP | flash_attention launches "
+          f"{counts['flash_attention']} a call | peak memory {peak_gb:.1f} GB",
+          flush=True)
+    pb = batch if prof_batch is None else prof_batch
+    prof = profile_device(f"{cfg.arch_id} prefill "
+                          f"{'x'.join(map(str, positions(cfg, pb)))}",
+                          lambda: prefill(model, pb), reps=1)
+    return logits, counts, ms, prof
+
+
+def family_decode(tag, model, cfg, tokens, cache, want, tol_max, tol_mean):
+    """(c): ``len(tokens[0])`` chained decode steps at batch 1 into
+    ``cache``, held against ``want`` (1, n, V); ms a step (wall) and the
+    device's launches a step (profiled, rewriting the last slot)."""
+    n = tokens.shape[1]
+    decode = make_decode_step(cfg)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(n):
+        lg, cache = decode(model, cache, {"tokens": tokens[:, pos:pos + 1]},
+                           pos)
+        outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    print(f"[{tag}] (c) {n} chained decode steps at batch 1: {ms:.2f} ms a "
+          "step (wall)", flush=True)
+    logit_gap("(c) decode chain vs forward", torch.stack(outs, 1), want,
+              tol_max, tol_mean, tag)
+    last = {"tokens": tokens[:, n - 1:]}
+    profile_device(f"{cfg.arch_id} decode step at batch 1",  # after the check
+                   lambda: decode(model, cache, last, n - 1))
+    return ms
+
+
+def family_model(arch, dev):
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(q.numel() for q in model.parameters())
+    want = cfg.param_count()
+    if cfg.family == "ssm":
+        # the reference's param_count leaves out each mLSTM's f_bias (nh)
+        # and counts the sLSTM's up and down maps as 2·d² (they hold 4·d²)
+        g, _, _ = tf.xlstm_layout(cfg)
+        want += (cfg.n_layers - g) * cfg.n_heads + g * 2 * cfg.d_model ** 2
+    if n_params != want:
+        raise AssertionError(f"{arch}: {n_params} params, not {want}")
+    return cfg, model, n_params, time.perf_counter() - t0
+
+
+def family_vlm(dev, card):
+    """(a)-(c) for Qwen2-VL-2B.  Returns the prefill's launch counts."""
+    tag = "vlm"
+    cfg, model, n_params, t_draw = family_model("qwen2-vl-2b", dev)
+    print(f"[{tag}] qwen2-vl-2b: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
+          f"{cfg.head_dim}, M-RoPE sections {cfg.mrope_sections}, "
+          f"{cfg.n_vision_tokens} vision tokens, vocabulary "
+          f"{cfg.vocab_size}, {cfg.dtype}; {n_params} params "
+          f"({n_params * 2 / 1e9:.1f} GB) drawn in {t_draw:.1f}s", flush=True)
+    b, s = FAMILY_SHAPE
+    p_vis = cfg.n_vision_tokens
+    g = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s - p_vis), generator=g,
+                           device=dev)
+    # patch embeddings at the embedding table's scale (fan-in d)
+    vis = (torch.randn((b, p_vis, cfg.d_model), generator=g, device=dev)
+           * cfg.d_model ** -0.5).to(model.embed.embedding.dtype)
+    batch = {"tokens": tokens, "vision_embeds": vis}
+    logits, counts, ms, _ = family_prefill(tag, model, cfg, batch, card,
+                                           cfg.n_layers)
+    # (b) the same batch through blockwise PyTorch attention
+    t0 = time.perf_counter()
+    logits_t = make_prefill_step(cfg, kernel="torch")(model, batch)
+    torch.cuda.synchronize()
+    print(f"[{tag}] (b) prefill kernel=torch: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (one call)", flush=True)
+    logit_gap("(b) flash vs torch prefill", logits, logits_t, tag=tag)
+    del logits, logits_t
+    torch.cuda.empty_cache()
+    # (c) text decode (pos on all three streams) against the same weights'
+    # forward under family "dense" with the same sections: plain ids
+    # broadcast to three streams, the reference's decode positions
+    n = FAMILY_DECODE_STEPS
+    dense_cfg = dataclasses.replace(cfg, family="dense")
+    twin = tf.Transformer(dense_cfg, device="meta")
+    twin.load_state_dict(model.state_dict(), assign=True)
+    text = {"tokens": tokens[:1, :n]}
+    want = make_prefill_step(dense_cfg)(twin.eval(), text)
+    cache = tf.init_cache(cfg, 1, n, device=dev)
+    dec_ms = family_decode(tag, model, cfg, text["tokens"], cache, want,
+                           LM_TOL_MAX, LM_TOL_MEAN)
+    del model, twin, cache, want
+    torch.cuda.empty_cache()
+    return counts, ms, dec_ms
+
+
+def family_audio(dev, card):
+    """(a)-(c) for MusicGen-large.  Returns the prefill's launch counts."""
+    tag = "audio"
+    cfg, model, n_params, t_draw = family_model("musicgen-large", dev)
+    print(f"[{tag}] musicgen-large: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, MHA {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.head_dim}, cross-attention to {cfg.n_cond_tokens} "
+          f"conditioning tokens, vocabulary {cfg.vocab_size}, {cfg.dtype}; "
+          f"{n_params} params ({n_params * 2 / 1e9:.1f} GB) drawn in "
+          f"{t_draw:.1f}s", flush=True)
+    b, s = FAMILY_SHAPE
+    g = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev)
+    cond = (torch.randn((b, cfg.n_cond_tokens, cfg.d_model), generator=g,
+                        device=dev) * cfg.d_model ** -0.5).bfloat16()
+    batch = {"tokens": tokens, "cond_embeds": cond}
+    logits, counts, ms, _ = family_prefill(tag, model, cfg, batch, card,
+                                           cfg.n_layers)
+    t0 = time.perf_counter()
+    logits_t = make_prefill_step(cfg, kernel="torch")(model, batch)
+    torch.cuda.synchronize()
+    print(f"[{tag}] (b) prefill kernel=torch: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (one call)", flush=True)
+    logit_gap("(b) flash vs torch prefill", logits, logits_t, tag=tag)
+    del logits_t
+    # (c) each layer's cross_kv filled from row 0's conditioning through
+    # the layer's wk and wv (the reference's tests/test_decode.py), then
+    # teacher-forced decode against the prefill's row 0
+    n = FAMILY_DECODE_STEPS
+    cache = tf.init_cache(cfg, 1, n, device=dev)
+    with torch.inference_mode():
+        for layer, c in zip(model.layers, cache["layers"]):
+            for key, w in (("k", layer.cross.wk), ("v", layer.cross.wv)):
+                c["cross_kv"][key].copy_(layer.cross.project(cond[:1], w))
+    want = logits[:1, :n].clone()
+    del logits
+    torch.cuda.empty_cache()
+    dec_ms = family_decode(tag, model, cfg, tokens[:1, :n], cache, want,
+                           LM_TOL_MAX, LM_TOL_MEAN)
+    del model, cache, want
+    torch.cuda.empty_cache()
+    return counts, ms, dec_ms
+
+
+@contextlib.contextmanager
+def slstm_timer(pairs: list):
+    """Record CUDA events around every ``slstm_forward`` call while the
+    block runs (appended to ``pairs``)."""
+    fwd = xlstm_mod.slstm_forward
+
+    def timed(x, p, cfg):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fwd(x, p, cfg)
+        stop.record()
+        pairs.append((start, stop))
+        return out
+    xlstm_mod.slstm_forward = timed
+    try:
+        yield pairs
+    finally:
+        xlstm_mod.slstm_forward = fwd
+
+
+def family_xlstm(dev, card):
+    """(a)-(c) for xLSTM-125M, and the float32 twin's recurrence against
+    its chunked form."""
+    tag = "xlstm"
+    cfg, model, n_params, t_draw = family_model("xlstm-125m", dev)
+    g_, k, rem = tf.xlstm_layout(cfg)
+    print(f"[{tag}] xlstm-125m: {cfg.n_layers} blocks ({g_} groups of "
+          f"{k - 1} mLSTM + 1 sLSTM, remainder {rem}), d_model {cfg.d_model}"
+          f", {cfg.n_heads} heads, mLSTM chunk "
+          f"{xlstm_mod.mlstm_chunk_len(FAMILY_SHAPE[1])}, {cfg.dtype}; "
+          f"{n_params} params ({n_params * 2 / 1e9:.2f} GB; the reference's "
+          f"param_count {cfg.param_count()}) drawn in {t_draw:.1f}s",
+          flush=True)
+    b, s = FAMILY_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    # profiled at 4 x 256 (one mLSTM chunk, 256 sLSTM steps): at 2048 the
+    # loop makes ~160k launches, whose profile takes minutes to read; one
+    # timed run (a prefill takes seconds)
+    logits, counts, ms, _ = family_prefill(
+        tag, model, cfg, {"tokens": tokens}, card, 0,
+        prof_batch={"tokens": tokens[:, :XLSTM_PROFILE_S]}, reps=1)
+    pairs = []
+    prefill = make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with slstm_timer(pairs):
+        prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    s_ms = [a.elapsed_time(z) for a, z in pairs]
+    if len(s_ms) != g_:
+        raise AssertionError(f"{len(s_ms)} sLSTM calls, not {g_}")
+    print(f"[{tag}] (a) the sLSTM loops (CUDA events around each of the "
+          f"{g_} blocks, {s} steps each): " + ", ".join(f"{v:.1f}"
+                                                        for v in s_ms)
+          + f" ms, {sum(s_ms):.1f} of the prefill's {wall:.1f} ms wall "
+          f"({sum(s_ms) / wall:.1%}); {sum(s_ms) / g_ / s * 1e3:.1f} us a "
+          "step", flush=True)
+    # (c) bf16 decode chain against the prefill's row 0
+    n = FAMILY_DECODE_STEPS
+    want = logits[:1, :n].clone()
+    del logits
+    cache = tf.init_cache(cfg, 1, n, device=dev)
+    dec_ms = family_decode(tag, model, cfg, tokens[:1, :n], cache, want,
+                           None, XLSTM_TOL["bf16_mean"])
+    # the float32 twin of the same weights: recurrence against chunks
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    f32 = tf.Transformer(f32_cfg, device=dev).eval()
+    f32.load_state_dict({key: v.float()
+                         for key, v in model.state_dict().items()})
+    n32 = XLSTM_F32_STEPS
+    row = {"tokens": tokens[:1, :n32]}
+    want32 = make_prefill_step(f32_cfg)(f32, row)
+    decode = make_decode_step(f32_cfg)
+    cache = tf.init_cache(f32_cfg, 1, n32, device=dev)
+    outs = []
+    for pos in range(n32):
+        step = {"tokens": row["tokens"][:, pos:pos + 1]}
+        outs.append(decode(f32, cache, step, pos)[0][:, 0])
+    print(f"[{tag}] (c) float32 twin, {n32} decode steps (the recurrence) "
+          f"against its prefill ({n32 // xlstm_mod.mlstm_chunk_len(n32)} "
+          "mLSTM chunks):", flush=True)
+    logit_gap("(c) float32 decode vs chunked prefill", torch.stack(outs, 1),
+              want32, XLSTM_TOL["f32_max"], XLSTM_TOL["f32_mean"], tag)
+    del model, f32, cache, want, want32, outs
+    torch.cuda.empty_cache()
+    return counts, ms, dec_ms, sum(s_ms) / wall
+
+
+def phase_families(dev, card: str):
+    """Phase 8: Qwen2-VL-2B, MusicGen-large and xLSTM-125M at full width
+    and depth, (a)-(c) each; (d) ``flash_attention`` at the two new
+    shapes; (e) the serving launcher on each at full size.  Returns
+    {arch: prefill launch counts} and (d)'s rows."""
+    t_phase = time.perf_counter()
+    counts = {"qwen2-vl-2b": family_vlm(dev, card)[0],
+              "musicgen-large": family_audio(dev, card)[0],
+              "xlstm-125m": family_xlstm(dev, card)[0]}
+    rows = {}
+    for shape in (VLM_ATTN_SHAPE, AUDIO_ATTN_SHAPE):
+        b, s, h, kv, hd = shape
+        g = torch.Generator(device=dev).manual_seed(7)
+        q, k, v = (torch.randn(sh, generator=g, device=dev).bfloat16()
+                   for sh in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+        print(f"[families] (d) flash_attention at q {tuple(q.shape)}, KV "
+              f"{kv} (H/KV = {h // kv}):", flush=True)
+        rows[shape] = attention_case(q, k, v, 0, card)
+        del q, k, v
+        torch.cuda.empty_cache()
+    for arch in ("qwen2-vl-2b", "musicgen-large", "xlstm-125m"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            lm_serve.main(["--arch", arch, "--no-reduced", "--requests", "2",
+                           "--batch", "4", "--prompt-len", "16",
+                           "--tokens", "8"])
+        for line in buf.getvalue().splitlines():
+            print(f"[families] (e) {line}", flush=True)
+        if "serving loop OK" not in buf.getvalue():
+            raise AssertionError(f"{arch}: the launcher did not print "
+                                 "'serving loop OK'")
+        torch.cuda.empty_cache()
+    print(f"[families] phase wall {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return counts, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3682,6 +4052,8 @@ def main():
     hybrid_counts = phase_hybrid(dev, card)
     torch.cuda.empty_cache()
     phase_moe(dev, card)
+    torch.cuda.empty_cache()
+    phase_families(dev, card)
     # the step kernels' launches on this slice's path, guided and gated
     # serving (phase 4's are printed in its own lines)
     counts = {"traj_masked_step": g["cuda_masked"]["traj_masked_step"],

@@ -42,13 +42,14 @@ from repro_torch.data.synthetic import (ClientDataConfig, image_batches,
 from repro_torch.device import resolve_device
 from repro_torch.models.unet import UNet
 
-# the chunk --full trains in when --micro-batch is not given: 48 images a
+# the chunk --full trains in when --micro-batch is not given: 32 images a
 # forward and backward.  At 150 images a client in these chunks a looped
-# round peaked at 75.77 GB allocated, 76.34 GB reserved of an NVIDIA H100
-# 80GB HBM3's 85.0 GB (700 W; chip_smoke.py phase 4f (c) prints it): cuDNN
-# takes much of what is free as convolution workspace, and 16-image chunks
-# still peak near 39 GB (phase 4f (a))
-FULL_MICRO_BATCH = 48
+# round peaked at 62.31 GB allocated, 72.11 GB reserved of an NVIDIA H100
+# 80GB HBM3's 85.0 GB (700 W; chip_smoke.py phase 4f (c) prints it).  In
+# chunks of 48 it peaked at 75.77 to 82.83 GB and once ran out of memory:
+# cuDNN takes much of what is free as convolution workspace, and 16-image
+# chunks still peak near 39 GB (phase 4f (a))
+FULL_MICRO_BATCH = 32
 # the seed evaluate() keys its generated and disclosed noise by (the
 # reference's PRNGKey(99))
 EVAL_SEED = 99

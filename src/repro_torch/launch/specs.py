@@ -1,6 +1,6 @@
 """Serving shapes (counterpart of ``serve_window`` in
 ``repro/launch/specs.py``; the abstract input specs of the TPU dry run
-wait for the pod slice)."""
+wait for the DTensor mesh, ROADMAP.md Queue 1 item 4)."""
 from __future__ import annotations
 
 from repro_torch.configs import InputShape, ModelConfig

@@ -1,6 +1,7 @@
 """Attention: blockwise full / sliding-window attention, the decode step
-over a KV cache, the GQA module and DeepSeek-V2's MLA (counterpart of the
-GQA and MLA parts of ``repro/models/attention.py``).
+over a KV cache, the GQA module (with Qwen2-VL's M-RoPE where the config
+has ``mrope_sections``), DeepSeek-V2's MLA and MusicGen's cross-attention
+(counterpart of ``repro/models/attention.py`` on one device).
 
 ``gqa_forward`` runs the attention core one of two ways: ``kernel="flash"``
 (the default) calls :func:`repro_torch.kernels.ops.flash_attention`, the
@@ -17,10 +18,13 @@ MLA keeps a compressed ``c_kv`` (rank r) and one shared rope key a token.
 ``mla_decode`` scores against the compressed cache itself, with ``w_uk``
 absorbed into the query and ``w_uv`` applied after the attention.
 
-Cross-attention, M-RoPE and the sequence-sharded variants wait for their
-slices (``ROADMAP.md``, Queue 1 item 4).  The decode steps write the new
-entries into the cache in place, where the reference returns a new cache:
-that keeps one copy of a cache in device memory.
+``cross_attention`` attends from the sequence to the conditioning
+embeddings: no RoPE, no mask, C keys; it reaches no Pallas kernel in the
+reference and stays plain PyTorch here.  The sequence-sharded variant
+(``qshard_attention``) waits for the DTensor mesh (``ROADMAP.md`` Queue 1
+item 4).  The decode steps write the new entries into the cache in place,
+where the reference returns a new cache: that keeps one copy of a cache in
+device memory.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from torch import nn
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, trunc_normal_
+from repro_torch.models.layers import apply_mrope, apply_rope, trunc_normal_
 
 NEG_INF = -2.0 ** 30
 KERNELS = ("flash", "torch")
@@ -169,7 +173,8 @@ def _positions_default(b: int, s: int, device):
 def gqa_forward(x, p: GQAttention, cfg: ModelConfig, *, positions=None,
                 window: int = 0, kernel: str = "flash"):
     """Full (prefill) causal GQA self-attention.  x: (B, S, d) -> (B, S, d)
-    in x's dtype."""
+    in x's dtype.  positions: (B, S), or (3, B, S) under M-RoPE, where
+    plain (B, S) ids stand for three equal streams; None: 0..S-1."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
     b, s, _ = x.shape
@@ -178,13 +183,24 @@ def gqa_forward(x, p: GQAttention, cfg: ModelConfig, *, positions=None,
     v = p.project(x, p.wv)
     if positions is None:
         positions = _positions_default(b, s, x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rope(q, k, positions, cfg)
     if kernel == "flash":
         o = ops.flash_attention(q, k, v, causal=True, window=window)
     else:
         o = blockwise_attention(q, k, v, causal=True, window=window)
     return p.out(o)
+
+
+def _rope(q, k, positions, cfg: ModelConfig):
+    """q and k rotated: M-RoPE when the config has ``mrope_sections`` (2-D
+    ids broadcast to three equal streams), else RoPE."""
+    if not cfg.mrope_sections:
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    if positions.ndim == 2:
+        positions = positions[None].expand(3, *positions.shape)
+    return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+            apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
@@ -196,7 +212,8 @@ def gqa_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
 
 def gqa_decode(x, p: GQAttention, cache: Dict[str, torch.Tensor], pos: int,
                cfg: ModelConfig, *, window: int = 0):
-    """One decode step.  x: (B, 1, d); pos: absolute position (int).
+    """One decode step.  x: (B, 1, d); pos: absolute position (int), on
+    all three streams under M-RoPE, as in the reference.
 
     Full attention: cache length T == sequence length, written at index
     pos.  Sliding window: T == window (a ring buffer), index pos % window.
@@ -207,8 +224,7 @@ def gqa_decode(x, p: GQAttention, cache: Dict[str, torch.Tensor], pos: int,
     k = p.project(x, p.wk)
     v = p.project(x, p.wv)
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, posb, cfg.rope_theta)
-    k = apply_rope(k, posb, cfg.rope_theta)
+    q, k = _rope(q, k, posb, cfg)
     t = cache["k"].shape[1]
     slot = pos % t if window else pos
     cache["k"][:, slot] = k[:, 0]
@@ -360,11 +376,12 @@ def make_attention(cfg: ModelConfig, dtype=None, device=None) -> nn.Module:
     return GQAttention(cfg, dtype, device)
 
 
-def attention_forward(x, p: nn.Module, cfg: ModelConfig, *, window: int = 0,
-                      kernel: str = "flash"):
-    """:func:`mla_forward` or :func:`gqa_forward`, by ``p``'s type."""
+def attention_forward(x, p: nn.Module, cfg: ModelConfig, *, positions=None,
+                      window: int = 0, kernel: str = "flash"):
+    """:func:`mla_forward` or :func:`gqa_forward`, by ``p``'s type, at
+    ``positions`` (None: 0..S-1)."""
     fwd = mla_forward if isinstance(p, MLAttention) else gqa_forward
-    return fwd(x, p, cfg, window=window, kernel=kernel)
+    return fwd(x, p, cfg, positions=positions, window=window, kernel=kernel)
 
 
 def attention_decode(x, p: nn.Module, cache, pos: int, cfg: ModelConfig, *,
@@ -379,3 +396,41 @@ def attention_init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     """:func:`mla_init_cache` or :func:`gqa_init_cache`, as configured."""
     init = mla_init_cache if cfg.attn_type == "mla" else gqa_init_cache
     return init(cfg, batch, cache_len, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (MusicGen's conditioning)
+# ---------------------------------------------------------------------------
+class CrossAttention(nn.Module):
+    """``cross_attention_init``'s parameters in the reference's layouts:
+    wq, wk, wv (d, H, hd), wo (H, hd, d)."""
+
+    def __init__(self, cfg: ModelConfig, dtype=None, device=None):
+        super().__init__()
+        d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+        kw = dict(dtype=dtype, device=device)
+        self.wq = nn.Parameter(torch.empty(d, h, hd, **kw))
+        self.wk = nn.Parameter(torch.empty(d, h, hd, **kw))
+        self.wv = nn.Parameter(torch.empty(d, h, hd, **kw))
+        self.wo = nn.Parameter(torch.empty(h, hd, d, **kw))
+
+    reset_parameters = GQAttention.reset_parameters
+    project = GQAttention.project
+    out = GQAttention.out
+
+
+def cross_attention(x, cond, p: CrossAttention, cfg: ModelConfig):
+    """x: (B, S, d) queries; cond: (B, C, d) keys and values, in x's
+    dtype.  No RoPE, no mask; scores in float32 times 1/sqrt(hd), the
+    softmax in float32, p rounded to x's dtype before the product with v.
+    Returns (B, S, d) in x's dtype."""
+    f32 = torch.float32
+    q = p.project(x, p.wq)
+    k = p.project(cond, p.wk)
+    v = p.project(cond, p.wv)
+    s = torch.einsum("bshk,bchk->bhsc", q.to(f32), k.to(f32)) * \
+        (1.0 / math.sqrt(cfg.head_dim))
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhsc,bchk->bshk", pr.to(x.dtype).to(f32),
+                     v.to(f32)).to(x.dtype)
+    return p.out(o)

@@ -1,6 +1,6 @@
-"""Shared LM layers: RMSNorm, RoPE, the SwiGLU MLP, embedding, unembedding
-and the fan-in truncated-normal init (counterpart of
-``repro/models/layers.py:105-240``).
+"""Shared LM layers: RMSNorm, RoPE and Qwen2-VL's multimodal RoPE, the
+SwiGLU MLP, embedding, unembedding and the fan-in truncated-normal init
+(counterpart of ``repro/models/layers.py:105-240``).
 
 Weights keep the reference's layouts (``(d, ff)`` for a dense map,
 ``(vocab, d)`` for the embedding), so a reference tree maps onto the port
@@ -8,7 +8,8 @@ leaf for leaf.  The dtype points are the reference's: RMSNorm computes in
 float32; the MLP's gate and up products come out in the activation dtype
 and silu·up is taken in float32; logits come out in the activation dtype.
 A matrix product of bfloat16 tensors accumulates in float32 and rounds its
-output once, as the reference's ``preferred_element_type`` does.
+output once, as the reference's ``preferred_element_type`` does;
+:func:`matmul_f32` keeps the float32 result where the reference does.
 """
 from __future__ import annotations
 
@@ -59,18 +60,64 @@ def rope_frequencies(head_dim: int, theta: float,
                                          device=device) / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S) integers.  Rotates the two
-    halves of hd in float32 and returns x's dtype."""
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of x's last axis by float32 ``angles``
+    (B, S, hd/2), broadcast over the heads; returns x's dtype."""
     half = x.shape[-1] // 2
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)
-    angles = positions[..., None].to(torch.float32) * freqs       # (B,S,half)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) integers.  Rotates the two
+    halves of hd in float32 and returns x's dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs       # (B,S,half)
+    return _rotate(x, angles)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x: (B, S, H, hd); positions: (3, B, S)
+    (temporal, height, width) ids; ``sections`` splits the hd/2 frequency
+    bands among the three streams in order (sum(sections) == hd // 2).
+    Angles in float32, the result in x's dtype; with three equal streams
+    it is :func:`apply_rope` bitwise (the same products)."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"hd/2 = {half}")
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    # band j takes the position of the stream whose section holds j (the
+    # reference's repeat_interleave of the stream ids); selected by slices,
+    # since a tensor of repeats would synchronise the device
+    pos = positions.to(torch.float32)
+    pos_sel = torch.cat([pos[i, :, :, None].expand(*pos.shape[1:], n)
+                         for i, n in enumerate(sections)], dim=-1)
+    return _rotate(x, pos_sel * freqs)                          # (B,S,half)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with a float32 result: bf16 operands accumulate in float32
+    and the result is not rounded (the reference's
+    ``preferred_element_type=float32``)."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        mm = torch.bmm if a.ndim == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+def dense_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., k) · (k, n) -> (..., n) with a float32 result, as
+    :func:`matmul_f32`."""
+    out = matmul_f32(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 class MLP(nn.Module):

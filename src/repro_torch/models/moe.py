@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.layers import MLP, trunc_normal_
+from repro_torch.models.layers import MLP, matmul_f32, trunc_normal_
 
 
 class MoE(nn.Module):
@@ -66,18 +66,6 @@ class MoE(nn.Module):
         for w in (self.router, self.w_gate, self.w_up):
             trunc_normal_(w, d, generator)
         trunc_normal_(self.w_down, f, generator)
-
-
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with a float32 result: bf16 operands accumulate in float32
-    and the result is not rounded (the reference's
-    ``preferred_element_type=float32``)."""
-    if a.dtype == torch.float32:
-        return torch.matmul(a, b)
-    if a.is_cuda:
-        mm = torch.bmm if a.ndim == 3 else torch.mm
-        return mm(a, b, out_dtype=torch.float32)
-    return torch.matmul(a.float(), b.float())
 
 
 # ---------------------------------------------------------------------------

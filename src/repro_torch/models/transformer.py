@@ -1,19 +1,28 @@
-"""The LM families the port serves, prefill logits, cache and cached
-decode (counterpart of the dense, MoE and hybrid families of
-``repro/models/transformer.py``).
+"""The LM families of the reference, prefill logits, cache and cached
+decode (counterpart of ``repro/models/transformer.py``).
 
 A :class:`Transformer` holds the embedding, the family's stack, the final
 norm and the LM head.  The stack is run by Python loops where the
 reference scans:
 
-* dense: ``n_layers`` :class:`DenseLayer` modules ([RMSNorm, GQA, residual,
-  RMSNorm, SwiGLU, residual], the reference's ``_dense_layer_apply`` /
-  ``_dense_layer_decode``);
+* dense, vlm (Qwen2-VL) and audio (MusicGen): ``n_layers``
+  :class:`DenseLayer` modules ([RMSNorm, GQA, residual, (RMSNorm,
+  cross-attention to the conditioning, residual,) RMSNorm, SwiGLU,
+  residual], the reference's ``_dense_layer_apply`` /
+  ``_dense_layer_decode``).  A vlm prefill splices the vision embeddings
+  before the text and rotates by (3, B, S) M-RoPE positions
+  (:func:`vlm_assemble`); an audio layer's decode attends to the
+  precomputed ``cross_kv`` of its cache (:func:`cross_decode`);
 * moe (DeepSeek-V2, Kimi-K2): ``first_dense`` :class:`DenseLayer` modules,
   then ``n_layers - first_dense`` :class:`MoELayer` modules ([RMSNorm,
   attention, residual, RMSNorm, MoE, residual], the reference's
   ``_moe_layer_apply`` / ``_moe_layer_decode``); the attention is GQA or
   MLA as configured, in the dense layers too;
+* ssm (xLSTM): ``n_layers // slstm_every`` groups of ``slstm_every - 1``
+  :class:`MLSTMLayer` modules and one :class:`SLSTMLayer` ([RMSNorm,
+  mLSTM or sLSTM, residual]), then the ``rem`` remaining mLSTM layers; or,
+  with ``slstm_every`` 0, ``n_layers`` mLSTM layers (the reference's
+  ``_xlstm_stack`` / ``_xlstm_decode``);
 * hybrid (Zamba2): one weight-shared :class:`SharedAttention` block
   ([RMSNorm, GQA, residual]) applied before each of the ``n_layers //
   attn_every`` groups of ``attn_every`` :class:`MambaLayer` modules
@@ -21,19 +30,19 @@ reference scans:
   remaining layers, if any (the reference's ``_hybrid_stack`` /
   ``_hybrid_decode``).
 
-The public functions keep the reference's names and layouts: tokens
-(B, S), logits (B, S, V) in the config's dtype.  The parameters are the
-"params" the functions take; :func:`params_from_jax` maps a reference tree
-onto them.  The functions run the MoE layers with the capacity factor of
-the config they are given, as the reference's do (:data:`RUN_FIELDS`).
-
-xLSTM, VLM and audio models, cross-attention and M-RoPE raise a
-``ValueError`` that names their ROADMAP item.
+The public functions keep the reference's names and layouts: a batch
+{"tokens": (B, S)} (a vlm's also "vision_embeds" (B, P, d), an audio
+model's "cond_embeds" (B, C, d)), logits (B, S, V) in the config's dtype.
+The parameters are the "params" the functions take; :func:`params_from_jax`
+maps a reference tree onto them.  The functions run the MoE layers with
+the capacity factor of the config they are given, as the reference's do
+(:data:`RUN_FIELDS`).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Dict
 
 import numpy as np
@@ -45,35 +54,36 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import MLP, Embed, RMSNorm
 
-FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # config fields a call may change without changing the weights
 RUN_FIELDS = ("capacity_factor",)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise ValueError(f"{cfg.arch_id}: the {cfg.family!r} family is not "
-                         "ported yet (ROADMAP.md Queue 1 item 4: the rest of "
-                         "the LM families)")
-    if cfg.attn_type not in ("gqa", "mla") or cfg.cross_attention or \
-            cfg.mrope_sections:
-        raise ValueError(f"{cfg.arch_id}: cross-attention and M-RoPE are "
-                         "not ported yet (ROADMAP.md Queue 1 item 4)")
+        raise ValueError(f"{cfg.arch_id}: {cfg.family!r} is not an LM "
+                         f"family; the families are {FAMILIES}")
+    if cfg.attn_type not in ("gqa", "mla"):
+        raise ValueError(f"{cfg.arch_id}: attention {cfg.attn_type!r} is "
+                         "neither 'gqa' nor 'mla'")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-# Every block (DenseLayer, MoELayer, SharedAttention, MambaLayer) is called
-# alike: block(x, window=, kernel=) on a whole sequence and block.decode(x,
-# cache, pos, window=) on one token; a Mamba2 layer has no window and no
-# position.
+# Every block (DenseLayer, MoELayer, SharedAttention, MambaLayer,
+# MLSTMLayer, SLSTMLayer) is called alike: block(x, positions=, cond=,
+# window=, kernel=) on a whole sequence and block.decode(x, cache, pos,
+# window=) on one token; a block ignores what it has no use for (the
+# recurrent blocks positions and window, all but the audio layers cond).
 class DenseLayer(nn.Module):
-    """x + attention(RMSNorm(x)), then + SwiGLU(RMSNorm(·)); the attention
-    is GQA or MLA as configured."""
+    """x + attention(RMSNorm(x)), then, with ``cfg.cross_attention``,
+    + cross-attention(RMSNorm(·), cond), then + SwiGLU(RMSNorm(·)); the
+    attention is GQA or MLA as configured."""
 
     def __init__(self, cfg: ModelConfig, dtype=None, device=None):
         super().__init__()
@@ -82,17 +92,51 @@ class DenseLayer(nn.Module):
         self.attn = attn.make_attention(cfg, dtype, device)
         self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        if cfg.cross_attention:
+            self.norm_c = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+            self.cross = attn.CrossAttention(cfg, dtype, device)
+        else:
+            self.norm_c = self.cross = None
 
-    def forward(self, x, *, window: int = 0, kernel: str = "flash"):
+    def forward(self, x, *, positions=None, cond=None, window: int = 0,
+                kernel: str = "flash"):
         x = x + attn.attention_forward(self.norm1(x), self.attn, self.cfg,
-                                       window=window, kernel=kernel)
+                                       positions=positions, window=window,
+                                       kernel=kernel)
+        if self.cross is not None:
+            if cond is None:
+                raise ValueError(f"{self.cfg.arch_id}: a cross-attention "
+                                 "layer needs cond_embeds")
+            x = x + attn.cross_attention(self.norm_c(x), cond, self.cross,
+                                         self.cfg)
         return x + self.mlp(self.norm2(x))
 
     def decode(self, x, cache, pos: int, *, window: int = 0):
+        """The layer's cache: its KV entries, and with cross-attention
+        "cross_kv" {"k", "v"} (B, C, H, hd)."""
         a, cache = attn.attention_decode(self.norm1(x), self.attn, cache,
                                          pos, self.cfg, window=window)
         x = x + a
+        if self.cross is not None:
+            x = x + cross_decode(self.norm_c(x), self.cross,
+                                 cache["cross_kv"], self.cfg)
         return x + self.mlp(self.norm2(x)), cache
+
+
+def cross_decode(x, p: attn.CrossAttention, cross_kv, cfg: ModelConfig):
+    """The reference's ``_cross_decode``: cross-attention of x (B, 1, d)
+    to the precomputed keys and values ``cross_kv`` {"k", "v"} (B, C, H,
+    hd).  Scores in float32 *divided* by sqrt(hd), as the reference writes
+    it (:func:`~repro_torch.models.attention.cross_attention` multiplies by
+    1/sqrt(hd)); p rounded to x's dtype before the product with v."""
+    f32 = torch.float32
+    q = p.project(x, p.wq)
+    s = torch.einsum("bshk,bchk->bhsc", q.to(f32),
+                     cross_kv["k"].to(f32)) / math.sqrt(cfg.head_dim)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhsc,bchk->bshk", pr.to(x.dtype).to(f32),
+                     cross_kv["v"].to(f32)).to(x.dtype)
+    return p.out(o)
 
 
 class MoELayer(nn.Module):
@@ -107,15 +151,19 @@ class MoELayer(nn.Module):
         self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
         self.moe = moe_mod.MoE(cfg, dtype, device)
 
-    def forward_aux(self, x, *, window: int = 0, kernel: str = "flash"):
+    def forward_aux(self, x, *, positions=None, cond=None, window: int = 0,
+                    kernel: str = "flash"):
         """(the layer's output, its MoE's aux loss)."""
         x = x + attn.attention_forward(self.norm1(x), self.attn, self.cfg,
-                                       window=window, kernel=kernel)
+                                       positions=positions, window=window,
+                                       kernel=kernel)
         m, aux = moe_mod.moe_forward(self.norm2(x), self.moe, self.cfg)
         return x + m, aux
 
-    def forward(self, x, *, window: int = 0, kernel: str = "flash"):
-        return self.forward_aux(x, window=window, kernel=kernel)[0]
+    def forward(self, x, *, positions=None, cond=None, window: int = 0,
+                kernel: str = "flash"):
+        return self.forward_aux(x, positions=positions, window=window,
+                                kernel=kernel)[0]
 
     def decode(self, x, cache, pos: int, *, window: int = 0):
         a, cache = attn.attention_decode(self.norm1(x), self.attn, cache,
@@ -125,7 +173,22 @@ class MoELayer(nn.Module):
         return x + m, cache
 
 
-class SharedAttention(nn.Module):
+class _MixBlock(nn.Module):
+    """x + mix(RMSNorm(x)): the hybrid's and the xLSTM's blocks.  A
+    subclass gives ``mix`` and ``mix_decode``, the block's own output
+    before the residual add."""
+
+    def forward(self, x, *, positions=None, cond=None, window: int = 0,
+                kernel: str = "flash"):
+        return x + self.mix(x, positions=positions, window=window,
+                            kernel=kernel)
+
+    def decode(self, x, cache, pos: int, *, window: int = 0):
+        o, cache = self.mix_decode(x, cache, pos, window=window)
+        return x + o, cache
+
+
+class SharedAttention(_MixBlock):
     """The hybrid's weight-shared block: x + GQA(RMSNorm(x))."""
 
     def __init__(self, cfg: ModelConfig, dtype=None, device=None):
@@ -134,24 +197,18 @@ class SharedAttention(nn.Module):
         self.norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
         self.attn = attn.GQAttention(cfg, dtype, device)
 
-    def mix(self, x, *, window: int = 0, kernel: str = "flash"):
-        """The block's own output, before the residual add."""
+    def mix(self, x, *, positions=None, window: int = 0,
+            kernel: str = "flash"):
         return attn.gqa_forward(self.norm(x), self.attn, self.cfg,
-                                window=window, kernel=kernel)
+                                positions=positions, window=window,
+                                kernel=kernel)
 
     def mix_decode(self, x, cache, pos: int, *, window: int = 0):
         return attn.gqa_decode(self.norm(x), self.attn, cache, pos, self.cfg,
                                window=window)
 
-    def forward(self, x, *, window: int = 0, kernel: str = "flash"):
-        return x + self.mix(x, window=window, kernel=kernel)
 
-    def decode(self, x, cache, pos: int, *, window: int = 0):
-        a, cache = self.mix_decode(x, cache, pos, window=window)
-        return x + a, cache
-
-
-class MambaLayer(nn.Module):
+class MambaLayer(_MixBlock):
     """x + Mamba2(RMSNorm(x))."""
 
     def __init__(self, cfg: ModelConfig, dtype=None, device=None):
@@ -160,20 +217,49 @@ class MambaLayer(nn.Module):
         self.norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
         self.ssm = ssm_mod.Mamba2(cfg, dtype, device)
 
-    def mix(self, x, *, window: int = 0, kernel: str = "flash"):
-        """The block's own output, before the residual add."""
+    def mix(self, x, *, positions=None, window: int = 0,
+            kernel: str = "flash"):
         return ssm_mod.ssm_forward(self.norm(x), self.ssm, self.cfg,
                                    kernel=kernel)
 
     def mix_decode(self, x, cache, pos: int, *, window: int = 0):
         return ssm_mod.ssm_decode(self.norm(x), self.ssm, cache, self.cfg)
 
-    def forward(self, x, *, window: int = 0, kernel: str = "flash"):
-        return x + self.mix(x, kernel=kernel)
 
-    def decode(self, x, cache, pos: int, *, window: int = 0):
-        o, cache = self.mix_decode(x, cache, pos)
-        return x + o, cache
+class MLSTMLayer(_MixBlock):
+    """x + mLSTM(RMSNorm(x))."""
+
+    def __init__(self, cfg: ModelConfig, dtype=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.mlstm = xlstm_mod.MLSTM(cfg, dtype, device)
+
+    def mix(self, x, *, positions=None, window: int = 0,
+            kernel: str = "flash"):
+        return xlstm_mod.mlstm_forward(self.norm(x), self.mlstm, self.cfg)
+
+    def mix_decode(self, x, cache, pos: int, *, window: int = 0):
+        return xlstm_mod.mlstm_decode(self.norm(x), self.mlstm, cache,
+                                      self.cfg)
+
+
+class SLSTMLayer(_MixBlock):
+    """x + sLSTM(RMSNorm(x))."""
+
+    def __init__(self, cfg: ModelConfig, dtype=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.slstm = xlstm_mod.SLSTM(cfg, dtype, device)
+
+    def mix(self, x, *, positions=None, window: int = 0,
+            kernel: str = "flash"):
+        return xlstm_mod.slstm_forward(self.norm(x), self.slstm, self.cfg)
+
+    def mix_decode(self, x, cache, pos: int, *, window: int = 0):
+        return xlstm_mod.slstm_decode(self.norm(x), self.slstm, cache,
+                                      self.cfg)
 
 
 def hybrid_layout(cfg: ModelConfig):
@@ -184,10 +270,43 @@ def hybrid_layout(cfg: ModelConfig):
     return g, cfg.attn_every, cfg.n_layers - g * cfg.attn_every
 
 
+def xlstm_layout(cfg: ModelConfig):
+    """(groups, slstm_every, rem): the xLSTM runs ``groups`` groups of
+    ``slstm_every - 1`` mLSTM layers and an sLSTM layer, then ``rem``
+    mLSTM layers (with ``slstm_every`` 0: no group, ``n_layers`` mLSTM
+    layers)."""
+    k = cfg.slstm_every
+    if not k:
+        return 0, 0, cfg.n_layers
+    g = cfg.n_layers // k
+    return g, k, cfg.n_layers - g * k
+
+
+def vlm_assemble(tokens, vision_embeds, embed: Embed, cfg: ModelConfig):
+    """The reference's ``_vlm_assemble``: the vision embeddings (B, P, d),
+    cast to the token embeddings' dtype, spliced before the text's, and
+    the M-RoPE positions (3, B, S) int32: vision patch i at (0, i // grid,
+    i % grid) with grid = int(sqrt(P)), text from ``grid`` on (not P) on
+    all three streams."""
+    tok = embed.embed(tokens)
+    p_vis = cfg.n_vision_tokens
+    if vision_embeds is None or vision_embeds.shape[1] != p_vis:
+        raise ValueError(f"{cfg.arch_id}: a vlm forward needs vision_embeds "
+                         f"of {p_vis} tokens")
+    x = torch.cat([vision_embeds.to(tok.dtype), tok], dim=1)
+    b, s = x.shape[:2]
+    grid = max(1, int(p_vis ** 0.5))
+    idx = torch.arange(p_vis, device=x.device)
+    vis_pos = torch.stack([torch.zeros_like(idx), idx // grid, idx % grid])
+    tpos = torch.arange(s - p_vis, device=x.device) + grid
+    pos = torch.cat([vis_pos, tpos[None].expand(3, -1)], dim=1)   # (3,S)
+    return x, pos[:, None, :].expand(3, b, s).to(torch.int32)
+
+
 class Transformer(nn.Module):
-    """Parameters of a dense, MoE or hybrid LM, in ``cfg.dtype`` (the MoE
-    router and the hybrid's dt_bias, A_log and D in float32), left
-    uninitialised: :func:`init_params` draws them,
+    """Parameters of an LM, in ``cfg.dtype`` (the MoE router, the hybrid's
+    dt_bias, A_log and D, the mLSTM's gates and the sLSTM's biases in
+    float32), left uninitialised: :func:`init_params` draws them,
     ``load_state_dict(params_from_jax(tree))`` copies a reference tree."""
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -197,59 +316,85 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings,
                            dtype, device)
+
+        def make(cls, n):
+            return nn.ModuleList(cls(cfg, dtype, device) for _ in range(n))
+
         if cfg.family == "hybrid":
             g, k, rem = hybrid_layout(cfg)
             self.shared_attn = SharedAttention(cfg, dtype, device)
+            self.groups = nn.ModuleList(make(MambaLayer, k) for _ in range(g))
+            self.rem = make(MambaLayer, rem)
+        elif cfg.family == "ssm" and cfg.slstm_every:
+            g, k, rem = xlstm_layout(cfg)
             self.groups = nn.ModuleList(
-                nn.ModuleList(MambaLayer(cfg, dtype, device)
-                              for _ in range(k)) for _ in range(g))
-            self.rem = nn.ModuleList(MambaLayer(cfg, dtype, device)
-                                     for _ in range(rem))
+                nn.ModuleList([*make(MLSTMLayer, k - 1),
+                               SLSTMLayer(cfg, dtype, device)])
+                for _ in range(g))
+            self.rem = make(MLSTMLayer, rem)
+        elif cfg.family == "ssm":
+            self.layers = make(MLSTMLayer, cfg.n_layers)
         elif cfg.family == "moe":
             dense_cfg = dataclasses.replace(cfg, family="dense",
                                             cross_attention=False)
             self.dense_layers = nn.ModuleList(
                 DenseLayer(dense_cfg, dtype, device)
                 for _ in range(cfg.first_dense))
-            self.layers = nn.ModuleList(
-                MoELayer(cfg, dtype, device)
-                for _ in range(cfg.n_layers - cfg.first_dense))
+            self.layers = make(MoELayer, cfg.n_layers - cfg.first_dense)
         else:
-            self.layers = nn.ModuleList(DenseLayer(cfg, dtype, device)
-                                        for _ in range(cfg.n_layers))
+            self.layers = make(DenseLayer, cfg.n_layers)
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
 
     def blocks(self):
-        """The blocks in the order the forward runs them: the dense layers;
-        the MoE family's dense layers, then its MoE layers; or the shared
+        """The blocks in the order the forward runs them: the layers; the
+        MoE family's dense layers, then its MoE layers; the xLSTM's groups
+        ([mLSTM ×(k-1), sLSTM]) and its remainder; or the hybrid's shared
         block before each group of Mamba2 layers and before the
         remainder."""
-        if self.cfg.family == "moe":
+        fam = self.cfg.family
+        if fam == "moe":
             yield from self.dense_layers
-        if self.cfg.family != "hybrid":
-            yield from self.layers
-            return
-        for group in [*self.groups, self.rem]:
-            if len(group):
-                yield self.shared_attn
+        if fam == "hybrid":
+            for group in [*self.groups, self.rem]:
+                if len(group):
+                    yield self.shared_attn
+                    yield from group
+        elif fam == "ssm" and self.cfg.slstm_every:
+            for group in [*self.groups, self.rem]:
                 yield from group
+        else:
+            yield from self.layers
 
-    def forward_aux(self, tokens, *, window: int = 0, kernel: str = "flash"):
-        """tokens (B, S) -> (logits (B, S, V), the MoE layers' summed aux
-        loss, a float32 scalar: zero without MoE layers)."""
-        x = self.embed.embed(tokens)
+    def forward_aux(self, tokens, *, vision_embeds=None, cond_embeds=None,
+                    window: int = 0, kernel: str = "flash"):
+        """tokens (B, S) -> (logits (B, S', V), the MoE layers' summed aux
+        loss, a float32 scalar: zero without MoE layers).  A vlm splices
+        ``vision_embeds`` (B, P, d) before the text (S' = P + S) and runs
+        at its M-RoPE positions; an audio model attends to ``cond_embeds``
+        (B, C, d), cast to the activations' dtype."""
+        if self.cfg.family == "vlm":
+            x, positions = vlm_assemble(tokens, vision_embeds, self.embed,
+                                        self.cfg)
+        else:
+            x, positions = self.embed.embed(tokens), None
+        cond = None if cond_embeds is None else cond_embeds.to(x.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks():
             if isinstance(block, MoELayer):
-                x, a = block.forward_aux(x, window=window, kernel=kernel)
+                x, a = block.forward_aux(x, positions=positions,
+                                         window=window, kernel=kernel)
                 aux = aux + a
             else:
-                x = block(x, window=window, kernel=kernel)
+                x = block(x, positions=positions, cond=cond, window=window,
+                          kernel=kernel)
         return self.embed.unembed(self.final_norm(x)), aux
 
-    def forward(self, tokens, *, window: int = 0, kernel: str = "flash"):
-        """tokens (B, S) -> logits (B, S, V)."""
-        return self.forward_aux(tokens, window=window, kernel=kernel)[0]
+    def forward(self, tokens, *, vision_embeds=None, cond_embeds=None,
+                window: int = 0, kernel: str = "flash"):
+        """tokens (B, S) -> logits (B, S', V), as :meth:`forward_aux`."""
+        return self.forward_aux(tokens, vision_embeds=vision_embeds,
+                                cond_embeds=cond_embeds, window=window,
+                                kernel=kernel)[0]
 
 
 # ===========================================================================
@@ -260,15 +405,17 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = "cuda") -> Transformer:
     """A :class:`Transformer` on ``device`` with weights drawn from a
     ``torch.Generator`` there, seeded with ``seed``: fan-in truncated
-    normals for every matrix, ones for every norm scale (and the Mamba2
-    blocks' zeros and ones, as ``ssm_init``)."""
+    normals for every matrix, ones for every norm scale (and the Mamba2,
+    mLSTM and sLSTM blocks' constants, as their reference inits)."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model.embed.reset_parameters(gen)
     for module in model.modules():
-        if isinstance(module, (attn.GQAttention, attn.MLAttention, MLP,
-                               moe_mod.MoE, ssm_mod.Mamba2)):
+        if isinstance(module, (attn.GQAttention, attn.MLAttention,
+                               attn.CrossAttention, MLP, moe_mod.MoE,
+                               ssm_mod.Mamba2, xlstm_mod.MLSTM,
+                               xlstm_mod.SLSTM)):
             module.reset_parameters(gen)
     return model.eval()
 
@@ -276,21 +423,27 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """The reference's param tree (leaves as numpy arrays) as a
     :class:`Transformer` state dict in float32, each leaf mapped once:
-    ``embed``/``final_norm``/``shared_attn`` leaves by name; the dense and
-    MoE ``layers`` (stacked on a leading L axis) split into
-    ``layers.<i>.<path>``; the MoE family's ``dense_layers`` (a list, not
-    stacked) into ``dense_layers.<i>.<path>``; the hybrid's ``groups``
-    (stacked (g, attn_every, ...)) into ``groups.<i>.<j>.ssm.<leaf>`` and
-    ``groups.<i>.<j>.norm.scale``, and its ``rem`` ((rem, ...), or None)
-    into ``rem.<j>...``.  The attention and expert weights keep their
-    layouts.  Raises on a tree with other top-level entries (another
-    family)."""
+    ``embed``/``final_norm``/``shared_attn`` leaves by name; the dense,
+    vlm, audio (``cross.*``, ``norm_c.scale``) and MoE ``layers`` (stacked
+    on a leading L axis) split into ``layers.<i>.<path>``; the MoE family's
+    ``dense_layers`` (a list, not stacked) into ``dense_layers.<i>.<path>``;
+    the hybrid's ``groups`` (stacked (g, attn_every, ...)) into
+    ``groups.<i>.<j>.ssm.<leaf>`` and ``groups.<i>.<j>.norm.scale``, and
+    its ``rem`` ((rem, ...), or None) into ``rem.<j>...``.  The xLSTM's
+    ``groups`` ({mlstm, norms_m} (g, k-1, ...), {slstm, norms_s} (g, ...))
+    into ``groups.<i>.<j>.mlstm`` for j < k-1 and ``groups.<i>.<k-1>.slstm``
+    with their ``norm.scale``, its ``rem`` {mlstm, norms} into
+    ``rem.<j>.mlstm``, and without sLSTM blocks ``layers``/``norms`` into
+    ``layers.<i>.mlstm`` and ``layers.<i>.norm.scale``.  The weights keep
+    their layouts.  Raises on a tree with other top-level entries."""
     dense = {"embed", "final_norm", "layers"}
     moe = {"embed", "final_norm", "dense_layers", "layers"}
     hybrid = {"embed", "final_norm", "shared_attn", "groups", "rem"}
-    if set(tree) not in (dense, moe, hybrid):
-        raise ValueError("not a dense or hybrid (or MoE) param tree: entries "
-                         f"{sorted(tree)}")
+    xlstm = {"embed", "final_norm", "groups", "rem"}
+    mlstm_only = {"embed", "final_norm", "layers", "norms"}
+    if set(tree) not in (dense, moe, hybrid, xlstm, mlstm_only):
+        raise ValueError("not a dense or hybrid (or MoE) param tree, nor an "
+                         f"xLSTM one: entries {sorted(tree)}")
 
     def leaves(node, prefix=""):
         if isinstance(node, dict):
@@ -303,26 +456,42 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
         return torch.from_numpy(np.ascontiguousarray(a))
 
     out: Dict[str, torch.Tensor] = {}
+
+    def put(node, prefix, axes):
+        """Every leaf of ``node``, its leading ``len(axes)`` stacking axes
+        split into ``prefix`` formatted with their indices."""
+        for name, a in leaves(node):
+            for idx in np.ndindex(*a.shape[:len(axes)]):
+                out[prefix.format(*idx) + name] = tensor(a[idx])
+
     for top in ("embed", "final_norm", "shared_attn"):
         for name, a in leaves(tree.get(top) or {}, f"{top}."):
             out[name] = tensor(a)
     for i, layer in enumerate(tree.get("dense_layers") or []):
         for name, a in leaves(layer, f"dense_layers.{i}."):
             out[name] = tensor(a)
-    for name, a in leaves(tree.get("layers") or {}):
-        for i in range(a.shape[0]):
-            out[f"layers.{i}.{name}"] = tensor(a[i])
-
-    def layer_name(name):          # ssm.<leaf> or norms.scale -> norm.scale
-        return "norm.scale" if name == "norms.scale" else name
-
-    for name, a in leaves(tree.get("groups") or {}):
-        for i in range(a.shape[0]):
-            for j in range(a.shape[1]):
-                out[f"groups.{i}.{j}.{layer_name(name)}"] = tensor(a[i, j])
-    for name, a in leaves(tree.get("rem") or {}):
-        for j in range(a.shape[0]):
-            out[f"rem.{j}.{layer_name(name)}"] = tensor(a[j])
+    groups, rem = tree.get("groups"), tree.get("rem")
+    if set(tree) == mlstm_only:
+        put(tree["layers"], "layers.{}.mlstm.", "i")
+        put(tree["norms"], "layers.{}.norm.", "i")
+    else:
+        put(tree.get("layers") or {}, "layers.{}.", "i")
+    if set(tree) == xlstm:
+        last = groups["norms_m"]["scale"].shape[1]          # slstm_every - 1
+        put(groups["mlstm"], "groups.{}.{}.mlstm.", "ij")
+        put(groups["norms_m"], "groups.{}.{}.norm.", "ij")
+        put(groups["slstm"], "groups.{}." + f"{last}.slstm.", "i")
+        put(groups["norms_s"], "groups.{}." + f"{last}.norm.", "i")
+        if rem is not None:
+            put(rem["mlstm"], "rem.{}.mlstm.", "j")
+            put(rem["norms"], "rem.{}.norm.", "j")
+        return out
+    if groups is not None:                                  # the hybrid
+        put(groups["ssm"], "groups.{}.{}.ssm.", "ij")
+        put(groups["norms"], "groups.{}.{}.norm.", "ij")
+    if rem is not None:
+        put(rem["ssm"], "rem.{}.ssm.", "j")
+        put(rem["norms"], "rem.{}.norm.", "j")
     return out
 
 
@@ -356,18 +525,21 @@ def run_config(params: Transformer, cfg: ModelConfig):
 
 def forward_with_aux(params: Transformer, batch, cfg: ModelConfig, *,
                      window: int = 0, kernel: str = "flash"):
-    """The reference's ``forward``: batch {"tokens": (B, S)} -> (logits
-    (B, S, V) in the config's dtype, {"moe_aux": the MoE layers' summed aux
-    loss}, zero for the dense and hybrid families)."""
+    """The reference's ``forward``: batch {"tokens": (B, S)} (with
+    "vision_embeds" for a vlm, "cond_embeds" for an audio model) ->
+    (logits (B, S', V) in the config's dtype, {"moe_aux": the MoE layers'
+    summed aux loss}, zero for the other families)."""
     with run_config(params, cfg):
-        logits, aux = params.forward_aux(batch["tokens"], window=window,
-                                         kernel=kernel)
+        logits, aux = params.forward_aux(
+            batch["tokens"], vision_embeds=batch.get("vision_embeds"),
+            cond_embeds=batch.get("cond_embeds"), window=window,
+            kernel=kernel)
     return logits, {"moe_aux": aux}
 
 
 def forward(params: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
             kernel: str = "flash") -> torch.Tensor:
-    """batch {"tokens": (B, S)} -> logits (B, S, V) in the config's dtype
+    """batch -> logits (B, S', V) in the config's dtype
     (:func:`forward_with_aux` also returns the aux loss)."""
     return forward_with_aux(params, batch, cfg, window=window,
                             kernel=kernel)[0]
@@ -382,12 +554,18 @@ def prefill(params: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                window: int = 0, device: DeviceLike = "cuda"):
-    """Zeroed cache in the config's dtype; T = min(cache_len, window) KV
-    slots with a window (a ring buffer), else cache_len.
+    """Zeroed cache in the config's dtype (the recurrent states in
+    float32); T = min(cache_len, window) KV slots with a window (a ring
+    buffer), else cache_len.
 
-    dense: {"layers": [{"k", "v"}, ...]}, one (B, T, KV, hd) pair a layer.
+    dense, vlm: {"layers": [{"k", "v"}, ...]}, one (B, T, KV, hd) pair a
+    layer; audio: each layer's entry also "cross_kv" {"k", "v"} (B, C, H,
+    hd), zeros until the caller fills it, as in the reference.
     moe: {"dense_layers": [...], "layers": [...]}, a layer's entry {"k",
     "v"} for GQA or {"c_kv" (B, T, r), "k_rope" (B, T, rope)} for MLA.
+    ssm (xLSTM): {"groups": [{"mlstm": [{"state", "norm"}, ...], "slstm":
+    {"c", "n", "h", "m"}}, ...], "rem": [...] or None}, or {"layers":
+    [...]} without sLSTM blocks.
     hybrid: {"groups": [{"attn_kv": {"k", "v"}, "ssm": [{"state", "conv"},
     ...]}, ...], "rem": {"attn_kv", "ssm"} or None}: one KV cache for each
     application of the shared block and one Mamba2 cache a layer."""
@@ -408,33 +586,61 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                             for _ in range(n)]}
         return {"groups": [group(k) for _ in range(g)],
                 "rem": group(rem) if rem else None}
+    if cfg.family == "ssm":
+        g, k, rem = xlstm_layout(cfg)
+
+        def mlstm(n):
+            return [xlstm_mod.mlstm_init_cache(cfg, batch, dev)
+                    for _ in range(n)]
+        if not k:
+            return {"layers": mlstm(rem)}
+        return {"groups": [{"mlstm": mlstm(k - 1),
+                            "slstm": xlstm_mod.slstm_init_cache(cfg, batch,
+                                                                dev)}
+                           for _ in range(g)],
+                "rem": mlstm(rem) if rem else None}
     if cfg.family == "moe":
         return {"dense_layers": [kv() for _ in range(cfg.first_dense)],
                 "layers": [kv() for _ in range(cfg.n_layers -
                                                cfg.first_dense)]}
-    return {"layers": [kv() for _ in range(cfg.n_layers)]}
+
+    def layer():
+        c = kv()
+        if cfg.cross_attention:
+            shape = (batch, cfg.n_cond_tokens, cfg.n_heads, cfg.head_dim)
+            c["cross_kv"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        return c
+    return {"layers": [layer() for _ in range(cfg.n_layers)]}
 
 
 def decode_step(params: Transformer, cache, batch, pos: int,
                 cfg: ModelConfig, *, window: int = 0):
-    """One-token step.  batch {"tokens": (B, 1)}; pos the absolute position.
-    Returns (logits (B, 1, V), cache), the cache written in place.  The MoE
-    layers see the B tokens of the step, so their capacity is
-    ``ceil(B·k·cf / E)``, as in the reference."""
+    """One-token step.  batch {"tokens": (B, 1)}; pos the absolute position
+    (a vlm's on all three M-RoPE streams, as in the reference).  Returns
+    (logits (B, 1, V), cache), the cache written in place.  The MoE layers
+    see the B tokens of the step, so their capacity is ``ceil(B·k·cf /
+    E)``, as in the reference."""
     with run_config(params, cfg):
         x = params.embed.embed(batch["tokens"])
-        for block, c in zip(params.blocks(), _block_caches(cache)):
+        for block, c in zip(params.blocks(),
+                            _block_caches(cache, params.cfg.family)):
             x, _ = block.decode(x, c, pos, window=window)
         return params.embed.unembed(params.final_norm(x)), cache
 
 
-def _block_caches(cache):
+def _block_caches(cache, family: str):
     """The cache's per-block entries in :meth:`Transformer.blocks` order."""
-    if "layers" in cache:
+    if family == "hybrid":
+        for group in [*cache["groups"], cache["rem"]]:
+            if group is not None:
+                yield group["attn_kv"]
+                yield from group["ssm"]
+    elif "groups" in cache:                                 # xLSTM
+        for group in cache["groups"]:
+            yield from group["mlstm"]
+            yield group["slstm"]
+        yield from cache["rem"] or []
+    else:
         yield from cache.get("dense_layers", [])
         yield from cache["layers"]
-        return
-    for group in [*cache["groups"], cache["rem"]]:
-        if group is not None:
-            yield group["attn_kv"]
-            yield from group["ssm"]

@@ -150,12 +150,13 @@ def lm_params(cfg, seed):
     numpy in the shapes of ``jax.eval_shape(tf.init_params)``: matrices
     scaled by the fan-in the reference's ``dense_init`` uses (the first
     axis; ``H·hd`` for the attention output map, ``d`` for the embedding;
-    a stacked leaf's axis after its stacking: one for ``layers`` and the
-    hybrid's ``rem``, two for its ``groups``; an expert's own fan-in, d for
-    its (E, d, f) ``w_gate``/``w_up`` and f for its (E, f, d)
-    ``w_down``), norm scales and the Mamba2
-    D near 1, A_log ~ 0.3·N(0, 1) and small biases, so every leaf's mapping
-    is exercised.  float32 numpy leaves, for both packages."""
+    a stacked leaf's axis after its stacking: one for ``layers``,
+    ``norms`` and ``rem``, two for ``groups``, one for the xLSTM groups'
+    ``slstm`` and ``norms_s``; an expert's own fan-in, d for its (E, d, f)
+    ``w_gate``/``w_up`` and f for its (E, f, d) ``w_down``), norm scales
+    and the Mamba2 D near 1, A_log ~ 0.3·N(0, 1), the mLSTM's forget bias
+    near its init's 3, and small biases, so every leaf's mapping is
+    exercised.  float32 numpy leaves, for both packages."""
     from repro.models import transformer as jtf
     shapes = jax.eval_shape(lambda k: jtf.init_params(k, cfg),
                             jax.random.PRNGKey(0))
@@ -189,7 +190,27 @@ def mla_params(cfg, seed):
     return _fill_params(shapes, seed)
 
 
-_STACKED = {"layers": 1, "groups": 2, "rem": 1}
+def cross_params(cfg, seed):
+    """Reference cross-attention params (``cross_attention_init``'s
+    shapes), drawn as :func:`lm_params` draws a layer's attention leaves."""
+    from repro.models import attention as jattn
+    shapes = jax.eval_shape(lambda k: jattn.cross_attention_init(k, cfg),
+                            jax.random.PRNGKey(0))
+    return _fill_params(shapes, seed)
+
+
+def xlstm_params(kind, cfg, seed):
+    """Reference ``mlstm_init`` or ``slstm_init`` params (``kind`` "mlstm"
+    or "slstm") for ``cfg``, drawn as :func:`lm_params` draws a block's."""
+    from repro.models import xlstm as jxl
+    init = {"mlstm": jxl.mlstm_init, "slstm": jxl.slstm_init}[kind]
+    shapes = jax.eval_shape(lambda k: init(k, cfg), jax.random.PRNGKey(0))
+    return _fill_params(shapes, seed)
+
+
+_STACKED = {"layers": 1, "groups": 2, "rem": 1, "norms": 1}
+# the xLSTM's sLSTM block and its norm stack once a group, (g, ...)
+_STACKED_ONCE = ("slstm", "norms_s")
 # the MoE experts' leaves, drawn at each expert's own fan-in
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
@@ -200,17 +221,25 @@ def _fill_params(shapes, seed):
     def fill(path, leaf):
         names = [str(getattr(p, "key", p)) for p in path]
         shape = leaf.shape
-        core = shape[_STACKED.get(names[0], 0):]
+        axes = _STACKED.get(names[0], 0)
+        if names[0] == "groups" and names[1] in _STACKED_ONCE:
+            axes = 1
+        core = shape[axes:]
         if names[-1] in ("scale", "norm_scale", "D"):
             a = 1.0 + 0.1 * rng.standard_normal(shape)
         elif names[-1] == "A_log":
             a = 0.3 * rng.standard_normal(shape)
         elif names[-1] in ("dt_bias", "conv_b"):
             a = 0.1 * rng.standard_normal(shape)
+        elif names[-1] == "f_bias":       # the mLSTM's forget gate, near 1
+            a = 3.0 + 0.5 * rng.standard_normal(shape)
         else:
-            fan_in = {"wo": core[0] * core[1],
-                      "embedding": core[-1]}.get(names[-1], core[0])
-            if names[-1] in _EXPERT_LEAVES and len(core) == 3:
+            fan_in = core[0]
+            if names[-1] == "wo":
+                fan_in = core[0] * core[1]
+            elif names[-1] == "embedding":
+                fan_in = core[-1]
+            elif names[-1] in _EXPERT_LEAVES and len(core) == 3:
                 fan_in = core[1]          # (E, d, f) / (E, f, d): d or f
             a = rng.standard_normal(shape) / np.sqrt(fan_in)
         return a.astype(np.float32)

@@ -299,6 +299,8 @@ def _attn_inputs(b, s, h, kv, hd, dtype, seed=0, skv=None):
     (2, 520, 32, 32, 112, 0),        # with ragged ends: TMA's zero fill
     (16, 512, 32, 4, 128, 0),     # B*H*Sq/128 = 2048 blocks: many waves of
                                   # the longest-first launch order
+    (4, 2048, 12, 2, 128, 0),     # a Qwen2-VL-2B layer's prefill: H/KV = 6
+    (4, 2048, 32, 32, 64, 0),     # a MusicGen-large layer's: MHA at hd 64
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_matches_plain_on_cuda(b, s, h, kv, hd, window,
@@ -1025,3 +1027,39 @@ def test_moe_layer_bf16_matches_cpu_on_cuda():
     d = (got.cpu().float() - ref.float()).abs()
     assert float(d.max()) <= MOE_BF16_REL * float(ref.float().abs().max())
     assert float(aux) == pytest.approx(float(aux_ref), rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-large",
+                                  "xlstm-125m"])
+def test_vlm_audio_xlstm_prefill_matches_cpu_on_cuda(arch):
+    """Each new family's reduced member (f32) on the card against the CPU
+    on the same weights and inputs: the vision prefix, the conditioning,
+    the mLSTM chunks and the sLSTM loop; ``flash_attention`` once a layer
+    where there is attention."""
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch).reduced()
+    cpu = tf.init_params(cfg, seed=5, device="cpu")
+    card = tf.Transformer(cfg, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64),
+                                     generator=g)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = 0.5 * torch.randn(
+            (2, cfg.n_vision_tokens, cfg.d_model), generator=g)
+    if cfg.cross_attention:
+        batch["cond_embeds"] = 0.5 * torch.randn(
+            (2, cfg.n_cond_tokens, cfg.d_model), generator=g)
+    prefill = make_prefill_step(cfg)
+    before = ops.flash_attention.launches
+    got = prefill(card, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    want = 0 if cfg.family == "ssm" else cfg.n_layers
+    assert ops.flash_attention.launches == before + want
+    ref = prefill(cpu, batch)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=MOE_CUDA_ATOL)
