@@ -189,7 +189,28 @@ Phases, each printing its own lines:
    chunked form; ms and launches a step; (d) ``flash_attention`` against
    ``attention_ref`` at q 4x2048x12x128 with KV 2 and at 4x2048x32x64
    MHA, bf16, with its time, the plain version's, the bound and SDPA's in
-   turns; (e) the serving launcher on each at full size.
+   turns; (e) the serving launcher on each at full size;
+9. lm_train — LM training through ``make_train_step`` (``lm_loss`` with
+   ``kernel="torch"``: the kernels have no backward; autograd; the
+   in-place ``apply_updates_``), after the earlier phases' memory is
+   released (printed): (a) MiniCPM-2B at full width and depth in bf16
+   (random weights from a seed), 20 steps of ``token_batches`` at 4 x 512
+   (2 x 512 when a 1-row probe says the peak would pass 75 GB), lr 3e-4:
+   the loss falls first to last; step ms (CUDA events), tokens/s, TFLOP/s
+   against 989 (3x the forward's matmul FLOP), peak memory split into
+   parameters and moments, gradients and the rest, ``apply_updates_``'s
+   ms (CUDA events), the device's busy share over 3 profiled steps and
+   its top kernels; (b) Qwen2-VL-2B, 8 steps on one batch of 4 x (256
+   stubbed vision embeddings + 256 text tokens): the text region's loss
+   finite and falling on that batch; (c) every LM arch at ``reduced()`` in float32 (TF32 off): the
+   loss and every gradient on the card against the CPU from the same
+   weights and batch (the CPU parity tolerances), ``remat`` against the
+   plain step, ``apply_updates_`` bitwise ``apply_updates`` on the card,
+   ``lm_loss(kernel="flash")`` raising under autograd where the forward
+   reaches a kernel; (d) ``launch/train.py`` on MiniCPM-2B at full size (8
+   steps at 4 x 256, "done: loss"), then at ``reduced()`` 6 steps saved
+   and 6 resumed: the restored parameters and moments bitwise the saved
+   ones, and the resumed run against 12 straight steps (printed).
 
 It then prints the kernels' JSON line, and last the device line.  It exits
 non-zero, without the last line, when CUDA is absent or any phase fails.
@@ -220,7 +241,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import UNetConfig, get_config  # noqa: E402
+from repro_torch.configs import (UNetConfig, get_config,  # noqa: E402
+                                 list_archs)
 from repro_torch.core.collafuse import (CutPlan, lane_philox,  # noqa: E402
                                         split_sample_lane)
 from repro_torch.core.privacy import (disclosure_report,  # noqa: E402
@@ -228,7 +250,8 @@ from repro_torch.core.privacy import (disclosure_report,  # noqa: E402
 from repro_torch.core.trainer import (CollaFuseTrainer,  # noqa: E402
                                       TrainerConfig, member_seed)
 from repro_torch.data.synthetic import (ClientDataConfig,  # noqa: E402
-                                        image_batches, make_client_datasets)
+                                        image_batches, make_client_datasets,
+                                        token_batches)
 from repro_torch.diffusion.backend import get_backend  # noqa: E402
 from repro_torch.diffusion.sampler import make_sampler  # noqa: E402
 from repro_torch.diffusion.schedule import cosine_schedule  # noqa: E402
@@ -242,13 +265,15 @@ from repro_torch.kernels import lane_noise as kln  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import ssm_scan as kssm  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch import serve_diffusion as sd_launch  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
-                                      make_prefill_step)
+                                      make_prefill_step, make_train_step)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.unet import UNet, flops_per_image  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.launch import pod_smoke  # noqa: E402
 from repro_torch.obs import (STAGES, load_trace, merge_traces,  # noqa: E402
                              read_jsonl, validate_events)
@@ -4027,6 +4052,376 @@ def phase_families(dev, card: str):
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: LM training
+# ---------------------------------------------------------------------------
+# (a) MiniCPM-2B at full width and depth: 20 steps of token_batches at
+# 4 x 512, lr 3e-4, through kernel="torch" (the kernels have no backward)
+LM_TRAIN_ARCH = "minicpm-2b"
+LM_TRAIN_SHAPE = (4, 512)
+LM_TRAIN_STEPS = 20
+LM_TRAIN_LR = 3e-4
+LM_TRAIN_PEAK_GB = 75.0
+# (b) Qwen2-VL-2B: (B, stubbed vision embeddings, text tokens), 8 steps
+VLM_TRAIN_SHAPE = (4, 256, 256)
+VLM_TRAIN_STEPS = 8
+# (c) every arch at reduced(), float32: (B, S) and the CPU parity
+# tolerances (tests/test_torch_lm_train.py): the loss within 1e-5
+# relative, each gradient leaf within 1e-4 of its own max |g|; remat is
+# held to the same bound (its recomputed forward runs the same kernels,
+# so it is expected bitwise; the line says whether it was)
+LM_TRAIN_SMALL = (2, 32)
+LM_TRAIN_TOL = dict(loss_rtol=1e-5, grad=1e-4)
+# (d) the launcher: MiniCPM-2B at full size, 8 steps of 4 x 256; then at
+# reduced() 6 steps saved and 6 resumed (lr 3e-3: the reduced model's
+# loss falls within 6 steps, tests/test_torch_lm_launch.py)
+LM_LAUNCH_ARGS = ["--arch", LM_TRAIN_ARCH, "--steps", "8", "--batch", "4",
+                  "--seq", "256"]
+LM_RESUME_ARGS = ["--arch", "yi-6b", "--reduced", "--batch", "8", "--seq",
+                  "32", "--lr", "3e-3"]
+LM_TRAIN_BUDGET_S = 150.0
+
+
+def lm_train_batch(cfg, b, s, dev, seed=0, n_vis=None):
+    """A ``token_batches`` batch of (b, s) text, plus stubbed embeddings at
+    the embedding table's scale for a vlm (``n_vis`` of them) or an audio
+    model, drawn from ``seed`` on the CPU and moved to ``dev``."""
+    batch = next(token_batches(cfg.vocab_size, b, s, seed=seed,
+                               device="cpu"))
+    g = torch.Generator().manual_seed(seed + 1)
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        n = cfg.n_vision_tokens if n_vis is None else n_vis
+        batch["vision_embeds"] = (torch.randn((b, n, cfg.d_model),
+                                              generator=g)
+                                  * cfg.d_model ** -0.5).to(dt)
+    if cfg.family == "audio":
+        batch["cond_embeds"] = (torch.randn((b, cfg.n_cond_tokens,
+                                             cfg.d_model), generator=g)
+                                * cfg.d_model ** -0.5).to(dt)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def state_bytes(model, opt):
+    """(parameters + both moments, gradients) in bytes."""
+    p = sum(q.numel() * q.element_size() for q in model.parameters())
+    m = sum(t.numel() * t.element_size() for key in ("mu", "nu")
+            for t in opt[key].values())
+    return p + m, p
+
+
+def train_steps(step, model, opt, batches, pairs=None):
+    """Run ``step`` over ``batches``; returns the metrics of each (scalar
+    tensors, read by the caller after a synchronize).  With ``pairs`` each
+    step is bracketed by CUDA events appended to it."""
+    out = []
+    for batch in batches:
+        if pairs is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+        model, opt, m = step(model, opt, batch)
+        if pairs is not None:
+            stop.record()
+            pairs.append((start, stop))
+        out.append(m)
+    return out
+
+
+def check_falls(tag, what, losses):
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: a loss is not finite: {losses}")
+    print(f"[{tag}] {what}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{len(losses)} steps (" + ", ".join(f"{v:.3f}" for v in losses)
+          + ")", flush=True)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall")
+
+
+def lm_train_full(dev, card: str):
+    """(a): MiniCPM-2B, 20 steps through ``make_train_step``."""
+    tag = "lm_train"
+    _, _, bf16_peak = card_rates(card)
+    cfg = get_config(LM_TRAIN_ARCH)
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=LM_TRAIN_LR)
+    opt = adamw.init_state(dict(model.named_parameters()), opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} params, config says "
+                             f"{cfg.param_count()}")
+    st_bytes, g_bytes = state_bytes(model, opt)
+    print(f"[{tag}] (a) {LM_TRAIN_ARCH}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
+          f"{cfg.head_dim}, vocabulary {cfg.vocab_size}, tied embedding "
+          f"{cfg.tie_embeddings}, {cfg.dtype}; {n_params} params; "
+          f"parameters and AdamW moments {st_bytes / 1e9:.2f} GB, drawn in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    step = make_train_step(cfg, opt_cfg)
+    b, s = LM_TRAIN_SHAPE
+    # the batch: a 1-row probe (forward and backward, no update) peaks
+    # above the resident state; its gradients do not grow with the rows
+    probe = lm_train_batch(cfg, 1, s, dev, seed=99)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    loss, _ = tf.lm_loss(model, probe, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak1 = torch.cuda.max_memory_allocated(dev)
+    for p in model.parameters():
+        p.grad = None
+    del loss
+    act_row = max(peak1 - base - g_bytes, 0)
+    est = (peak1 + (b - 1) * act_row) / 1e9
+    if est > LM_TRAIN_PEAK_GB:
+        b //= 2
+    print(f"[{tag}] (a) batch probe: 1x{s} forward and backward peaks "
+          f"{(peak1 - base) / 1e9:.2f} GB above {base / 1e9:.2f} GB resident "
+          f"(gradients {g_bytes / 1e9:.2f} GB); {LM_TRAIN_SHAPE[0]}x{s} "
+          f"would peak ~{est:.1f} GB (limit {LM_TRAIN_PEAK_GB}): batch "
+          f"{b}x{s} runs", flush=True)
+    data = token_batches(cfg.vocab_size, b, s, seed=0, device=dev)
+    batches = [next(data) for _ in range(LM_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pairs, upd = [], []
+    plain_update = adamw.apply_updates_
+    timed_method(adamw, "apply_updates_", upd)
+    try:
+        t0 = time.perf_counter()
+        metrics = train_steps(step, model, opt, batches, pairs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        adamw.apply_updates_ = plain_update
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(m["loss"]) for m in metrics]
+    check_falls(tag, f"(a) {LM_TRAIN_ARCH} {b}x{s}, lr {LM_TRAIN_LR}",
+                losses)
+    ms = [event_ms(p) for p in pairs]
+    upd_ms = sorted(event_ms(p) for p in upd)[len(upd) // 2]
+    steady = sorted(ms[2:])
+    step_ms = steady[len(steady) // 2]
+    mean_ms = sum(steady) / len(steady)
+    flops_6n = 6 * n_params * b * s
+    flops = 3 * cfg.flops_per_token_fwd(s) * b * s
+    print(f"[{tag}] (a) {LM_TRAIN_STEPS} steps in {wall:.2f}s wall; step "
+          f"{step_ms:.1f} ms (CUDA events, median of steps 3-"
+          f"{LM_TRAIN_STEPS}; first {ms[0]:.1f}, second {ms[1]:.1f}, "
+          f"mean {mean_ms:.1f}), {b * s / step_ms * 1e3:.0f} tokens/s, "
+          f"{flops / step_ms / 1e9:.1f} TFLOP/s of {bf16_peak / 1e12:.0f} "
+          f"({flops / step_ms * 1e3 / bf16_peak:.1%}) "
+          f"on {flops / 1e12:.2f} TFLOP a step (6·N·tokens "
+          f"{flops_6n / 1e12:.2f} + the causal attention, 3x the forward's "
+          "matmul FLOP)", flush=True)
+    print(f"[{tag}] (a) apply_updates_ alone: {upd_ms:.2f} ms a step (CUDA "
+          f"events, median of {len(upd)}), {upd_ms / step_ms:.1%} of the "
+          "step", flush=True)
+    print(f"[{tag}] (a) peak memory {peak / 1e9:.2f} GB of the card's "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f}: "
+          f"parameters and moments {st_bytes / 1e9:.2f}, gradients "
+          f"{g_bytes / 1e9:.2f}, the rest (activations, logits, "
+          f"temporaries) {(peak - st_bytes - g_bytes) / 1e9:.2f}", flush=True)
+    if peak / 1e9 > LM_TRAIN_PEAK_GB + 5:
+        raise AssertionError(f"peak {peak / 1e9:.1f} GB")
+    prof_batch = batches[-1]
+    profile_device(f"{LM_TRAIN_ARCH} train step {b}x{s}",
+                   lambda: step(model, opt, prof_batch), reps=3,
+                   mode=contextlib.nullcontext)
+    del model, opt, batches, metrics, step
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tokens": b * s}
+
+
+def lm_train_vlm(dev, card: str):
+    """(b): Qwen2-VL-2B with stubbed vision embeddings; the loss over the
+    text region.  Every step takes one batch, as the CPU tests' repeated
+    batch does, so the first and last losses are of the same tokens
+    before any update and after the seventh: a fall there is not the
+    spread between batches."""
+    tag = "lm_train"
+    cfg = get_config("qwen2-vl-2b")
+    b, n_vis, s = VLM_TRAIN_SHAPE
+    if n_vis != cfg.n_vision_tokens:
+        raise AssertionError(f"{n_vis} vision embeddings, the config takes "
+                             f"{cfg.n_vision_tokens}")
+    model = tf.init_params(cfg, seed=0, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=LM_TRAIN_LR)
+    opt = adamw.init_state(dict(model.named_parameters()), opt_cfg)
+    step = make_train_step(cfg, opt_cfg)
+    batches = [lm_train_batch(cfg, b, s, dev, seed=0)] * VLM_TRAIN_STEPS
+    if batches[0]["labels"].shape != (b, s):
+        raise AssertionError("labels are not the text's")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pairs = []
+    t0 = time.perf_counter()
+    metrics = train_steps(step, model, opt, batches, pairs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(m["loss"]) for m in metrics]
+    check_falls(tag, f"(b) qwen2-vl-2b {b}x({n_vis} vision + {s} text), "
+                "one batch, the text region's loss", losses)
+    ms = sorted(event_ms(p) for p in pairs[2:])
+    print(f"[{tag}] (b) {VLM_TRAIN_STEPS} steps in {wall:.2f}s wall, step "
+          f"{ms[len(ms) // 2]:.1f} ms (median of steps 3-{VLM_TRAIN_STEPS}), "
+          f"{b * s / ms[len(ms) // 2] * 1e3:.0f} text tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+    del model, opt, batches, metrics, step
+    torch.cuda.empty_cache()
+
+
+def loss_and_grads(model, batch, **kw):
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = tf.lm_loss(model, batch, model.cfg, **kw)
+    loss.backward()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def grad_gap(got, want):
+    """(the worst leaf's max |Δ| over its own max |g|, that leaf)."""
+    worst, name = 0.0, None
+    for k in want:
+        d = float((got[k].cpu() - want[k].cpu()).abs().max()) / max(
+            float(want[k].abs().max()), 1e-30)
+        if d >= worst:
+            worst, name = d, k
+    return worst, name
+
+
+def lm_train_reduced(dev):
+    """(c): every arch at reduced() in float32, card against CPU."""
+    tag = "lm_train"
+    b, s = LM_TRAIN_SMALL
+    tol = LM_TRAIN_TOL
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        cpu = tf.init_params(cfg, seed=3, device="cpu")
+        card = tf.Transformer(cfg, device=dev).eval()
+        card.load_state_dict(cpu.state_dict())
+        batch = lm_train_batch(cfg, b, s, "cpu", seed=5)
+        on_card = {k: v.to(dev) for k, v in batch.items()}
+        l_cpu, g_cpu = loss_and_grads(cpu, batch)
+        l_card, g_card = loss_and_grads(card, on_card)
+        rel = abs(l_card - l_cpu) / abs(l_cpu)
+        worst, leaf = grad_gap(g_card, g_cpu)
+        l_rm, g_rm = loss_and_grads(card, on_card, remat=True)
+        rm_worst, _ = grad_gap(g_rm, g_card)
+        rm_bitwise = l_rm == l_card and all(torch.equal(g_rm[k], g_card[k])
+                                            for k in g_card)
+        # apply_updates_ in place against the functional apply_updates
+        opt_cfg = adamw.AdamWConfig(lr=1e-3, weight_decay=0.1)
+        params = {k: p.detach().clone() for k, p in card.named_parameters()}
+        params_ = {k: v.clone() for k, v in params.items()}
+        st = adamw.init_state(params, opt_cfg)
+        st_ = adamw.init_state(params_, opt_cfg)
+        for _ in range(2):
+            params, st, m = adamw.apply_updates(params, g_card, st, opt_cfg)
+            m_ = adamw.apply_updates_(params_, g_card, st_, opt_cfg)
+        upd_bitwise = torch.equal(m["grad_norm"], m_["grad_norm"]) and all(
+            torch.equal(params[k], params_[k])
+            and torch.equal(st["mu"][k], st_["mu"][k])
+            and torch.equal(st["nu"][k], st_["nu"][k]) for k in params)
+        # the kernels under autograd on the card: the forward's default
+        # path raises at its first kernel (xLSTM and MLA reach none)
+        reaches = cfg.family != "ssm" and cfg.attn_type == "gqa"
+        try:
+            tf.lm_loss(card, on_card, cfg, kernel="flash")
+            raised = False
+        except RuntimeError as e:
+            raised = "no backward" in str(e)
+        flash_ok = raised == reaches
+        print(f"[{tag}] (c) {arch} reduced ({cfg.family}): loss card "
+              f"{l_card:.6f} CPU {l_cpu:.6f} (rel {rel:.2e}); gradients "
+              f"worst leaf {worst:.2e} of its max ({leaf}); remat worst "
+              f"{rm_worst:.2e}, bitwise {rm_bitwise}; apply_updates_ bitwise "
+              f"apply_updates {upd_bitwise}; kernel='flash' under grad "
+              f"raises {raised} (reaches a kernel {reaches})", flush=True)
+        if rel > tol["loss_rtol"] or worst > tol["grad"] or \
+                rm_worst > tol["grad"] or not upd_bitwise or not flash_ok:
+            raise AssertionError(f"{arch}: the reduced train step disagrees")
+        del cpu, card, g_cpu, g_card, g_rm, params, params_, st, st_
+    torch.cuda.empty_cache()
+
+
+def lm_train_launcher(dev):
+    """(d): the launcher at full size, and the reduced save/resume."""
+    tag = "lm_train"
+
+    def run(args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = lm_train.main(args)
+        for line in buf.getvalue().splitlines():
+            print(f"[{tag}] (d) {line}", flush=True)
+        if "done: loss" not in buf.getvalue():
+            raise AssertionError("the launcher did not print 'done: loss'")
+        return out
+    t0 = time.perf_counter()
+    run(LM_LAUNCH_ARGS)
+    torch.cuda.empty_cache()
+    print(f"[{tag}] (d) {' '.join(LM_LAUNCH_ARGS)}: "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    def snapshot(model, opt):
+        return {**{k: v.detach().clone()
+                   for k, v in model.named_parameters()},
+                **{f"{m}/{k}": v.clone() for m in ("mu", "nu")
+                   for k, v in opt[m].items()}}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lm.npz")
+        first = run([*LM_RESUME_ARGS, "--steps", "6", "--ckpt", path])
+        saved = snapshot(first["model"], first["opt"])
+        restored = []
+        orig = lm_train.restore_state
+
+        def spy(p, model, opt):
+            tree = orig(p, model, opt)
+            restored.append(snapshot(model, opt))
+            return tree
+        lm_train.restore_state = spy
+        try:
+            resumed = run([*LM_RESUME_ARGS, "--steps", "6", "--resume", path])
+        finally:
+            lm_train.restore_state = orig
+    same = [torch.equal(restored[0][k], saved[k]) for k in saved]
+    print(f"[{tag}] (d) --ckpt then --resume: {sum(same)} of {len(same)} "
+          "restored leaves (parameters and moments) bitwise the saved ones",
+          flush=True)
+    if not all(same):
+        raise AssertionError("the restored state differs from the saved")
+    straight = run([*LM_RESUME_ARGS, "--steps", "12"])
+    a = snapshot(resumed["model"], resumed["opt"])
+    b_ = snapshot(straight["model"], straight["opt"])
+    gap = max(float((a[k] - b_[k]).abs().max()) for k in a)
+    print(f"[{tag}] (d) 6 saved + 6 resumed against 12 straight steps: "
+          f"bitwise {all(torch.equal(a[k], b_[k]) for k in a)}, max |Δ| "
+          f"{gap:.3e} (printed, not held)", flush=True)
+
+
+def phase_lm_train(dev, card: str):
+    """Phase 9: (a) MiniCPM-2B at full width, (b) Qwen2-VL-2B's text-region
+    loss, (c) every arch at reduced() card against CPU, (d) the launcher."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[lm_train] start: {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+          "GB still allocated", flush=True)
+    lm_train_full(dev, card)
+    lm_train_vlm(dev, card)
+    lm_train_reduced(dev)
+    lm_train_launcher(dev)
+    wall = time.perf_counter() - t_phase
+    print(f"[lm_train] phase wall {wall:.1f}s (budget "
+          f"{LM_TRAIN_BUDGET_S:.0f}s)", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4036,24 +4431,52 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(name):
+        """Print the phase's wall time and the total: the script has 1200 s,
+        the kernels' build included."""
+        now = time.perf_counter()
+        print(f"[time] {name} {now - t_lap[0]:.1f}s, total "
+              f"{now - t_start:.1f}s", flush=True)
+        t_lap[0] = now
+
     card = phase_device()
     phase_build(dev)
+    lap("device and build")
     rows = phase_kernels(dev, card)
+    lap("kernels")
     attn_rows = phase_attention(dev, card)
+    lap("attention")
     ssm_rows = phase_ssm(dev, card)
+    lap("ssm")
     _, unet_ms = phase_slice(dev)
+    lap("slice")
     phase_train(dev, card)
+    lap("train")
     g = phase_guided(dev, card, unet_ms)
+    lap("guided")
     noise_rows = phase_host(dev, card, unet_ms)
+    lap("host")
     phase_obs(dev, card)
+    lap("obs")
     phase_pod(dev, card)
+    lap("pod")
     phase_paper(dev, card)
+    lap("paper")
     lm_counts = phase_lm(dev, card)
+    lap("lm")
     hybrid_counts = phase_hybrid(dev, card)
+    lap("hybrid")
     torch.cuda.empty_cache()
     phase_moe(dev, card)
+    lap("moe")
     torch.cuda.empty_cache()
     phase_families(dev, card)
+    lap("families")
+    torch.cuda.empty_cache()
+    phase_lm_train(dev, card)
+    lap("lm_train")
     # the step kernels' launches on this slice's path, guided and gated
     # serving (phase 4's are printed in its own lines)
     counts = {"traj_masked_step": g["cuda_masked"]["traj_masked_step"],

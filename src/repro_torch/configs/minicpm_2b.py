@@ -1,7 +1,7 @@
 """MiniCPM-2B llama-like dense decoder, WSD schedule [arXiv:2404.06395].
 
 36 heads (MHA: kv=36).  The WSD (warmup-stable-decay) schedule from the paper
-belongs to the training path, not yet ported.
+is ``repro_torch.optim.schedule.wsd``.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -1,5 +1,6 @@
-"""Synthetic client datasets for the CollaFuse split training (counterpart
-of ``repro/data/synthetic.py``; the port's own copy of its numpy code).
+"""Synthetic client datasets for the CollaFuse split training, and
+synthetic LM token batches (counterpart of ``repro/data/synthetic.py``; the
+port's own copy of its numpy code).
 
 The paper trains on BraTS MRI brain scans, which are not available offline.
 These are structured grayscale images — anisotropic-Gaussian "brain"
@@ -7,7 +8,8 @@ masses with an inner "ventricle" and speckle texture, with per-client
 shifts of position and eccentricity — so that a DDPM visibly learns the
 distribution and the clients' distributions differ.  The same seed gives
 arrays bitwise equal to the reference's.  Everything is made on the CPU
-with numpy and returned as CPU tensors; the caller moves them.
+with numpy; the images are returned as CPU tensors (the caller moves
+them), the token batches on the device asked for.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,3 +83,28 @@ def image_batches(data: torch.Tensor, batch: int, seed: int = 0
         perm = torch.from_numpy(rng.permutation(n))
         for i in range(0, n - batch + 1, batch):
             yield data[perm[i:i + batch]]
+
+
+def token_batches(vocab: int, batch: int, seq: int, seed: int = 0,
+                  structured: bool = True, device: DeviceLike = "cuda"
+                  ) -> Iterator[dict]:
+    """Infinite synthetic LM batches {"tokens", "labels"}, each (batch,
+    seq) int64 on ``device`` (the index dtype ``Embed`` and the loss's
+    gather take; the values are the reference's int32 ones, drawn in its
+    order): structured = a noisy integer-sequence grammar (learnable),
+    else uniform random; labels are the tokens shifted by one."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    while True:
+        if structured:
+            start = rng.integers(0, vocab, (batch, 1))
+            step = rng.integers(1, 7, (batch, 1))
+            seqs = (start + step * np.arange(seq + 1)) % vocab
+            noise = rng.integers(0, vocab, seqs.shape)
+            mask = rng.random(seqs.shape) < 0.05
+            seqs = np.where(mask, noise, seqs)
+        else:
+            seqs = rng.integers(0, vocab, (batch, seq + 1))
+        seqs = torch.from_numpy(seqs.astype(np.int64)).to(dev)
+        yield {"tokens": seqs[:, :-1].contiguous(),
+               "labels": seqs[:, 1:].contiguous()}

@@ -10,6 +10,12 @@ dtype, shape and contiguity, launches its kernel
 or raises, and adds one to its ``launches`` attribute; nothing falls back.
 A CUDA graph that holds kernels launches each of them once a replay: its
 owner counts a replay with :func:`add_launches`.
+
+No kernel has a backward.  The plain version on the CPU is differentiable;
+a kernel writes a fresh tensor outside autograd, so ``flash_attention`` and
+``ssm_scan`` raise for a non-CPU input that requires a gradient while
+autograd records (:func:`_check_no_grad`) rather than return an output that
+cuts the gradient.  Training runs ``kernel="torch"``.
 """
 from __future__ import annotations
 
@@ -37,6 +43,18 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a kernel call: the kernel has no
+    backward, and its output would silently carry no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires a "
+            "gradient; train with kernel='torch' (plain PyTorch, "
+            "differentiable), as the reference's lm_loss trains with "
+            "kernel='jnp', or call it under torch.no_grad() or "
+            "torch.inference_mode()")
 
 
 def _check_streams(name: str, x, eps_hat, noise) -> None:
@@ -143,6 +161,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softmax_scale=softmax_scale)
+    _check_no_grad("flash_attention", q, k, v)
     _check_cuda("flash_attention", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError("flash_attention: q must be (B, Sq, H, hd) and k, v "
@@ -199,6 +218,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"{head_block} must be positive")
     if x.device.type == "cpu":
         return ssm_scan_ref(x, dt, a, bm, cm)
+    _check_no_grad("ssm_scan", x, dt, a, bm, cm)
     _check_cuda("ssm_scan", x, dt, a, bm, cm)
     if x.ndim != 4 or bm.ndim != 3 or cm.shape != bm.shape:
         raise ValueError("ssm_scan: x must be (B, S, nh, P) and bm, cm one "

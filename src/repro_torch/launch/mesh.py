@@ -5,7 +5,7 @@ program.  In the port N devices means N processes: a pod of hosts joined by
 a ``torch.distributed`` process group, each host driving its own device.
 Only the ``data`` axis exists here: a ``model`` axis above 1 (the U-Net's
 convolution channels sharded across devices) waits for the DTensor slice
-(ROADMAP Queue 1, item 4).
+(ROADMAP Queue 1, item 4.5).
 
 The group is gloo over CPU tensors.  It carries only host-side objects (the
 serving engine's schedule digest), it opens for two processes on one card
@@ -41,7 +41,7 @@ def host_mesh(mesh_shape: str = "",
     if m > 1:
         raise ValueError(f"mesh {d}x{m}: a model axis above 1 (the U-Net's "
                          "channels sharded across devices) waits for the "
-                         "DTensor slice, ROADMAP Queue 1 item 4")
+                         "DTensor slice, ROADMAP Queue 1 item 4.5")
     return d, m
 
 

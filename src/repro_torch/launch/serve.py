@@ -60,7 +60,7 @@ def check_weights_fit(cfg, device) -> int:
         raise ValueError(
             f"{cfg.arch_id}: {cfg.param_count()} parameters need {need} bytes "
             f"of {cfg.dtype} weights, more than {where}; serving it needs "
-            "the weights sharded over cards (ROADMAP.md Queue 1 item 4, the "
+            "the weights sharded over cards (ROADMAP.md Queue 1 item 4.5, the "
             "DTensor mesh)")
     return need
 

@@ -1,6 +1,8 @@
 """Serving shapes (counterpart of ``serve_window`` in
-``repro/launch/specs.py``; the abstract input specs of the TPU dry run
-wait for the DTensor mesh, ROADMAP.md Queue 1 item 4)."""
+``repro/launch/specs.py``).  Training needs no input specs here: it runs
+eagerly on one card through ``launch/steps.py``'s ``make_train_step`` and
+``launch/train.py``.  The abstract input specs of the TPU dry run wait for
+the DTensor mesh, ROADMAP.md Queue 1 item 4.5."""
 from __future__ import annotations
 
 from repro_torch.configs import InputShape, ModelConfig

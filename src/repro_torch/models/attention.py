@@ -22,7 +22,7 @@ absorbed into the query and ``w_uv`` applied after the attention.
 embeddings: no RoPE, no mask, C keys; it reaches no Pallas kernel in the
 reference and stays plain PyTorch here.  The sequence-sharded variant
 (``qshard_attention``) waits for the DTensor mesh (``ROADMAP.md`` Queue 1
-item 4).  The decode steps write the new entries into the cache in place,
+item 4.5).  The decode steps write the new entries into the cache in place,
 where the reference returns a new cache: that keeps one copy of a cache in
 device memory.
 """

@@ -1,6 +1,6 @@
 """Shared LM layers: RMSNorm, RoPE and Qwen2-VL's multimodal RoPE, the
-SwiGLU MLP, embedding, unembedding and the fan-in truncated-normal init
-(counterpart of ``repro/models/layers.py:105-240``).
+SwiGLU MLP, embedding, unembedding, the fan-in truncated-normal init and
+the softmax cross-entropy (counterpart of ``repro/models/layers.py:105-248``).
 
 Weights keep the reference's layouts (``(d, ff)`` for a dense map,
 ``(vocab, d)`` for the embedding), so a reference tree maps onto the port
@@ -167,3 +167,15 @@ class Embed(nn.Module):
         """(B, S, d) -> logits (B, S, vocab) in x's dtype."""
         w = self.embedding.T if self.lm_head is None else self.lm_head
         return x @ w
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """logits (B, S, V), labels (B, S) int64 -> the mean over all tokens of
+    ``logsumexp(logits) - logits[label]``, a float32 scalar, computed in
+    float32 whatever the logits' dtype (the reference's
+    ``softmax_cross_entropy``, written out as it is)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    return torch.mean(logz - gold)

@@ -25,7 +25,7 @@ the reference, which computes them outside any Pallas kernel.
 
 The expert-parallel paths of the reference (``shard_map`` with
 ``all_to_all`` and ``psum``) wait for the port's DTensor mesh (``ROADMAP.md``
-Queue 1 item 4).
+Queue 1 item 4.5).
 """
 from __future__ import annotations
 

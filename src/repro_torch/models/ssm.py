@@ -21,6 +21,7 @@ new cache.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -133,8 +134,10 @@ def _chunked_mixing(xh, dt, a, bm, cm, l: int):
         cc = cm[:, sl].to(f32)
         # intra-chunk quadratic term
         seg = cum[:, :, None, :] - cum[:, None, :, :]          # (B,L,L,nh) t,s
-        m = torch.where(tri[None, :, :, None], torch.exp(seg),
-                        torch.zeros((), dtype=f32, device=xh.device))
+        # above the diagonal seg > 0 and exp may overflow: masked to -inf
+        # before the exp (the reference selects after it, the same values),
+        # so the backward multiplies no zero by an inf
+        m = torch.exp(seg.masked_fill(~tri[None, :, :, None], -math.inf))
         g = torch.einsum("btn,bsn->bts", cc, bc)               # (B,L,L)
         w = g[:, :, :, None] * m * dtc[:, None, :, :]          # (B,t,s,nh)
         y = torch.einsum("btsh,bshp->bthp", w, xc)             # (B,L,nh,hd)

@@ -1,5 +1,5 @@
-"""The LM families of the reference, prefill logits, cache and cached
-decode (counterpart of ``repro/models/transformer.py``).
+"""The LM families of the reference, prefill logits, the training loss,
+cache and cached decode (counterpart of ``repro/models/transformer.py``).
 
 A :class:`Transformer` holds the embedding, the family's stack, the final
 norm and the LM head.  The stack is run by Python loops where the
@@ -36,7 +36,8 @@ model's "cond_embeds" (B, C, d)), logits (B, S, V) in the config's dtype.
 The parameters are the "params" the functions take; :func:`params_from_jax`
 maps a reference tree onto them.  The functions run the MoE layers with
 the capacity factor of the config they are given, as the reference's do
-(:data:`RUN_FIELDS`).
+(:data:`RUN_FIELDS`).  :func:`lm_loss` also takes "labels" (B, S) int64
+and trains through plain PyTorch (``kernel="torch"``).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from typing import Dict
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -55,7 +57,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import MLP, Embed, RMSNorm
+from repro_torch.models.layers import (MLP, Embed, RMSNorm,
+                                      softmax_cross_entropy)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # config fields a call may change without changing the weights
@@ -366,12 +369,16 @@ class Transformer(nn.Module):
             yield from self.layers
 
     def forward_aux(self, tokens, *, vision_embeds=None, cond_embeds=None,
-                    window: int = 0, kernel: str = "flash"):
+                    window: int = 0, kernel: str = "flash",
+                    remat: bool = False):
         """tokens (B, S) -> (logits (B, S', V), the MoE layers' summed aux
         loss, a float32 scalar: zero without MoE layers).  A vlm splices
         ``vision_embeds`` (B, P, d) before the text (S' = P + S) and runs
         at its M-RoPE positions; an audio model attends to ``cond_embeds``
-        (B, C, d), cast to the activations' dtype."""
+        (B, C, d), cast to the activations' dtype.  ``remat`` runs each
+        block under ``torch.utils.checkpoint`` (non-reentrant): its
+        activations are recomputed in the backward instead of kept (the
+        reference's ``jax.checkpoint``); the values are the same."""
         if self.cfg.family == "vlm":
             x, positions = vlm_assemble(tokens, vision_embeds, self.embed,
                                         self.cfg)
@@ -379,14 +386,18 @@ class Transformer(nn.Module):
             x, positions = self.embed.embed(tokens), None
         cond = None if cond_embeds is None else cond_embeds.to(x.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        kw = dict(positions=positions, cond=cond, window=window,
+                  kernel=kernel)
         for block in self.blocks():
-            if isinstance(block, MoELayer):
-                x, a = block.forward_aux(x, positions=positions,
-                                         window=window, kernel=kernel)
+            moe = isinstance(block, MoELayer)
+            fn = block.forward_aux if moe else block
+            out = checkpoint(fn, x, use_reentrant=False, **kw) if remat \
+                else fn(x, **kw)
+            if moe:
+                x, a = out
                 aux = aux + a
             else:
-                x = block(x, positions=positions, cond=cond, window=window,
-                          kernel=kernel)
+                x = out
         return self.embed.unembed(self.final_norm(x)), aux
 
     def forward(self, tokens, *, vision_embeds=None, cond_embeds=None,
@@ -524,16 +535,18 @@ def run_config(params: Transformer, cfg: ModelConfig):
 
 
 def forward_with_aux(params: Transformer, batch, cfg: ModelConfig, *,
-                     window: int = 0, kernel: str = "flash"):
+                     window: int = 0, kernel: str = "flash",
+                     remat: bool = False):
     """The reference's ``forward``: batch {"tokens": (B, S)} (with
     "vision_embeds" for a vlm, "cond_embeds" for an audio model) ->
     (logits (B, S', V) in the config's dtype, {"moe_aux": the MoE layers'
-    summed aux loss}, zero for the other families)."""
+    summed aux loss}, zero for the other families).  ``remat``: see
+    :meth:`Transformer.forward_aux`."""
     with run_config(params, cfg):
         logits, aux = params.forward_aux(
             batch["tokens"], vision_embeds=batch.get("vision_embeds"),
             cond_embeds=batch.get("cond_embeds"), window=window,
-            kernel=kernel)
+            kernel=kernel, remat=remat)
     return logits, {"moe_aux": aux}
 
 
@@ -550,6 +563,29 @@ def prefill(params: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
     """Prefill = the full forward's logits, as in the reference: the serving
     loop fills the cache by chaining :func:`decode_step`."""
     return forward(params, batch, cfg, window=window, kernel=kernel)
+
+
+def lm_loss(params: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
+            kernel: str = "torch", remat: bool = False):
+    """The training objective (the reference's ``lm_loss``): batch as
+    :func:`forward_with_aux` takes it plus "labels" (B, S) int64 ->
+    (loss, {"ce": the mean cross-entropy, "moe_aux": the MoE layers'
+    summed aux loss}), float32 scalars; loss = ce + ``router_aux_coef`` ·
+    moe_aux.  A vlm's loss runs over the text region only: the first
+    ``n_vision_tokens`` logits (the vision prefix has no labels) are
+    dropped.
+
+    ``kernel`` defaults to ``"torch"``, not ``"flash"`` as the forward's
+    does: the kernels have no backward (:mod:`repro_torch.kernels.ops`
+    raises under autograd on a card), and the reference's ``lm_loss``
+    likewise trains through its plain ``"jnp"`` path."""
+    logits, aux = forward_with_aux(params, batch, cfg, window=window,
+                                   kernel=kernel, remat=remat)
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.n_vision_tokens:]
+    ce = softmax_cross_entropy(logits, batch["labels"])
+    return ce + cfg.router_aux_coef * aux["moe_aux"], {
+        "ce": ce, "moe_aux": aux["moe_aux"]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,

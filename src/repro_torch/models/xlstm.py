@@ -20,6 +20,7 @@ Pallas kernel lies on this path in the reference, and none here.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -119,10 +120,12 @@ def mlstm_forward(x, p: MLSTM, cfg: ModelConfig):
         ic = ig[:, sl]                                         # (B,L,nh)
         cum = torch.cumsum(torch.log(torch.clamp_min(fg[:, sl], 1e-9)), 1)
         # intra-chunk: w(t, s) = exp(cum_t - cum_s) · i_s for s <= t; above
-        # the diagonal exp overflows, so select, never multiply by a mask
+        # the diagonal exp overflows, so seg is masked to -inf before the
+        # exp (never a mask multiplied in, and no inf for the backward to
+        # multiply by a zero)
         seg = cum[:, :, None, :] - cum[:, None, :, :]          # (B,t,s,nh)
-        wts = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0) * \
-            ic[:, None, :, :]
+        wts = torch.exp(seg.masked_fill(~tri[None, :, :, None], -math.inf)) \
+            * ic[:, None, :, :]
         sc = torch.einsum("bthd,bshd->btsh", qc, kc)
         y = torch.einsum("btsh,bshp->bthp", sc * wts, vc)
         decay = torch.exp(cum)                                 # (B,L,nh)

@@ -10,10 +10,19 @@ and the update taken on a float32 master copy.
 A parameter set is a ``{name: tensor}`` dict (``named_parameters`` of a
 module, the tree ``torch.func.functional_call`` takes); the optimizer state
 is ``{"step": int32 tensor, "mu": {name: tensor}, "nu": {name: tensor}}``.
-Every function is functional: it returns new tensors and never writes to
-its inputs.  The stacked variants take a leading member axis ([n, ...]
-leaves, an [n] step counter): each member clips on its OWN global norm, as
-n separate calls would.
+Every function but :func:`apply_updates_` is functional: it returns new
+tensors and never writes to its inputs.  The stacked variants take a
+leading member axis ([n, ...] leaves, an [n] step counter): each member
+clips on its OWN global norm, as n separate calls would.
+
+:func:`apply_updates_` is the in-place counterpart for a model too large
+for whole-model temporaries (an LM on one card): it writes the parameters
+and the state, one leaf at a time after the global norm over all leaves,
+as the reference's jitted per-leaf ``upd`` with its state donated does.
+Its temporaries are a few of the largest leaf's size, in float32, where
+:func:`apply_updates` builds float32 lists of the whole model.  Its results
+are bitwise :func:`apply_updates`' for float32 moments (the default
+``mu_dtype``).
 """
 from __future__ import annotations
 
@@ -150,3 +159,53 @@ def _update(params, grads, state, cfg: AdamWConfig, schedule, lead: int):
     return new_p, {"step": step, "mu": dict(zip(names, mu)),
                    "nu": dict(zip(names, nu))}, {"grad_norm": gnorm,
                                                  "lr": lr}
+
+
+@torch.no_grad()
+def apply_updates_(params: Params, grads: Params, state, cfg: AdamWConfig,
+                   schedule: Optional[Callable] = None):
+    """:func:`apply_updates` in place: ``params`` (``{name: tensor}``, the
+    tensors written with their new values), ``state["mu"]``, ``state["nu"]``
+    and ``state["step"]`` are updated leaf by leaf, in the same operations
+    and order as :func:`apply_updates`, so the results are its bits.
+    Returns the metrics ``{"grad_norm", "lr"}``."""
+    names = list(params)
+    mu_dt = state["mu"][names[0]].dtype
+    step = state["step"] + 1
+    gnorm = torch.sqrt(_sq_norms(grads, 0))
+    scale = None
+    if cfg.grad_clip:
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+    stepf = step.to(torch.float32)
+    lr = cfg.lr * (schedule(step) if schedule is not None
+                   else torch.ones_like(stepf))
+    b1c = 1.0 - torch.pow(cfg.b1, stepf)
+    b2c = 1.0 - torch.pow(cfg.b2, stepf)
+    for k in names:
+        p, mu, nu = params[k], state["mu"][k], state["nu"][k]
+
+        def per_leaf(v):
+            """A scalar shaped as :func:`_update` shapes it for this leaf
+            (its dtype promotion is a dimensioned tensor's)."""
+            return v.reshape((1,) * p.ndim)
+        g = grads[k].to(mu_dt)
+        if scale is not None:
+            g = g * per_leaf(scale)
+        mu.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+        nu.mul_(cfg.b2).add_((g * g).mul_(1 - cfg.b2))
+        del g
+        delta = mu / per_leaf(b1c)
+        denom = (nu / per_leaf(b2c)).sqrt_().add_(cfg.eps)
+        delta.div_(denom)
+        del denom
+        if cfg.weight_decay:
+            delta.add_(p.to(mu_dt) * cfg.weight_decay)
+        delta.mul_(per_leaf(lr))
+        if p.dtype == torch.float32:
+            p.sub_(delta)
+        else:
+            p.copy_(p.to(torch.float32).sub_(delta))
+        del delta
+    state["step"].copy_(step)
+    return {"grad_norm": gnorm, "lr": lr}

@@ -1063,3 +1063,85 @@ def test_vlm_audio_xlstm_prefill_matches_cpu_on_cuda(arch):
     ref = prefill(cpu, batch)
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
                                atol=MOE_CUDA_ATOL)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_raise_under_autograd_on_cuda():
+    """The kernels have no backward: a CUDA input that requires a gradient
+    raises while autograd records, and launches nothing; under
+    ``no_grad`` the same call launches."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((1, 64, 4, 64), generator=g, device="cuda")
+    before = ops.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(), q, q)
+    assert ops.flash_attention.launches == before
+    with torch.no_grad():
+        ops.flash_attention(q, q, q)
+    assert ops.flash_attention.launches == before + 1
+    x = torch.randn((1, 64, 4, 32), device="cuda", requires_grad=True)
+    dt = torch.rand((1, 64, 4), device="cuda")
+    a = -torch.rand(4, device="cuda")
+    bm = torch.randn((1, 64, 16), device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssm_scan(x, dt, a, bm, bm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "deepseek-v2-236b",
+                                  "zamba2-7b"])
+def test_lm_train_step_matches_cpu_on_cuda(arch):
+    """One train step of the reduced member (f32, TF32 off) on the card and
+    on the CPU from the same weights and batch.  Before the update: the
+    losses within 1e-5 relative and each gradient leaf within 1e-4 of its
+    own max |g|, as phase 9 (c) holds them.  After ``make_train_step``:
+    the losses and global gradient norms within 1e-5 relative, and the
+    first moments, linear in the clipped gradient, within that same 1e-4
+    of each leaf's max (AdamW's parameter step is near ±lr whatever the
+    gradient, so the parameters would hold nothing)."""
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    cfg = get_config(arch).reduced()
+    cpu = tf.init_params(cfg, seed=2, device="cpu")
+    card = tf.Transformer(cfg, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    batch = next(token_batches(cfg.vocab_size, 2, 32, device="cpu"))
+    batches = (batch, {k: v.cuda() for k, v in batch.items()})
+
+    def leaf_gap(got, want):
+        return {k: float((got[k].cpu() - want[k]).abs().max())
+                / max(float(want[k].abs().max()), 1e-30) for k in want}
+
+    grads = []
+    for model, b in zip((cpu, card), batches):
+        loss, _ = tf.lm_loss(model, b, cfg)
+        loss.backward()
+        grads.append((float(loss.detach()),
+                      {k: p.grad.detach().clone()
+                       for k, p in model.named_parameters()}))
+        for p in model.parameters():
+            p.grad = None
+    (l_cpu, g_cpu), (l_card, g_card) = grads
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    gap = leaf_gap(g_card, g_cpu)
+    assert max(gap.values()) <= 1e-4, max(gap, key=gap.get)
+
+    opt_cfg = adamw.AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, opt_cfg)
+    out = []
+    for model, b in zip((cpu, card), batches):
+        state = adamw.init_state(dict(model.named_parameters()), opt_cfg)
+        _, state, m = step(model, state, b)
+        out.append((float(m["loss"]), float(m["grad_norm"]), state["mu"]))
+    (l_cpu, n_cpu, mu_cpu), (l_card, n_card, mu_card) = out
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert abs(n_card - n_cpu) <= 1e-5 * n_cpu
+    gap = leaf_gap(mu_card, mu_cpu)
+    assert max(gap.values()) <= 1e-4, max(gap, key=gap.get)

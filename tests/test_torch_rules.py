@@ -107,7 +107,9 @@ def test_launcher_default_device_raises_without_cuda():
 def test_trainer_and_training_launcher_default_to_cuda():
     _no_cuda()
     from repro_torch.core.trainer import CollaFuseTrainer, TrainerConfig
+    from repro_torch.data.synthetic import token_batches
     from repro_torch.launch import clients_sweep
+    from repro_torch.launch import train as lm_train
     from repro_torch.launch.serve_diffusion import launcher_config
     from repro_torch.models.unet import UNet
 
@@ -117,16 +119,22 @@ def test_trainer_and_training_launcher_default_to_cuda():
         CollaFuseTrainer(TrainerConfig(n_clients=2, T=4), factory)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         clients_sweep.main(["--clients", "2", "--rounds", "1", "--T", "4"])
+    # the LM training launcher and its data
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_train.main(["--arch", "yi-6b", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(token_batches(16, 1, 4))
     # asked for explicitly, the CPU works
     CollaFuseTrainer(TrainerConfig(n_clients=2, T=4), factory, device="cpu")
 
 
 def test_guards_cover_the_training_modules():
     """The import and source-word guards above walk every module of the
-    package: the training slice's, the checkpoint module and the examples
-    among them."""
+    package: the training slices' (diffusion and LM), the checkpoint
+    module and the examples among them."""
     names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"core/trainer.py", "core/privacy.py", "optim/adamw.py",
+            "optim/schedule.py", "launch/train.py",
             "data/synthetic.py", "launch/clients_sweep.py",
             "checkpoint/io.py", "examples/collafuse_healthcare.py",
             "examples/cut_ratio_sweep.py", "examples/quickstart.py",
