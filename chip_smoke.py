@@ -127,19 +127,19 @@ Phases, each printing its own lines:
 4g. pod — pod mode as two host processes on the one card, joined by a
    gloo group (run before 4f, with the parent's cache emptied before each
    child): (a) two ``repro_torch.launch.pod_smoke`` processes (8 slots, 7
-   requests, ``--clients 3 --pack --trace-out``) in stream and in drain
-   mode: the union of their owned rows (x_mid and x0) bitwise the
-   in-process single host's artifact, retire ticks equal, guided pairs
+   requests, ``--clients 3 --pack --trace-out``) in stream and two in
+   drain mode, all four at once: each mode's union of their owned rows
+   (x_mid and x0) bitwise the in-process single host's artifact, retire ticks equal, guided pairs
    across the two blocks, the merged trace one pid a host; (b) the paper
    U-Net with 4 classes (random weights from a seed), T = 100, DDPM, DDIM
    K = 20 and guided DDPM (w 1.5), 8 slots, k = 4, async_depth 2, 8
    requests, served by ``serve_diffusion --devices 2 --mesh-shape 2x1``
-   against ``--devices 1``: the union's difference from the single host
-   (or, where a lane's bits follow the model call's width, which it
-   prints, within the stated tolerance and a second pod run bitwise the
-   first), retire ticks equal, each host's ms a tick, images/s, kernel
-   launches, halo lanes and peak memory, and the pod's images/s against
-   the single host's;
+   against ``--devices 1`` in this process: the union's difference from
+   the single host (or, where a lane's bits follow the model call's width,
+   within the stated tolerance), each pod host's measured serve bitwise
+   its warm-up serve of the same requests, retire ticks equal, each
+   host's ms a tick, images/s, kernel launches, halo lanes and peak
+   memory, and the pod's images/s against the single host's;
 5. LM slice — Yi-6B at full width and depth in bf16 (random weights from a
    seed): (a) prefill of 4x2048 tokens through the flash kernel, 32
    launches a call, timed and profiled; (b) the same batch through
@@ -210,7 +210,26 @@ Phases, each printing its own lines:
    reaches a kernel; (d) ``launch/train.py`` on MiniCPM-2B at full size (8
    steps at 4 x 256, "done: loss"), then at ``reduced()`` 6 steps saved
    and 6 resumed: the restored parameters and moments bitwise the saved
-   ones, and the resumed run against 12 straight steps (printed).
+   ones, and the resumed run against 12 straight steps (printed);
+10. mesh — two ranks (``launch/mesh.py``'s ``run_ranks``), on the one
+   card ("gloo+ipc": payloads through CUDA IPC, gloo's barriers; NCCL
+   where the machine has a card a rank), the transport printed: (a) Yi-6B at full width and depth, 4 x 2048, mesh
+   1x2: each rank's share of the weights, ``flash_attention``'s launches
+   at the local 16 heads and 2 KV heads, the prefill's ms and the
+   collectives' calls, bytes and ms, the logits against one
+   rank's prefill of the same weights; (b) DeepSeek-V2 at phase 7's depth
+   on 1x2 (80 experts a rank): the 4 x 2048 prefill through the
+   all-to-all path and batch-1 decode through the replicated one, held on
+   rank 0 against ``moe_local`` with the whole model's weights of the same
+   seed on each shard's block of tokens at the block's capacity: each
+   shard's kept and dropped assignments (a decode step's summed over the
+   ranks) equal, a layer of each path within phase 7's bounds; the
+   all-to-all layer's ms by part; (c) MiniCPM-2B at full width with FSDP on
+   2x1, 2 x 256 tokens a rank: the first step's loss and grad norm against
+   one rank's step on the global batch, the loss falling, each rank's
+   state (half the one-rank state), gradients, the rest and peak, the step
+   ms; (d) the serving launcher on Yi-6B at full size on 1x2 and the
+   training launcher on 2x1 with ``--fsdp``.
 
 It then prints the kernels' JSON line, and last the device line.  It exits
 non-zero, without the last line, when CUDA is absent or any phase fails.
@@ -267,7 +286,9 @@ from repro_torch.kernels import ssm_scan as kssm  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch import serve_diffusion as sd_launch  # noqa: E402
-from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
+from repro_torch.launch.mesh import (close_mesh, init_mesh,  # noqa: E402
+                                     run_ranks, transport_for)
+from repro_torch.launch.steps import (make_ctx, make_decode_step,  # noqa: E402
                                       make_prefill_step, make_train_step)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -280,6 +301,8 @@ from repro_torch.obs import (STAGES, load_trace, merge_traces,  # noqa: E402
 from repro_torch.serve import (AdmissionPolicy, EngineConfig,  # noqa: E402
                                ObsConfig, Request, ServeEngine,
                                make_scheduler)
+from repro_torch.parallel import comm  # noqa: E402
+from repro_torch.parallel.comm import Mesh  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 
 # Published H100 rates (NVIDIA data sheets; dense, no sparsity): memory
@@ -822,11 +845,11 @@ def timed_method(obj, name: str, pairs: list) -> None:
     to ``pairs`` (read after a synchronize)."""
     fn = getattr(obj, name)
 
-    def wrapped(*args):
+    def wrapped(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fn(*args)
+        out = fn(*args, **kw)
         stop.record()
         pairs.append((start, stop))
         return out
@@ -2078,10 +2101,9 @@ POD_CHILD_TIMEOUT_S = 300.0
 # the full-width pod against the single host: a pod host calls the U-Net
 # on its 4 lanes in a solo window, where the single host calls it on 8, and
 # on the card a lane's ε̂ differs by a few ulps between the two widths
-# (phase 4g (b) prints it; tools/pod_width.py).  The chain amplifies that
-# as it amplifies the backends' 1-ulp differences, so the pod is held to
-# the bound phase 4 holds the backends to (check_backends_agree), and a
-# second pod run to the first bitwise
+# (tools/pod_width.py).  The chain amplifies that as it amplifies the
+# backends' 1-ulp differences, so the pod is held to the bound phase 4
+# holds the backends to (check_backends_agree)
 POD_FULL_TOL = 1e-2
 
 
@@ -2350,50 +2372,19 @@ def straddling_pairs(res, slots: int, hosts: int):
     return out
 
 
-def width_gap(dev, ucfg, lanes: int, width: int):
-    """max |Δ| of ``lanes`` lanes through the launcher's server U-Net in
-    calls of ``width`` lanes against one call of all of them."""
-    model = UNet(ucfg, seed=0).to(dev).eval()
-    g = torch.Generator().manual_seed(0)
-    x = torch.randn((lanes, ucfg.image_size, ucfg.image_size,
-                     ucfg.in_channels), generator=g).to(dev)
-    t = torch.randint(1, T, (lanes,), generator=g).to(dev)
-    y = torch.randint(0, ucfg.num_classes + 1, (lanes,), generator=g).to(dev)
-    with torch.inference_mode():
-        one = model(x, t, y)
-        split = torch.cat([model(x[a:a + width], t[a:a + width],
-                                 y[a:a + width])
-                           for a in range(0, lanes, width)])
-    gap = (one - split).abs().max().item()
-    del model
-    return gap
+def full_pod_args(tmp: Path, label: str, mesh: list) -> list:
+    """``serve_diffusion``'s arguments at full width with ``mesh`` flags,
+    writing ``tmp/<label>.npz`` and ``.json``."""
+    return [str(a) for a in (*POD_FULL_ARGS, *POD_CHILD_ARGS, *mesh, "--out",
+                             tmp / f"{label}.npz", "--json",
+                             tmp / f"{label}.json")]
 
 
-def fresh_width_gaps(tmp: Path):
-    """``tools/pod_width.py`` in a fresh process, as the launcher's hosts
-    start: {(model, width, how): max |Δ|} of a lane's ε̂ against one call
-    of all lanes."""
-    torch.cuda.empty_cache()
-    out = tmp / "pod_width.json"
-    run_children([[sys.executable, ROOT / "tools" / "pod_width.py",
-                   "--slots", POD_SLOTS, "--json", out, *POD_CHILD_ARGS,
-                   *(["--image", IMG[0]] if POD_CHILD_ARGS else [])]])
-    return {(r["model"], r["width"], r["how"]): r["max_abs"]
-            for r in json.loads(out.read_text())["rows"]}
-
-
-def full_pod_run(tmp: Path, label: str, mesh: list):
-    """``serve_diffusion`` at full width with ``mesh`` flags: its merged
-    summary and its joined rows, the parent's cache emptied first."""
-    torch.cuda.empty_cache()
-    out, js = tmp / f"{label}.npz", tmp / f"{label}.json"
-    t0 = time.perf_counter()
-    run_children([[sys.executable, "-m", "repro_torch.launch.serve_diffusion",
-                   *POD_FULL_ARGS, *POD_CHILD_ARGS, *mesh, "--out", out,
-                   "--json", js]])
-    wall = time.perf_counter() - t0
-    rows = np.load(out)
-    return json.loads(js.read_text()), {k: rows[k] for k in rows.files}, wall
+def full_pod_result(tmp: Path, label: str):
+    """A full-width run's merged summary and its joined rows."""
+    rows = np.load(tmp / f"{label}.npz")
+    return (json.loads((tmp / f"{label}.json").read_text()),
+            {k: rows[k] for k in rows.files})
 
 
 def rows_gap(a: dict, b: dict):
@@ -2415,29 +2406,36 @@ def phase_pod(dev, card: str):
     t_phase = time.perf_counter()
     print(f"[4g] pod mode: 2 host processes on one {card}, gloo, "
           f"{POD_SLOTS} slots", flush=True)
-    # (a) the pod smoke's protocol
+    # (a) the pod smoke's protocol, both finisher modes' pods at once
+    modes = ("stream", "drain")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for mode in ("stream", "drain"):
-            t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        refs, straddles = {}, {}
+        for mode in modes:
             res = pod_smoke.serve_pod(
                 1, 0, POD_SLOTS, POD_SMOKE_REQUESTS, 4, 2, clients=3,
                 finish_mode=mode, pack=True, device=dev,
                 obs=ObsConfig(trace=False, timelines=True))
-            ref = pod_smoke.artifact(res, 0)
-            straddle = straddling_pairs(res, POD_SLOTS, 2)
+            refs[mode] = pod_smoke.artifact(res, 0)
+            straddles[mode] = straddling_pairs(res, POD_SLOTS, 2)
             del res
-            torch.cuda.empty_cache()
-            port, trace = free_port(), tmp / f"trace_{mode}.json"
-            run_children([[sys.executable, "-m",
-                           "repro_torch.launch.pod_smoke", "--coordinator",
-                           f"127.0.0.1:{port}", "--num-processes", "2",
-                           "--process-id", h, "--out", tmp / f"pod{h}.json",
-                           "--slots", POD_SLOTS, "--requests",
-                           POD_SMOKE_REQUESTS, "--clients", 3,
-                           "--finish-mode", mode, "--pack", "--trace-out",
-                           trace, *POD_CHILD_ARGS] for h in (0, 1)])
-            arts = [json.loads((tmp / f"pod{h}.json").read_text())
+        torch.cuda.empty_cache()
+        cmds = []
+        for mode in modes:
+            port = free_port()
+            cmds += [[sys.executable, "-m", "repro_torch.launch.pod_smoke",
+                      "--coordinator", f"127.0.0.1:{port}",
+                      "--num-processes", "2", "--process-id", h, "--out",
+                      tmp / f"pod_{mode}{h}.json", "--slots", POD_SLOTS,
+                      "--requests", POD_SMOKE_REQUESTS, "--clients", 3,
+                      "--finish-mode", mode, "--pack", "--trace-out",
+                      tmp / f"trace_{mode}.json", *POD_CHILD_ARGS]
+                     for h in (0, 1)]
+        run_children(cmds)
+        for mode in modes:
+            ref, trace = refs[mode], tmp / f"trace_{mode}.json"
+            arts = [json.loads((tmp / f"pod_{mode}{h}.json").read_text())
                     for h in (0, 1)]
             union = pod_smoke.union(arts)
             same = union == ref
@@ -2451,40 +2449,44 @@ def phase_pod(dev, card: str):
                   f"{sum(len(a['completions']) for a in arts)} host records "
                   f"bitwise the single host {same} (x_mid and x0), retire "
                   f"ticks equal {ticks}, straddling guided pairs "
-                  f"{straddle}, merged trace {n_events} events, pids {pids}"
-                  f", {time.perf_counter() - t0:.1f}s", flush=True)
-            if not (same and ticks and straddle and pids == [0, 1]):
+                  f"{straddles[mode]}, merged trace {n_events} events, pids "
+                  f"{pids}", flush=True)
+            if not (same and ticks and straddles[mode] and pids == [0, 1]):
                 raise AssertionError(f"pod smoke ({mode}) failed")
-    # (b) full width: the paper U-Net, serve_diffusion --devices 2 against 1
-    ucfg = dataclasses.replace(UNetConfig(), num_classes=4,
-                               image_size=IMG[0])
+        print(f"[4g] (a) both modes, their two pods at once, "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    # (b) full width: the paper U-Net, serve_diffusion --devices 2 against
+    # the single host (in this process); each pod host's measured serve
+    # repeats its warm-up serve's requests, bitwise
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        single, single_rows, single_wall = full_pod_run(
-            tmp, "single", ["--devices", "1", "--mesh-shape", "1x1"])
-        pod, pod_rows, pod_wall = full_pod_run(
-            tmp, "pod", ["--devices", "2", "--mesh-shape", "2x1"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            sd_launch.main(full_pod_args(
+                tmp, "single", ["--devices", "1", "--mesh-shape", "1x1"]))
+        single_wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        single, single_rows = full_pod_result(tmp, "single")
+        t0 = time.perf_counter()
+        run_children([[sys.executable, "-m",
+                       "repro_torch.launch.serve_diffusion",
+                       *full_pod_args(tmp, "pod", ["--devices", "2",
+                                                   "--mesh-shape", "2x1"])]])
+        pod_wall = time.perf_counter() - t0
+        pod, pod_rows = full_pod_result(tmp, "pod")
         keys, ticks, same, gap_mid, gap_x0 = rows_gap(single_rows, pod_rows)
         gap = max(gap_mid, gap_x0)
-        block = POD_SLOTS // 2
-        gap_w = width_gap(dev, ucfg, POD_SLOTS, block)
-        fresh = fresh_width_gaps(tmp)
+        repeat = [r["repeat_bitwise"] for r in pod["hosts"]]
         print(f"[4g] (b) {pod['mesh']} against data:1xmodel:1, paper U-Net "
               f"4 classes, {pod['requests']} requests ({pod['images']} "
               f"images), {pod['ticks']} ticks: union bitwise the single "
               f"host {same}, max |d| x_mid {gap_mid:.3g} x0 {gap_x0:.3g}, "
-              f"retire ticks equal {ticks}; launcher walls "
-              f"{single_wall:.1f}s and {pod_wall:.1f}s", flush=True)
-        print(f"[4g] (b) the cause: a lane's eps from one U-Net call of "
-              f"{POD_SLOTS} lanes against calls of {block}, max |d| "
-              f"{fresh[('paper_unet', block, 'chunks')]:.3g} in a fresh "
-              f"process (tools/pod_width.py, as the launcher's hosts start; "
-              f"rolled lanes "
-              f"{fresh[('paper_unet', POD_SLOTS, 'rolled')]:.3g}, the "
-              f"pod smoke's MLP {fresh[('pod_mlp', block, 'chunks')]:.3g}) "
-              f"and {gap_w:.3g} in this process after the earlier phases "
-              "(cuDNN's plans follow the width and the process's history)",
-              flush=True)
+              f"retire ticks equal {ticks}; each pod host's measured serve "
+              f"bitwise its warm-up serve (rows and ticks) {repeat}; walls "
+              f"{single_wall:.1f}s (in this process) and {pod_wall:.1f}s "
+              "(the launcher)", flush=True)
         for label, run in (("single", single), ("pod", pod)):
             for r in run["hosts"]:
                 peak = "n/a" if r["peak_gb"] is None else \
@@ -2504,22 +2506,16 @@ def phase_pod(dev, card: str):
               f"against single host {single['pod_images_per_s']:.3f} "
               f"({ratio:.3f}x; two processes time-slice one card)",
               flush=True)
-        ok = keys and ticks and all(
+        ok = keys and ticks and all(repeat) and all(
             r["launches"]["traj_masked_step"] > 0 and
             r["launches"]["lane_noise"] > 0 for r in pod["hosts"]) and \
             any(r["halo_lanes"] > 0 for r in pod["hosts"])
         if ok and not same:
-            # a lane's bits follow the call's width: hold the pod to the
-            # stated tolerance, and a second pod run to the first bitwise
-            _, again_rows, _ = full_pod_run(
-                tmp, "pod2", ["--devices", "2", "--mesh-shape", "2x1"])
-            _, ticks2, same2, *gaps2 = rows_gap(pod_rows, again_rows)
-            gap2 = max(gaps2)
-            print(f"[4g] (b) second pod run bitwise the first {same2} "
-                  f"(max |d| {gap2:.3g}), ticks equal {ticks2}; the pod "
-                  f"within {POD_FULL_TOL:g} of the single host "
-                  f"{gap <= POD_FULL_TOL}", flush=True)
-            ok = same2 and ticks2 and gap <= POD_FULL_TOL
+            # a lane's bits follow the call's width (tools/pod_width.py):
+            # hold the pod to the stated tolerance
+            print(f"[4g] (b) the pod within {POD_FULL_TOL:g} of the single "
+                  f"host {gap <= POD_FULL_TOL}", flush=True)
+            ok = gap <= POD_FULL_TOL
         if not ok:
             raise AssertionError("full-width pod failed")
     print(f"[4g] pod phase {time.perf_counter() - t_phase:.1f}s", flush=True)
@@ -3194,7 +3190,7 @@ def block_gaps(model, cfg, tokens, n_dec):
         outs = [[] for _ in ins]
         calls = itertools.count()
 
-        def forced(x, cache, pos, *, window=0, blk):
+        def forced(x, cache, pos, *, window=0, ctx=None, blk):
             j = next(calls) % len(ins)    # decode_step walks blocks() order
             x = ins[j][:, pos:pos + 1]
             a, cache = blk.mix_decode(x, cache, pos, window=window)
@@ -3406,9 +3402,9 @@ def moe_recorder():
     rec = {"inputs": [], "routes": []}
     fwd, disp = moe_mod.moe_forward, moe_mod.dispatch_indices
 
-    def moe_forward(x, p, cfg):
+    def moe_forward(x, p, cfg, ctx=None):
         rec["inputs"].append((x, p))
-        return fwd(x, p, cfg)
+        return fwd(x, p, cfg, ctx)
 
     def dispatch_indices(top_i, n_experts, capacity):
         pos, keep = disp(top_i, n_experts, capacity)
@@ -4421,6 +4417,434 @@ def phase_lm_train(dev, card: str):
     print(f"[lm_train] phase wall {wall:.1f}s (budget "
           f"{LM_TRAIN_BUDGET_S:.0f}s)", flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 10: the (data, model) mesh
+# ---------------------------------------------------------------------------
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 420.0
+# (a) Yi-6B at full width and depth, its heads over model (H 16, KV 2 a
+# rank); the logits held to phase 6's bf16 bounds: both sides bf16 with
+# float32 accumulation, the mesh's wo and w_down partial sums rounded to
+# bf16 before their all-reduce (as the reference's), one bf16 rounding a
+# layer more than one rank's, far less than phase 6's bf16 against f32
+MESH_YI_SHAPE = (4, 2048)
+# (b) DeepSeek-V2 at phase 7's depth, 80 of its 160 experts a rank
+MESH_MOE = ("deepseek-v2-236b", 4)
+MESH_MOE_DECODE_STEPS = 4
+# (c) MiniCPM-2B at full width, FSDP over data (2x1), 2 x 256 tokens a
+# rank of one global 4 x 256 batch, the same batch each step; step 1
+# against one rank's step on that batch: the forward is the same bits but
+# for the data split of the mean, the bf16 gradients are summed in another
+# order (two ranks' halves reduce-scattered): rtol 1e-3
+MESH_TRAIN_ARCH = "minicpm-2b"
+MESH_TRAIN_SHAPE = (4, 256)
+MESH_TRAIN_STEPS = 6
+MESH_TRAIN_RTOL = 1e-3
+# (d) the launchers, both at once
+MESH_LAUNCHES = [
+    ["-m", "repro_torch.launch.serve", "--arch", "yi-6b", "--no-reduced",
+     "--devices", "2", "--mesh-shape", "1x2", "--requests", "1", "--batch",
+     "2", "--prompt-len", "16", "--tokens", "4"],
+    ["-m", "repro_torch.launch.train", "--arch", "yi-6b", "--reduced",
+     "--devices", "2", "--mesh-shape", "2x1", "--fsdp", "--steps", "4",
+     "--batch", "4", "--seq", "32", "--lr", "3e-3"]]
+
+
+def mesh_view(mesh: Mesh, dims) -> Mesh:
+    """The two ranks of ``mesh`` laid out as ``dims`` (2x1 or 1x2) over the
+    same world group: an axis of size 1 runs no collective."""
+    shape = dict(zip(("data", "model"), dims))
+    rank = mesh.index(mesh.axis_names)
+    coords = {a: (rank if n > 1 else 0) for a, n in shape.items()}
+    world = mesh.group(mesh.axis_names)
+    return Mesh(shape=shape, coords=coords,
+                groups={("data",): world, ("model",): world,
+                        ("data", "model"): world},
+                device=mesh.device, transport=mesh.transport)
+
+
+def gb(n) -> float:
+    return n / 1e9
+
+
+def held_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def logits_gap(a, b):
+    """(max |d|, mean |d|) of two logit tensors, a row at a time."""
+    mx, tot, n = 0.0, 0.0, 0
+    for i in range(a.shape[0]):
+        d = (a[i].float() - b[i].float()).abs()
+        mx = max(mx, d.max().item())
+        tot += d.sum().item()
+        n += d.numel()
+    return mx, tot / n
+
+
+def timed_sync(fn):
+    """(fn(), host ms with the card synchronised at both ends)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_tp(mesh: Mesh, rank: int):
+    """(a) Yi-6B prefill with its heads over ``model``."""
+    cfg, ctx, dev = get_config("yi-6b"), make_ctx(mesh), mesh.device
+    model = tf.init_params(cfg, seed=0, ctx=ctx)
+    b, s = MESH_YI_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    with torch.inference_mode():
+        tf.prefill(model, {"tokens": toks[:, :128]}, cfg, ctx=ctx)
+        comm.reset_stats()
+        before = ops.flash_attention.launches
+        logits, ms = timed_sync(lambda: tf.prefill(
+            model, {"tokens": toks}, cfg, ctx=ctx))
+    out = {"held_gb": gb(held_bytes(model)),
+           "whole_gb": gb(cfg.param_count() * 2), "ms": ms,
+           "launches": ops.flash_attention.launches - before,
+           "local_heads": model.layers[0].attn.wq.shape[1],
+           "local_kv": model.layers[0].attn.wk.shape[1],
+           "stats": dict(comm.STATS), "shape": list(logits.shape)}
+    comm.barrier(mesh)
+    if rank == 0:
+        whole = tf.init_params(cfg, seed=0, device=dev)
+        with torch.inference_mode():
+            ref, out["one_rank_ms"] = timed_sync(lambda: tf.prefill(
+                whole, {"tokens": toks}, cfg))
+        out["max"], out["mean"] = logits_gap(logits, ref)
+        del whole, ref
+    del model, logits
+    torch.cuda.empty_cache()
+    comm.barrier(mesh)
+    return out
+
+
+def local_counts(x_flat, p, cfg):
+    """``moe_local`` on one block of tokens at the block's own capacity:
+    (its output, its kept and dropped assignment counts)."""
+    cap = moe_mod.capacity(x_flat.shape[0], cfg.top_k, cfg.n_experts,
+                           cfg.capacity_factor)
+    with moe_recorder() as rec:
+        out, _ = moe_mod.moe_local(x_flat, p, cfg, cap)
+    keep = rec["routes"][0][1]
+    return out, [int(keep.sum()), int((~keep).sum())]
+
+
+def ep_parts(x, p, cfg, ctx):
+    """The all-to-all path of one MoE layer, part by part, each part's
+    host ms with the card synchronised (the exchanges are gloo's)."""
+    mesh, axis, ep = ctx.mesh, ctx.model_axis, ctx.model_size
+    e, d = cfg.n_experts, x.shape[-1]
+    el = e // ep
+    xs = x.reshape(-1, d).chunk(ep)[ctx.model_rank].contiguous()
+    cap = moe_mod.capacity(xs.shape[0], cfg.top_k, e, cfg.capacity_factor)
+    ms = {}
+    (top_p, top_i, _), ms["router"] = timed_sync(
+        lambda: moe_mod.router_topk(xs, p.router, cfg.top_k))
+
+    def dispatch():
+        pos, keep = moe_mod.dispatch_indices(top_i, e, cap)
+        return pos, keep, moe_mod.scatter_dispatch(xs, top_i, pos, keep, e,
+                                                   cap)
+    (pos, keep, buf), ms["dispatch"] = timed_sync(dispatch)
+    buf, ms["exchange"] = timed_sync(lambda: comm.all_to_all(buf, mesh, axis))
+    xe = buf.reshape(ep, el, cap, d).transpose(0, 1).reshape(el, ep * cap, d)
+    ye, ms["experts"] = timed_sync(
+        lambda: moe_mod.expert_ffn(xe, p.w_gate, p.w_up, p.w_down))
+    ye = ye.reshape(el, ep, cap, d).transpose(0, 1).reshape(e, cap, d)
+    ye, ms["exchange_back"] = timed_sync(
+        lambda: comm.all_to_all(ye, mesh, axis))
+    out, ms["combine"] = timed_sync(
+        lambda: moe_mod.gather_combine(ye, top_i, top_p, pos, keep))
+    _, ms["gather"] = timed_sync(lambda: comm.all_gather(out, mesh, axis, 0))
+    return ms
+
+
+def mesh_ep(mesh: Mesh, rank: int):
+    """(b) DeepSeek-V2 at phase 7's depth with its experts over ``model``,
+    held on rank 0 against ``moe_local`` with the whole model's weights of
+    the same seed, a block of tokens at a time at the block's capacity."""
+    arch, layers = MESH_MOE
+    cfg, ctx, dev = moe_config(arch, layers), make_ctx(mesh), mesh.device
+    ep = ctx.model_size
+    model = tf.init_params(cfg, seed=0, ctx=ctx)
+    b, s = MOE_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    out = {"held_gb": gb(held_bytes(model)),
+           "whole_gb": gb(cfg.param_count() * 2),
+           "experts": cfg.n_experts // ep}
+    moe_mod.RECORD = []
+    with torch.inference_mode(), moe_recorder() as seen:
+        got = seen["inputs"]
+        comm.reset_stats()
+        _, out["prefill_ms"] = timed_sync(lambda: tf.prefill(
+            model, {"tokens": toks}, cfg, ctx=ctx))
+        out["prefill_stats"] = dict(comm.STATS)
+        rec = [(path, int(k), int(dr)) for path, k, dr in moe_mod.RECORD]
+        out["prefill_paths"] = sorted({r[0] for r in rec})
+        out["prefill_counts"] = [list(r[1:]) for r in rec]
+        pre_x = [x.reshape(-1, x.shape[-1]) for x, _ in got]
+        # the first MoE layer's all-to-all path: its output on every token
+        ep_out = moe_mod._moe_all_to_all(pre_x[0], got[0][1], cfg, ctx,
+                                         ("model",))[0]
+        out["parts_ms"] = ep_parts(got[0][0], got[0][1], cfg, ctx)
+        got.clear()
+        seen["routes"].clear()
+        cache = tf.init_cache(cfg, 1, MESH_MOE_DECODE_STEPS, ctx=ctx)
+        moe_mod.RECORD = []
+        step_ms = []
+        for pos in range(MESH_MOE_DECODE_STEPS):
+            _, ms = timed_sync(lambda: tf.decode_step(
+                model, cache, {"tokens": toks[:1, pos:pos + 1]}, pos, cfg,
+                ctx=ctx))
+            step_ms.append(ms)
+        rec = [(path, int(k), int(dr)) for path, k, dr in moe_mod.RECORD]
+        out["decode_paths"] = sorted({r[0] for r in rec})
+        out["decode_counts"] = [list(r[1:]) for r in rec]
+        out["decode_ms"] = sorted(step_ms)[len(step_ms) // 2]
+        dec_x = [x.reshape(-1, x.shape[-1]) for x, _ in got]
+        # the last decode step's first MoE layer on the replicated path
+        n_moe = len(pre_x)
+        rep_x = dec_x[-n_moe]
+        rep_out = moe_mod._moe_replicated(rep_x, got[-n_moe][1], cfg, ctx,
+                                          ())[0]
+        got.clear()
+    moe_mod.RECORD = None
+    del model, cache
+    torch.cuda.empty_cache()
+    comm.barrier(mesh)
+    if rank == 0:
+        whole = tf.init_params(cfg, seed=0, device=dev)
+        moes = [m for m in whole.modules() if isinstance(m, moe_mod.MoE)]
+        with torch.inference_mode():
+            # each shard's block of each MoE layer's tokens at its capacity
+            out["prefill_emulated"] = [
+                [local_counts(x.chunk(ep)[blk], p, cfg)[1]
+                 for x, p in zip(pre_x, moes)] for blk in range(ep)]
+            # a decode step's tokens are one block: the ranks' counts of
+            # their experts sum to its counts
+            out["decode_emulated"] = [
+                local_counts(x, moes[i % n_moe], cfg)[1]
+                for i, x in enumerate(dec_x)]
+            emul = torch.cat([local_counts(blk, moes[0], cfg)[0]
+                              for blk in pre_x[0].chunk(ep)])
+            d = (ep_out.float() - emul.float()).abs()
+            out["layer_max"], out["layer_mean"] = d.max().item(), \
+                d.mean().item()
+            d = (rep_out.float() -
+                 local_counts(rep_x, moes[0], cfg)[0].float()).abs()
+            out["decode_layer_max"], out["decode_layer_mean"] = \
+                d.max().item(), d.mean().item()
+        del whole, moes, emul, d
+    del pre_x, dec_x, ep_out, rep_out
+    torch.cuda.empty_cache()
+    comm.barrier(mesh)
+    return out
+
+
+def mesh_train_batch(cfg, dev):
+    b, s = MESH_TRAIN_SHAPE
+    return lm_train_batch(cfg, b, s, dev, seed=3)
+
+
+def mesh_train_reference(dev):
+    """One rank's first MiniCPM-2B step on (c)'s global batch: (loss,
+    grad_norm, state bytes)."""
+    cfg = get_config(MESH_TRAIN_ARCH)
+    model = tf.init_params(cfg, seed=0, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=LM_TRAIN_LR)
+    opt = adamw.init_state(dict(model.named_parameters()), opt_cfg)
+    state, _ = state_bytes(model, opt)
+    _, _, m = make_train_step(cfg, opt_cfg)(model, opt,
+                                            mesh_train_batch(cfg, dev))
+    out = (float(m["loss"]), float(m["grad_norm"]), state)
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_fsdp(mesh: Mesh, rank: int):
+    """(c) MiniCPM-2B trained with FSDP over ``data``."""
+    cfg, ctx, dev = get_config(MESH_TRAIN_ARCH), make_ctx(mesh), mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = tf.init_params(cfg, seed=0, ctx=ctx, fsdp=True)
+    opt_cfg = adamw.AdamWConfig(lr=LM_TRAIN_LR)
+    opt = adamw.init_state(dict(model.named_parameters()), opt_cfg)
+    state, grads = state_bytes(model, opt)
+    step = make_train_step(cfg, opt_cfg, ctx=ctx)
+    batch = mesh_train_batch(cfg, dev)
+    losses, norms, ms = [], [], []
+    comm.reset_stats()
+    for _ in range(MESH_TRAIN_STEPS):
+        (_, _, m), t = timed_sync(lambda: step(model, opt, batch))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append(t)
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = {"losses": losses, "norms": norms, "ms": ms,
+           "state_gb": gb(state), "grads_gb": gb(grads),
+           "peak_gb": gb(peak), "rest_gb": gb(peak - state - grads),
+           "stats": dict(comm.STATS)}
+    del model, opt
+    torch.cuda.empty_cache()
+    comm.barrier(mesh)
+    return out
+
+
+def mesh_rank(rank: int, port: int, tmp: str, parts) -> None:
+    """One of phase 10's ranks: the mesh's sub-phases in turn, their
+    results written to ``tmp/rank<r>.json``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_mesh((1, MESH_RANKS), rank, f"127.0.0.1:{port}")
+    out = {"transport": mesh.transport, "device": str(mesh.device)}
+    try:
+        if "a" in parts:
+            out["a"] = mesh_tp(mesh, rank)
+        if "b" in parts:
+            out["b"] = mesh_ep(mesh, rank)
+        if "c" in parts:
+            out["c"] = mesh_fsdp(mesh_view(mesh, (MESH_RANKS, 1)), rank)
+    finally:
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out))
+        close_mesh(mesh)
+
+
+def mesh_run(parts, tag: str):
+    """Phase 10's ranks on the mesh the machine gives: their results."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run_ranks(mesh_rank, MESH_RANKS, (tmp, parts),
+                  timeout_s=MESH_TIMEOUT_S)
+        res = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+               for r in range(MESH_RANKS)]
+    print(f"[10] {tag}: {MESH_RANKS} ranks on {res[0]['device']} and "
+          f"{res[1]['device']} over {res[0]['transport']}, "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return res
+
+
+def stats_text(st) -> str:
+    return (f"collectives {st['calls']} calls {st['bytes'] / 1e9:.3f} GB "
+            f"{st['ms']:.1f} ms (none staged through the host)")
+
+
+def phase_mesh(dev, card: str):
+    """10: the (data, model) mesh, two ranks."""
+    t_phase = time.perf_counter()
+    backend, cards = transport_for("cuda", MESH_RANKS)
+    how = "a card a rank" if backend == "nccl" else \
+        "the ranks share card 0: NCCL refuses two ranks on one GPU"
+    print(f"[10] mesh: {MESH_RANKS} ranks, {cards} card(s) of {card}: "
+          f"transport {backend} ({how})", flush=True)
+    ref_loss, ref_norm, ref_state = mesh_train_reference(dev)
+    res = mesh_run(("a", "b", "c"), "the mesh")
+    ok = True
+    # (a)
+    a = [r["a"] for r in res]
+    for r, x in enumerate(a):
+        print(f"[10] (a) yi-6b prefill {MESH_YI_SHAPE[0]}x{MESH_YI_SHAPE[1]}"
+              f" mesh 1x2 rank {r}: holds {x['held_gb']:.2f} of "
+              f"{x['whole_gb']:.2f} GB, heads {x['local_heads']} kv "
+              f"{x['local_kv']} a rank, flash_attention launches "
+              f"{x['launches']}, {x['ms']:.1f} ms, "
+              f"{stats_text(x['stats'])}", flush=True)
+    print(f"[10] (a) logits {a[0]['shape']} against one rank's prefill of "
+          f"the same weights ({a[0]['one_rank_ms']:.1f} ms): max |d| "
+          f"{a[0]['max']:.4g} mean {a[0]['mean']:.4g} (held: "
+          f"{LM_TOL_MAX} and {LM_TOL_MEAN})", flush=True)
+    ok &= all(x["launches"] == 32 and x["local_heads"] == 16 and
+              x["local_kv"] == 2 for x in a)
+    ok &= a[0]["max"] <= LM_TOL_MAX and a[0]["mean"] <= LM_TOL_MEAN
+    # (b)
+    bb = [r["b"] for r in res]
+    emu = bb[0]
+    dec_sum = [[x + y for x, y in zip(c0, c1)]
+               for c0, c1 in zip(bb[0]["decode_counts"],
+                                 bb[1]["decode_counts"])]
+    same_d = dec_sum == emu["decode_emulated"]
+    for r, x in enumerate(bb):
+        same_p = x["prefill_counts"] == emu["prefill_emulated"][r]
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in x["parts_ms"].items())
+        print(f"[10] (b) deepseek-v2 {MESH_MOE[1]} layers mesh 1x2 rank {r}:"
+              f" holds {x['held_gb']:.2f} of {x['whole_gb']:.2f} GB, "
+              f"{x['experts']} experts; prefill {MOE_SHAPE[0]}x{MOE_SHAPE[1]}"
+              f" paths {x['prefill_paths']} {x['prefill_ms']:.1f} ms, "
+              f"{stats_text(x['prefill_stats'])}; kept/dropped a layer "
+              f"{x['prefill_counts']} equal moe_local's on block {r} "
+              f"{same_p}; decode batch 1 paths {x['decode_paths']} "
+              f"{x['decode_ms']:.1f} ms a step, its experts' kept/dropped "
+              f"{x['decode_counts']}", flush=True)
+        print(f"[10] (b) rank {r} one MoE layer's all-to-all path by part "
+              f"(ms): {parts}", flush=True)
+        ok &= same_p and x["prefill_paths"] == ["all_to_all"] \
+            and x["decode_paths"] == ["replicated"]
+    print(f"[10] (b) decode: the ranks' kept/dropped summed {dec_sum} equal "
+          f"moe_local's on the step's tokens {same_d}", flush=True)
+    print(f"[10] (b) against moe_local with the whole model's weights on "
+          f"rank 0, a block at a time: the all-to-all layer max |d| "
+          f"{emu['layer_max']:.4g} mean {emu['layer_mean']:.4g}, the "
+          f"replicated layer max |d| {emu['decode_layer_max']:.4g} mean "
+          f"{emu['decode_layer_mean']:.4g} (held: "
+          f"{MOE_TOL['layer_max']:g}, {MOE_TOL['layer_mean']:g})",
+          flush=True)
+    ok &= same_d and all(
+        emu[k + "_max"] <= MOE_TOL["layer_max"] and
+        emu[k + "_mean"] <= MOE_TOL["layer_mean"]
+        for k in ("layer", "decode_layer"))
+    # (c)
+    cc = [r["c"] for r in res]
+    for r, x in enumerate(cc):
+        med = sorted(x["ms"][1:])[len(x["ms"][1:]) // 2]
+        print(f"[10] (c) {MESH_TRAIN_ARCH} fsdp mesh 2x1 rank {r}: state "
+              f"{x['state_gb']:.2f} GB (one rank {gb(ref_state):.2f}), "
+              f"gradients {x['grads_gb']:.2f} GB, the rest "
+              f"{x['rest_gb']:.2f} GB, peak {x['peak_gb']:.2f} GB; step "
+              f"ms {[round(t, 1) for t in x['ms']]} (median after the "
+              f"first {med:.1f}), {stats_text(x['stats'])} over "
+              f"{MESH_TRAIN_STEPS} steps", flush=True)
+    c0 = cc[0]
+    l_ok = abs(c0["losses"][0] - ref_loss) <= MESH_TRAIN_RTOL * abs(ref_loss)
+    n_ok = abs(c0["norms"][0] - ref_norm) <= MESH_TRAIN_RTOL * abs(ref_norm)
+    falls = c0["losses"][-1] < c0["losses"][0]
+    half = all(abs(x["state_gb"] - gb(ref_state) / 2) <=
+               0.01 * gb(ref_state) for x in cc)
+    print(f"[10] (c) losses {[round(v, 4) for v in c0['losses']]}, grad "
+          f"norms {[round(v, 4) for v in c0['norms']]}; step 1 against one "
+          f"rank's step on the global {MESH_TRAIN_SHAPE[0]}x"
+          f"{MESH_TRAIN_SHAPE[1]} batch: loss {c0['losses'][0]:.6f} vs "
+          f"{ref_loss:.6f} {l_ok}, grad norm {c0['norms'][0]:.6f} vs "
+          f"{ref_norm:.6f} {n_ok} (rtol {MESH_TRAIN_RTOL}); the loss falls "
+          f"{falls}; a rank's state half the one-rank state {half}",
+          flush=True)
+    ok &= l_ok and n_ok and falls and half
+    if cards < MESH_RANKS:
+        print(f"[10] NCCL, a card a rank: not run ({cards} card)", flush=True)
+    # (d)
+    texts = run_children([[sys.executable, *c] for c in MESH_LAUNCHES],
+                         timeout_s=MESH_TIMEOUT_S)
+    serve_ok = "serving loop OK" in texts[0] and \
+        "mesh=data:1xmodel:2 transport=" in texts[0]
+    train_ok = "done: loss" in texts[1] and \
+        "mesh=data:2xmodel:1 transport=" in texts[1]
+    for text, what in zip(texts, ("serve yi-6b full 1x2",
+                                  "train yi-6b reduced 2x1 --fsdp")):
+        last = [ln for ln in text.splitlines()
+                if "mesh=" in ln or "serving loop" in ln or "done:" in ln
+                or "request" in ln or "peak" in ln]
+        print(f"[10] (d) {what}: " + " | ".join(last), flush=True)
+    ok &= serve_ok and train_ok
+    if not ok:
+        raise AssertionError("mesh phase failed")
+    print(f"[10] mesh phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4477,6 +4901,9 @@ def main():
     torch.cuda.empty_cache()
     phase_lm_train(dev, card)
     lap("lm_train")
+    torch.cuda.empty_cache()
+    phase_mesh(dev, card)
+    lap("mesh")
     # the step kernels' launches on this slice's path, guided and gated
     # serving (phase 4's are printed in its own lines)
     counts = {"traj_masked_step": g["cuda_masked"]["traj_masked_step"],

@@ -38,9 +38,11 @@ Pod mode: ``--devices N --mesh-shape Nx1`` starts N host processes (the
 ``spawn`` start method, which CUDA needs) joined by a gloo group, each a pod
 host with ``slots / N`` lanes on the device (all on the one card, or the
 CPU) over one shared queue.  Host 0 prints ``mesh=data:Nxmodel:1``, each
-host's ms a tick, images/s, kernel launches and peak memory, and the pod's
-images/s, and writes the merged ``--json`` and ``--out``.  A model axis
-above 1 raises::
+host's ms a tick, images/s, kernel launches and peak memory, whether its
+measured serve is bitwise its warm-up serve of the same requests
+(``repeat_bitwise``), and the pod's images/s, and writes the merged
+``--json`` and ``--out``.  A model axis
+above 1 raises (ROADMAP.md Queue 1 item 4.7).  Two hosts::
 
     python -m repro_torch.launch.serve_diffusion --devices 2 \
         --mesh-shape 2x1 --device cpu --config launcher --T 10 \
@@ -162,7 +164,8 @@ def _parse_args(argv=None):
                          "shared queue; 0 = one process, no pod")
     ap.add_argument("--mesh-shape", default="",
                     help="DxM, e.g. 2x1: D pod hosts on the data axis; a "
-                         "model axis M > 1 is not ported yet")
+                         "model axis M > 1 raises (ROADMAP.md Queue 1 "
+                         "item 4.7)")
     ap.add_argument("--out", default="",
                     help="write every completion's x_mid and x0 (the pod's "
                          "owned rows joined on host 0) and its admit and "
@@ -186,6 +189,10 @@ def main(argv=None):
         return
     from repro_torch.launch.mesh import host_mesh
     mesh = host_mesh(args.mesh_shape, args.devices or None)
+    if mesh[1] > 1:
+        raise ValueError(f"mesh {mesh[0]}x{mesh[1]}: the U-Net's model axis "
+                         "(its HWIO convolutions sharded on output "
+                         "channels) is ROADMAP.md Queue 1 item 4.7")
     if mesh[0] == 1:
         _serve(args, mesh=mesh)
         return
@@ -230,6 +237,23 @@ def _owned(res) -> dict:
                     comp.request.batch, own, comp.x_mid[own],
                     None if comp.x0 is None else comp.x0[own])
     return out
+
+
+def _same_owned(a: dict, b: dict) -> bool:
+    """Whether two serves' :func:`_owned` rows and ticks are the same
+    bits."""
+    import numpy as np
+    if sorted(a) != sorted(b):
+        return False
+    for rid in a:
+        *head_a, xm_a, x0_a = a[rid]
+        *head_b, xm_b, x0_b = b[rid]
+        if head_a != head_b or not np.array_equal(xm_a, xm_b):
+            return False
+        if (x0_a is None) != (x0_b is None) or \
+                (x0_a is not None and not np.array_equal(x0_a, x0_b)):
+            return False
+    return True
 
 
 def _merge_rows(parts, path: str) -> None:
@@ -372,7 +396,7 @@ def _serve(args, pod=None, mesh=None):
         eng.register_sampler("dyn", dyn_sampler)
     # warm-up: builds the kernels, captures the window graphs, fills the
     # gate's score cache
-    eng.serve(list(requests), clients)
+    warm = eng.serve(list(requests), clients)
     captures = eng.captures
     if dyn_sampler is not None:
         # registered again at the serve boundary: written in place into
@@ -457,6 +481,9 @@ def _serve(args, pod=None, mesh=None):
                   "images_per_s": s["images_per_s"],
                   "finish_lanes": s.get("finish_lanes", 0),
                   "halo_lanes": eng.halo_lanes,
+                  # the measured serve repeats the warm-up's requests: a
+                  # host's rows and ticks must be the same bits
+                  "repeat_bitwise": _same_owned(_owned(warm), _owned(res)),
                   "launches": {n: launches[n] for n in ("traj_masked_step",
                                                         "lane_noise")},
                   "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
@@ -475,7 +502,8 @@ def _serve(args, pod=None, mesh=None):
             print(f"host {r['host']}/{mesh[0]}: {r['ms_per_tick']:.2f} ms a "
                   f"tick over {r['ticks']} ticks, {r['images_per_s']:.2f} "
                   f"images/s, {r['finish_lanes']} finish lanes, "
-                  f"{r['halo_lanes']} halo lane-windows, launches "
+                  f"{r['halo_lanes']} halo lane-windows, rows bitwise the "
+                  f"warm-up's {r['repeat_bitwise']}, launches "
                   f"{r['launches']}, peak "
                   + ("n/a" if r["peak_gb"] is None else
                      f"{r['peak_gb']:.2f} GB allocated / "

@@ -30,7 +30,7 @@ from torch import nn
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import trunc_normal_
+from repro_torch.models.layers import full_shape, trunc_normal_
 
 KERNELS = ("flash", "torch")
 
@@ -66,11 +66,11 @@ class Mamba2(nn.Module):
         """Fan-in truncated normals for the matrices (fan-in d, the conv's
         width W, d_inner for w_out); zeros for dt_bias, A_log and conv_b;
         ones for D and norm_scale, as ``ssm_init``."""
-        d = self.w_z.shape[0]
+        d = full_shape(self.w_z)[0]
         for w in (self.w_z, self.w_x, self.w_B, self.w_C, self.w_dt):
             trunc_normal_(w, d, generator)
-        trunc_normal_(self.conv_w, self.conv_w.shape[0], generator)
-        trunc_normal_(self.w_out, self.w_out.shape[0], generator)
+        trunc_normal_(self.conv_w, full_shape(self.conv_w)[0], generator)
+        trunc_normal_(self.w_out, full_shape(self.w_out)[0], generator)
         for z in (self.dt_bias, self.A_log, self.conv_b):
             z.zero_()
         self.D.fill_(1.0)

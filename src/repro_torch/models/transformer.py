@@ -38,13 +38,26 @@ maps a reference tree onto them.  The functions run the MoE layers with
 the capacity factor of the config they are given, as the reference's do
 (:data:`RUN_FIELDS`).  :func:`lm_loss` also takes "labels" (B, S) int64
 and trains through plain PyTorch (``kernel="torch"``).
+
+Every entry point takes an optional ``ctx`` (a ``ShardCtx`` with a mesh);
+without it each runs today's code.  On a mesh the batch passed in is the
+global batch: a rank keeps its rows (``batch_specs``: over the data axes
+where they divide the batch) and returns its rows' logits, gathered over
+the vocabulary.  The model is the rank's shards (:func:`init_params` with
+``ctx``, or :func:`load_full_` of a whole state dict); with FSDP a block's
+shards are gathered before it runs and, under autograd, the block runs
+under ``torch.utils.checkpoint``, so its gathered weights are dropped after
+the forward and gathered again for the backward, whose gradients are
+reduce-scattered (:func:`~repro_torch.models.layers.fsdp_gather`).  The
+``hybrid`` and ``ssm`` families run on data-only meshes; a model axis above
+1 raises (their tensor parallelism is ROADMAP.md Queue 1 item 4.6).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -57,8 +70,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (MLP, Embed, RMSNorm,
-                                      softmax_cross_entropy)
+from repro_torch.models.layers import (MLP, Embed, RMSNorm, ShardCtx,
+                                      fsdp_gather, gather_from, reduce_from,
+                                      softmax_cross_entropy, split_to, tp,
+                                      vocab_parallel_cross_entropy)
+from repro_torch.parallel import sharding as shd
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # config fields a call may change without changing the weights
@@ -102,44 +118,67 @@ class DenseLayer(nn.Module):
             self.norm_c = self.cross = None
 
     def forward(self, x, *, positions=None, cond=None, window: int = 0,
-                kernel: str = "flash"):
+                kernel: str = "flash", ctx: Optional[ShardCtx] = None):
         x = x + attn.attention_forward(self.norm1(x), self.attn, self.cfg,
                                        positions=positions, window=window,
-                                       kernel=kernel)
+                                       kernel=kernel, ctx=ctx)
         if self.cross is not None:
             if cond is None:
                 raise ValueError(f"{self.cfg.arch_id}: a cross-attention "
                                  "layer needs cond_embeds")
             x = x + attn.cross_attention(self.norm_c(x), cond, self.cross,
-                                         self.cfg)
-        return x + self.mlp(self.norm2(x))
+                                         self.cfg, ctx)
+        return x + self.mlp(self.norm2(x), ctx)
 
-    def decode(self, x, cache, pos: int, *, window: int = 0):
+    def decode(self, x, cache, pos: int, *, window: int = 0,
+               ctx: Optional[ShardCtx] = None):
         """The layer's cache: its KV entries, and with cross-attention
         "cross_kv" {"k", "v"} (B, C, H, hd)."""
         a, cache = attn.attention_decode(self.norm1(x), self.attn, cache,
-                                         pos, self.cfg, window=window)
+                                         pos, self.cfg, window=window,
+                                         ctx=ctx)
         x = x + a
         if self.cross is not None:
             x = x + cross_decode(self.norm_c(x), self.cross,
-                                 cache["cross_kv"], self.cfg)
-        return x + self.mlp(self.norm2(x)), cache
+                                 cache["cross_kv"], self.cfg, ctx)
+        return x + self.mlp(self.norm2(x), ctx), cache
 
 
-def cross_decode(x, p: attn.CrossAttention, cross_kv, cfg: ModelConfig):
+def cross_decode(x, p: attn.CrossAttention, cross_kv, cfg: ModelConfig,
+                 ctx: Optional[ShardCtx] = None):
     """The reference's ``_cross_decode``: cross-attention of x (B, 1, d)
     to the precomputed keys and values ``cross_kv`` {"k", "v"} (B, C, H,
     hd).  Scores in float32 *divided* by sqrt(hd), as the reference writes
     it (:func:`~repro_torch.models.attention.cross_attention` multiplies by
-    1/sqrt(hd)); p rounded to x's dtype before the product with v."""
+    1/sqrt(hd)); p rounded to x's dtype before the product with v.  On a
+    mesh this rank's heads attend over their ``cross_kv`` heads, or, with
+    ``cross_kv`` sharded over its C conditioning tokens
+    (``cache_seq_shard``), every head over this rank's stripe, combined
+    (:func:`~repro_torch.models.attention.stripe_attend`) and cut back to
+    this rank's heads; with the heads sharded, wo's partial sums are
+    all-reduced."""
     f32 = torch.float32
+    sharded = tp(ctx) and p.wq.shape[1] != cfg.n_heads
     q = p.project(x, p.wq)
-    s = torch.einsum("bshk,bchk->bhsc", q.to(f32),
-                     cross_kv["k"].to(f32)) / math.sqrt(cfg.head_dim)
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhsc,bchk->bshk", pr.to(x.dtype).to(f32),
-                     cross_kv["v"].to(f32)).to(x.dtype)
-    return p.out(o)
+    ck, cv = cross_kv["k"], cross_kv["v"]
+    if ck.shape[1] != attn.full_shape(ck)[1]:
+        mesh, axis = ctx.mesh, ctx.model_axis
+        qa = gather_from(q, mesh, axis, 2) if sharded else q
+        s = torch.einsum("bshk,bchk->bhsc", qa.to(f32),
+                         ck.to(f32)) / math.sqrt(cfg.head_dim)
+        o = attn.stripe_attend(s, None, lambda pr: torch.einsum(
+            "bhsc,bchk->bhsk", pr.to(x.dtype).to(f32), cv.to(f32)), ctx)
+        o = o.permute(0, 2, 1, 3).to(x.dtype)
+        if sharded:
+            o = split_to(o, mesh, axis, 2)
+    else:
+        s = torch.einsum("bshk,bchk->bhsc", q.to(f32),
+                         ck.to(f32)) / math.sqrt(cfg.head_dim)
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhsc,bchk->bshk", pr.to(x.dtype).to(f32),
+                         cv.to(f32)).to(x.dtype)
+    out = p.out(o)
+    return reduce_from(out, ctx.mesh, ctx.model_axis) if sharded else out
 
 
 class MoELayer(nn.Module):
@@ -155,38 +194,42 @@ class MoELayer(nn.Module):
         self.moe = moe_mod.MoE(cfg, dtype, device)
 
     def forward_aux(self, x, *, positions=None, cond=None, window: int = 0,
-                    kernel: str = "flash"):
+                    kernel: str = "flash", ctx: Optional[ShardCtx] = None):
         """(the layer's output, its MoE's aux loss)."""
         x = x + attn.attention_forward(self.norm1(x), self.attn, self.cfg,
                                        positions=positions, window=window,
-                                       kernel=kernel)
-        m, aux = moe_mod.moe_forward(self.norm2(x), self.moe, self.cfg)
+                                       kernel=kernel, ctx=ctx)
+        m, aux = moe_mod.moe_forward(self.norm2(x), self.moe, self.cfg, ctx)
         return x + m, aux
 
     def forward(self, x, *, positions=None, cond=None, window: int = 0,
-                kernel: str = "flash"):
+                kernel: str = "flash", ctx: Optional[ShardCtx] = None):
         return self.forward_aux(x, positions=positions, window=window,
-                                kernel=kernel)[0]
+                                kernel=kernel, ctx=ctx)[0]
 
-    def decode(self, x, cache, pos: int, *, window: int = 0):
+    def decode(self, x, cache, pos: int, *, window: int = 0,
+               ctx: Optional[ShardCtx] = None):
         a, cache = attn.attention_decode(self.norm1(x), self.attn, cache,
-                                         pos, self.cfg, window=window)
+                                         pos, self.cfg, window=window,
+                                         ctx=ctx)
         x = x + a
-        m, _ = moe_mod.moe_forward(self.norm2(x), self.moe, self.cfg)
+        m, _ = moe_mod.moe_forward(self.norm2(x), self.moe, self.cfg, ctx)
         return x + m, cache
 
 
 class _MixBlock(nn.Module):
     """x + mix(RMSNorm(x)): the hybrid's and the xLSTM's blocks.  A
     subclass gives ``mix`` and ``mix_decode``, the block's own output
-    before the residual add."""
+    before the residual add.  They run on data-only meshes, where ``ctx``
+    changes nothing in a block."""
 
     def forward(self, x, *, positions=None, cond=None, window: int = 0,
-                kernel: str = "flash"):
+                kernel: str = "flash", ctx: Optional[ShardCtx] = None):
         return x + self.mix(x, positions=positions, window=window,
                             kernel=kernel)
 
-    def decode(self, x, cache, pos: int, *, window: int = 0):
+    def decode(self, x, cache, pos: int, *, window: int = 0,
+               ctx: Optional[ShardCtx] = None):
         o, cache = self.mix_decode(x, cache, pos, window=window)
         return x + o, cache
 
@@ -285,13 +328,14 @@ def xlstm_layout(cfg: ModelConfig):
     return g, k, cfg.n_layers - g * k
 
 
-def vlm_assemble(tokens, vision_embeds, embed: Embed, cfg: ModelConfig):
+def vlm_assemble(tokens, vision_embeds, embed: Embed, cfg: ModelConfig,
+                 ctx: Optional[ShardCtx] = None):
     """The reference's ``_vlm_assemble``: the vision embeddings (B, P, d),
     cast to the token embeddings' dtype, spliced before the text's, and
     the M-RoPE positions (3, B, S) int32: vision patch i at (0, i // grid,
     i % grid) with grid = int(sqrt(P)), text from ``grid`` on (not P) on
     all three streams."""
-    tok = embed.embed(tokens)
+    tok = embed.embed(tokens, ctx)
     p_vis = cfg.n_vision_tokens
     if vision_embeds is None or vision_embeds.shape[1] != p_vis:
         raise ValueError(f"{cfg.arch_id}: a vlm forward needs vision_embeds "
@@ -370,35 +414,42 @@ class Transformer(nn.Module):
 
     def forward_aux(self, tokens, *, vision_embeds=None, cond_embeds=None,
                     window: int = 0, kernel: str = "flash",
-                    remat: bool = False):
+                    remat: bool = False, ctx: Optional[ShardCtx] = None,
+                    gather: bool = True):
         """tokens (B, S) -> (logits (B, S', V), the MoE layers' summed aux
         loss, a float32 scalar: zero without MoE layers).  A vlm splices
         ``vision_embeds`` (B, P, d) before the text (S' = P + S) and runs
         at its M-RoPE positions; an audio model attends to ``cond_embeds``
-        (B, C, d), cast to the activations' dtype.  ``remat`` runs each
+        (B, C, d), cast to the activations' dtype.  On a mesh (``ctx``) the
+        tokens are this rank's rows and the logits come back gathered over
+        the vocabulary, or, without ``gather``, this rank's vocabulary
+        block when the head is sharded.  ``remat`` runs each
         block under ``torch.utils.checkpoint`` (non-reentrant): its
         activations are recomputed in the backward instead of kept (the
         reference's ``jax.checkpoint``); the values are the same."""
-        if self.cfg.family == "vlm":
-            x, positions = vlm_assemble(tokens, vision_embeds, self.embed,
-                                        self.cfg)
-        else:
-            x, positions = self.embed.embed(tokens), None
-        cond = None if cond_embeds is None else cond_embeds.to(x.dtype)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        kw = dict(positions=positions, cond=cond, window=window,
-                  kernel=kernel)
-        for block in self.blocks():
-            moe = isinstance(block, MoELayer)
-            fn = block.forward_aux if moe else block
-            out = checkpoint(fn, x, use_reentrant=False, **kw) if remat \
-                else fn(x, **kw)
-            if moe:
-                x, a = out
-                aux = aux + a
+        if ctx is not None and ctx.mesh is not None:
+            check_mesh(self.cfg, ctx)
+        with _swapped(self, _gather_top(self, ctx)):
+            if self.cfg.family == "vlm":
+                x, positions = vlm_assemble(tokens, vision_embeds,
+                                            self.embed, self.cfg, ctx)
             else:
-                x = out
-        return self.embed.unembed(self.final_norm(x)), aux
+                x, positions = self.embed.embed(tokens, ctx), None
+            cond = None if cond_embeds is None else cond_embeds.to(x.dtype)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            kw = dict(positions=positions, cond=cond, window=window,
+                      kernel=kernel, ctx=ctx)
+            for block in self.blocks():
+                moe = isinstance(block, MoELayer)
+                out = block_call(block, "forward_aux" if moe else "forward",
+                                 x, remat, **kw)
+                if moe:
+                    x, a = out
+                    aux = aux + a
+                else:
+                    x = out
+            return self.embed.unembed(self.final_norm(x), ctx,
+                                      gather=gather), aux
 
     def forward(self, tokens, *, vision_embeds=None, cond_embeds=None,
                 window: int = 0, kernel: str = "flash"):
@@ -408,30 +459,176 @@ class Transformer(nn.Module):
                                 kernel=kernel)[0]
 
 
+def check_mesh(cfg: ModelConfig, ctx: ShardCtx) -> None:
+    """Raise for a family whose tensor parallelism is not ported, on a mesh
+    with a model axis above 1."""
+    if cfg.family in ("hybrid", "ssm") and ctx.model_size > 1:
+        raise ValueError(
+            f"{cfg.arch_id}: the {cfg.family} family runs on data-only "
+            f"meshes; a model axis of {ctx.model_size} (Mamba2 heads and "
+            "ssm_scan a rank, the xLSTM's w_gate_up) is ROADMAP.md Queue 1 "
+            "item 4.6")
+
+
+@contextlib.contextmanager
+def _swapped(module: nn.Module, tensors: Dict[str, torch.Tensor]):
+    """``module``'s parameters named in ``tensors`` (dotted, relative to
+    it) replaced by those tensors for the duration of the block."""
+    saved = []
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        m = module.get_submodule(owner) if owner else module
+        saved.append((m, leaf, m._parameters[leaf]))
+        m._parameters[leaf] = t
+    try:
+        yield
+    finally:
+        for m, leaf, p in reversed(saved):
+            m._parameters[leaf] = p
+
+
+def _fsdp_params(module: nn.Module):
+    """(name, shard) of ``module``'s FSDP-sharded parameters."""
+    return [(n, p) for n, p in module.named_parameters()
+            if hasattr(p, "fsdp_dim")]
+
+
+def _gather_top(model: "Transformer", ctx: Optional[ShardCtx]):
+    """The embedding's, the head's and the final norm's FSDP shards
+    gathered (kept for the whole forward, which uses the embedding at both
+    ends when it is tied); none without FSDP."""
+    out = {}
+    for prefix, m in (("embed.", model.embed),
+                      ("final_norm.", model.final_norm)):
+        for n, p in _fsdp_params(m):
+            out[prefix + n] = fsdp_gather(p, ctx.mesh, "data", p.fsdp_dim)
+    return out
+
+
+def block_call(block: nn.Module, method: str, x, remat: bool, **kw):
+    """``block.<method>(x, **kw)``, under ``torch.utils.checkpoint`` with
+    ``remat``.  A block with FSDP shards (on the mesh of ``kw["ctx"]``)
+    gathers them first and, under autograd, always runs under the
+    checkpoint, so its gathered weights are not kept for the backward but
+    gathered again there: FSDP's memory, not every block's whole weights
+    held until the backward."""
+    fn = getattr(block, method)
+    shards = _fsdp_params(block)
+    if not shards:
+        return checkpoint(fn, x, use_reentrant=False, **kw) if remat \
+            else fn(x, **kw)
+    names = [n for n, _ in shards]
+    dims = [p.fsdp_dim for _, p in shards]
+    ctx = kw["ctx"]
+
+    def run(x, *local):
+        full = {n: fsdp_gather(t, ctx.mesh, "data", d)
+                for n, t, d in zip(names, local, dims)}
+        with _swapped(block, full):
+            return fn(x, **kw)
+    local = [p for _, p in shards]
+    if torch.is_grad_enabled():
+        return checkpoint(run, x, *local, use_reentrant=False)
+    return run(x, *local)
+
+
 # ===========================================================================
 # parameters
 # ===========================================================================
+# the modules init_params resets, in the order model.modules() meets them
+_DRAWN = (attn.GQAttention, attn.MLAttention, attn.CrossAttention, MLP,
+          moe_mod.MoE, ssm_mod.Mamba2, xlstm_mod.MLSTM, xlstm_mod.SLSTM,
+          RMSNorm)
+
+
 @torch.no_grad()
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: DeviceLike = "cuda") -> Transformer:
+                device: DeviceLike = "cuda", ctx: Optional[ShardCtx] = None,
+                fsdp: bool = False) -> Transformer:
     """A :class:`Transformer` on ``device`` with weights drawn from a
     ``torch.Generator`` there, seeded with ``seed``: fan-in truncated
     normals for every matrix, ones for every norm scale (and the Mamba2,
-    mLSTM and sLSTM blocks' constants, as their reference inits)."""
-    dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
+    mLSTM and sLSTM blocks' constants, as their reference inits).
+
+    On a mesh (``ctx``) the model is built on the meta device and each
+    leaf becomes this rank's slice under ``param_specs(fsdp=fsdp)`` on the
+    mesh's device (:func:`shard_model`); each leaf is then drawn whole, in
+    the one-card order, and the slice kept, so the sharded model holds the
+    one-card model's weights of the same seed."""
+    if ctx is not None and ctx.mesh is not None:
+        model = shard_model(Transformer(cfg, device="meta"), ctx, fsdp)
+        dev = ctx.mesh.device
+    else:
+        dev = resolve_device(device)
+        model = Transformer(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model.embed.reset_parameters(gen)
     for module in model.modules():
-        if isinstance(module, (attn.GQAttention, attn.MLAttention,
-                               attn.CrossAttention, MLP, moe_mod.MoE,
-                               ssm_mod.Mamba2, xlstm_mod.MLSTM,
-                               xlstm_mod.SLSTM)):
+        if isinstance(module, _DRAWN):
             module.reset_parameters(gen)
     return model.eval()
 
 
-def params_from_jax(tree) -> Dict[str, torch.Tensor]:
+def shard_model(model: Transformer, ctx: ShardCtx,
+                fsdp: bool = False) -> Transformer:
+    """Replace each of ``model``'s parameters (whole, on any device, meta
+    included) by an uninitialised parameter of this rank's slice on the
+    mesh's device, per ``param_specs(fsdp=fsdp)``.  A sliced parameter
+    carries ``full_shape`` and ``shard_slices``; an FSDP one ``fsdp_dim``
+    (its dim sharded over ``data``).  The specs are kept in
+    ``model.param_specs``."""
+    mesh = ctx.mesh
+    specs = shd.param_specs({n: p.shape for n, p in
+                             model.named_parameters()}, ctx, fsdp=fsdp)
+    for name, p in list(model.named_parameters()):
+        spec = specs[name]
+        owner, _, leaf = name.rpartition(".")
+        new = nn.Parameter(torch.empty(shd.local_shape(p.shape, spec, mesh),
+                                       dtype=p.dtype, device=mesh.device),
+                           requires_grad=p.requires_grad)
+        if tuple(new.shape) != tuple(p.shape):
+            new.full_shape = p.shape
+            new.shard_slices = shd.shard_slices(p.shape, spec, mesh)
+        if "data" in spec:
+            new.fsdp_dim = spec.index("data")
+        setattr(model.get_submodule(owner), leaf, new)
+    model.param_specs = specs
+    return model
+
+
+@torch.no_grad()
+def load_full_(model: Transformer, state: Dict[str, torch.Tensor]) -> None:
+    """Copy a whole (one-card) state dict into ``model``, each leaf cut to
+    the slice the model's parameter holds (the whole leaf when it is not
+    sharded)."""
+    for name, p in model.named_parameters():
+        t = state[name]
+        if hasattr(p, "shard_slices"):
+            t = t[p.shard_slices]
+        p.copy_(t)
+
+
+def gather_full(tensor: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """A whole leaf from the ranks' slices of it under ``spec``: gathered
+    along each sharded dim over that dim's axes.  Every rank of the mesh
+    calls it."""
+    from repro_torch.parallel import comm
+    for dim, entry in enumerate(spec):
+        if entry:
+            tensor = comm.all_gather(tensor, mesh, entry, dim)
+    return tensor
+
+
+def full_state(model: Transformer, ctx: ShardCtx) -> Dict[str, torch.Tensor]:
+    """The whole (one-card) state dict of a sharded model, gathered on
+    every rank (a collective call)."""
+    specs = getattr(model, "param_specs", None)
+    return {n: gather_full(p.detach(), specs[n], ctx.mesh) if specs else
+            p.detach() for n, p in model.named_parameters()}
+
+
+def params_from_jax(tree, like: Optional[Transformer] = None
+                    ) -> Dict[str, torch.Tensor]:
     """The reference's param tree (leaves as numpy arrays) as a
     :class:`Transformer` state dict in float32, each leaf mapped once:
     ``embed``/``final_norm``/``shared_attn`` leaves by name; the dense,
@@ -446,7 +643,18 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     with their ``norm.scale``, its ``rem`` {mlstm, norms} into
     ``rem.<j>.mlstm``, and without sLSTM blocks ``layers``/``norms`` into
     ``layers.<i>.mlstm`` and ``layers.<i>.norm.scale``.  The weights keep
-    their layouts.  Raises on a tree with other top-level entries."""
+    their layouts.  Raises on a tree with other top-level entries.  With
+    ``like`` (a sharded :class:`Transformer`) each leaf is cut to the
+    slice that model's parameter holds."""
+    out = _params_from_jax(tree)
+    if like is None:
+        return out
+    params = dict(like.named_parameters())
+    return {n: t[params[n].shard_slices] if hasattr(params[n], "shard_slices")
+            else t for n, t in out.items()}
+
+
+def _params_from_jax(tree) -> Dict[str, torch.Tensor]:
     dense = {"embed", "final_norm", "layers"}
     moe = {"embed", "final_norm", "dense_layers", "layers"}
     hybrid = {"embed", "final_norm", "shared_attn", "groups", "rem"}
@@ -534,39 +742,64 @@ def run_config(params: Transformer, cfg: ModelConfig):
             m.cfg = own
 
 
+def local_batch(batch, ctx: Optional[ShardCtx]):
+    """(this rank's rows of a global batch, the ctx of the call): each leaf
+    cut over the data axes where ``batch_specs`` shards it, and
+    ``rows_sharded`` set when they do.  Without a mesh: (batch, ctx)."""
+    if ctx is None or ctx.mesh is None:
+        return batch, ctx
+    specs = shd.batch_specs(batch, ctx)
+    out, rows = {}, False
+    for k, v in batch.items():
+        entry = specs[k][0] if specs[k] else None
+        if entry:
+            v = v[shd.shard_slices(v.shape, specs[k], ctx.mesh)]
+            rows = True
+        out[k] = v
+    return out, dataclasses.replace(ctx, rows_sharded=rows)
+
+
 def forward_with_aux(params: Transformer, batch, cfg: ModelConfig, *,
                      window: int = 0, kernel: str = "flash",
-                     remat: bool = False):
+                     remat: bool = False, ctx: Optional[ShardCtx] = None,
+                     gather: bool = True):
     """The reference's ``forward``: batch {"tokens": (B, S)} (with
     "vision_embeds" for a vlm, "cond_embeds" for an audio model) ->
     (logits (B, S', V) in the config's dtype, {"moe_aux": the MoE layers'
     summed aux loss}, zero for the other families).  ``remat``: see
-    :meth:`Transformer.forward_aux`."""
+    :meth:`Transformer.forward_aux`.  On a mesh (``ctx``) the batch is the
+    global one and the logits are this rank's rows (:func:`local_batch`);
+    ``gather`` False leaves them in vocabulary blocks when the head is
+    sharded."""
+    batch, ctx = local_batch(batch, ctx)
     with run_config(params, cfg):
         logits, aux = params.forward_aux(
             batch["tokens"], vision_embeds=batch.get("vision_embeds"),
             cond_embeds=batch.get("cond_embeds"), window=window,
-            kernel=kernel, remat=remat)
+            kernel=kernel, remat=remat, ctx=ctx, gather=gather)
     return logits, {"moe_aux": aux}
 
 
 def forward(params: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
-            kernel: str = "flash") -> torch.Tensor:
+            kernel: str = "flash",
+            ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """batch -> logits (B, S', V) in the config's dtype
     (:func:`forward_with_aux` also returns the aux loss)."""
     return forward_with_aux(params, batch, cfg, window=window,
-                            kernel=kernel)[0]
+                            kernel=kernel, ctx=ctx)[0]
 
 
 def prefill(params: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
-            kernel: str = "flash") -> torch.Tensor:
+            kernel: str = "flash",
+            ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Prefill = the full forward's logits, as in the reference: the serving
     loop fills the cache by chaining :func:`decode_step`."""
-    return forward(params, batch, cfg, window=window, kernel=kernel)
+    return forward(params, batch, cfg, window=window, kernel=kernel, ctx=ctx)
 
 
 def lm_loss(params: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
-            kernel: str = "torch", remat: bool = False):
+            kernel: str = "torch", remat: bool = False,
+            ctx: Optional[ShardCtx] = None):
     """The training objective (the reference's ``lm_loss``): batch as
     :func:`forward_with_aux` takes it plus "labels" (B, S) int64 ->
     (loss, {"ce": the mean cross-entropy, "moe_aux": the MoE layers'
@@ -578,18 +811,29 @@ def lm_loss(params: Transformer, batch, cfg: ModelConfig, *, window: int = 0,
     ``kernel`` defaults to ``"torch"``, not ``"flash"`` as the forward's
     does: the kernels have no backward (:mod:`repro_torch.kernels.ops`
     raises under autograd on a card), and the reference's ``lm_loss``
-    likewise trains through its plain ``"jnp"`` path."""
+    likewise trains through its plain ``"jnp"`` path.
+
+    On a mesh the batch is the global one and the loss this rank's rows'
+    (the train step averages it over the data axes); with the head sharded
+    over the vocabulary the cross-entropy is vocab-parallel
+    (:func:`~repro_torch.models.layers.vocab_parallel_cross_entropy`)."""
+    labels = local_batch(batch, ctx)[0]["labels"]
     logits, aux = forward_with_aux(params, batch, cfg, window=window,
-                                   kernel=kernel, remat=remat)
+                                   kernel=kernel, remat=remat, ctx=ctx,
+                                   gather=False)
     if cfg.family == "vlm":
         logits = logits[:, cfg.n_vision_tokens:]
-    ce = softmax_cross_entropy(logits, batch["labels"])
+    if tp(ctx) and params.embed.head_block()[1]:
+        ce = vocab_parallel_cross_entropy(logits, labels, ctx)
+    else:
+        ce = softmax_cross_entropy(logits, labels)
     return ce + cfg.router_aux_coef * aux["moe_aux"], {
         "ce": ce, "moe_aux": aux["moe_aux"]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
-               window: int = 0, device: DeviceLike = "cuda"):
+               window: int = 0, device: DeviceLike = "cuda",
+               ctx: Optional[ShardCtx] = None):
     """Zeroed cache in the config's dtype (the recurrent states in
     float32); T = min(cache_len, window) KV slots with a window (a ring
     buffer), else cache_len.
@@ -604,10 +848,45 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     [...]} without sLSTM blocks.
     hybrid: {"groups": [{"attn_kv": {"k", "v"}, "ssm": [{"state", "conv"},
     ...]}, ...], "rem": {"attn_kv", "ssm"} or None}: one KV cache for each
-    application of the shared block and one Mamba2 cache a layer."""
+    application of the shared block and one Mamba2 cache a layer.
+
+    On a mesh (``ctx``) ``batch`` is the global batch and each leaf is this
+    rank's slice under ``cache_specs`` on the mesh's device, filled with
+    the leaf's constant start (zeros, the sLSTM's stabiliser ``M_INIT``); a
+    sliced leaf carries ``full_shape``."""
     _check_supported(cfg)
+    if ctx is not None and ctx.mesh is not None:
+        check_mesh(cfg, ctx)
+        tree = _cache_tree(cfg, batch, cache_len, window,
+                           torch.device("meta"))
+        starts = _cache_tree(cfg, 1, 1, 0, torch.device("cpu"))
+        mesh = ctx.mesh
+
+        def local(spec, t, start):
+            out = torch.full(shd.local_shape(t.shape, spec, mesh),
+                             start.reshape(-1)[0].item(), dtype=t.dtype,
+                             device=mesh.device)
+            if tuple(out.shape) != tuple(t.shape):
+                out.full_shape = t.shape
+            return out
+        return _zip_tree(local, shd.cache_specs(tree, ctx), tree, starts)
+    return _cache_tree(cfg, batch, cache_len, window, resolve_device(device))
+
+
+def _zip_tree(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (nested dicts and
+    lists; None kept)."""
+    first = trees[1]
+    if isinstance(first, dict):
+        return {k: _zip_tree(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, list):
+        return [_zip_tree(fn, *leaves) for leaves in zip(*trees)]
+    return None if first is None else fn(*trees)
+
+
+def _cache_tree(cfg: ModelConfig, batch: int, cache_len: int, window: int,
+                dev: torch.device):
     kv_len = min(cache_len, window) if window else cache_len
-    dev = resolve_device(device)
     dtype = _dtype(cfg)
 
     def kv():
@@ -651,18 +930,25 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
 
 
 def decode_step(params: Transformer, cache, batch, pos: int,
-                cfg: ModelConfig, *, window: int = 0):
+                cfg: ModelConfig, *, window: int = 0,
+                ctx: Optional[ShardCtx] = None):
     """One-token step.  batch {"tokens": (B, 1)}; pos the absolute position
     (a vlm's on all three M-RoPE streams, as in the reference).  Returns
     (logits (B, 1, V), cache), the cache written in place.  The MoE layers
     see the B tokens of the step, so their capacity is ``ceil(B·k·cf /
-    E)``, as in the reference."""
-    with run_config(params, cfg):
-        x = params.embed.embed(batch["tokens"])
+    E)``, as in the reference.  On a mesh the batch is the global one, the
+    cache this rank's (:func:`init_cache` with ``ctx``) and the logits
+    this rank's rows, gathered over the vocabulary."""
+    if ctx is not None and ctx.mesh is not None:
+        check_mesh(params.cfg, ctx)
+    batch, ctx = local_batch(batch, ctx)
+    with run_config(params, cfg), _swapped(params, _gather_top(params, ctx)):
+        x = params.embed.embed(batch["tokens"], ctx)
         for block, c in zip(params.blocks(),
                             _block_caches(cache, params.cfg.family)):
-            x, _ = block.decode(x, c, pos, window=window)
-        return params.embed.unembed(params.final_norm(x)), cache
+            x, _ = block_call(block, "decode", x, False, cache=c, pos=pos,
+                              window=window, ctx=ctx)
+        return params.embed.unembed(params.final_norm(x), ctx), cache
 
 
 def _block_caches(cache, family: str):

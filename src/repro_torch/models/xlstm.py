@@ -28,7 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.layers import dense_f32, rmsnorm, trunc_normal_
+from repro_torch.models.layers import (dense_f32, full_shape, rmsnorm,
+                                      trunc_normal_)
 
 # the sLSTM stabiliser's start, as the reference's
 M_INIT = -1e9
@@ -66,7 +67,7 @@ class MLSTM(nn.Module):
         ``mlstm_init``."""
         for w in (self.w_up, self.w_gate_up, self.w_q, self.w_k, self.w_v,
                   self.w_i, self.w_f, self.w_down):
-            trunc_normal_(w, w.shape[0], generator)
+            trunc_normal_(w, full_shape(w)[0], generator)
         self.f_bias.fill_(3.0)
         self.norm_scale.fill_(1.0)
 
@@ -211,9 +212,9 @@ class SLSTM(nn.Module):
         norm scale, as ``slstm_init``."""
         for name in GATES:
             for w in (getattr(self, f"w_{name}"), getattr(self, f"r_{name}")):
-                trunc_normal_(w, w.shape[0], generator)
-        trunc_normal_(self.w_up, self.w_up.shape[0], generator)
-        trunc_normal_(self.w_down, self.w_down.shape[0], generator)
+                trunc_normal_(w, full_shape(w)[0], generator)
+        trunc_normal_(self.w_up, full_shape(self.w_up)[0], generator)
+        trunc_normal_(self.w_down, full_shape(self.w_down)[0], generator)
         self.b.zero_()
         self.norm_scale.fill_(1.0)
 

@@ -23,6 +23,13 @@ Its temporaries are a few of the largest leaf's size, in float32, where
 :func:`apply_updates` builds float32 lists of the whole model.  Its results
 are bitwise :func:`apply_updates`' for float32 moments (the default
 ``mu_dtype``).
+
+On a mesh each rank holds its shards of the parameters, gradients and
+moments, and the update stays per shard.  Only the clipping norm needs
+the mesh: :func:`global_norm` with a ``ctx`` and the leaves' specs sums the
+squares of each leaf's local shard, all-reduces the sums over the axes the
+leaves are sharded on, and counts a replicated leaf once, so the norm (and
+the clipping) does not depend on the mesh.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from repro_torch.parallel import comm
 
 Params = Dict[str, torch.Tensor]
 
@@ -97,8 +106,33 @@ def _sq_norms(grads: Params, lead: int) -> torch.Tensor:
     return total
 
 
-def global_norm(grads: Params) -> torch.Tensor:
-    return torch.sqrt(_sq_norms(grads, 0))
+def _spec_axes(spec, mesh) -> tuple:
+    """The mesh axes a spec shards over, in the mesh's order."""
+    used = set()
+    for entry in spec:
+        if entry:
+            used.update((entry,) if isinstance(entry, str) else entry)
+    return tuple(a for a in mesh.axis_names if a in used)
+
+
+def global_norm(grads: Params, ctx=None, specs=None) -> torch.Tensor:
+    """The L2 norm of every gradient together.  On a mesh (``ctx``,
+    ``specs`` the leaves' specs) the local shards' squares are summed
+    leaf group by leaf group, each group all-reduced over the axes its
+    leaves are sharded on, replicated leaves counted once."""
+    if ctx is None or ctx.mesh is None or ctx.mesh.world == 1:
+        return torch.sqrt(_sq_norms(grads, 0))
+    mesh = ctx.mesh
+    groups: Dict[tuple, torch.Tensor] = {}
+    for k, g in grads.items():
+        axes = _spec_axes(specs[k], mesh)
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        groups[axes] = sq if axes not in groups else groups[axes] + sq
+    total = None
+    for axes, sq in groups.items():
+        sq = comm.all_reduce(sq, mesh, axes) if axes else sq
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def apply_updates(params: Params, grads: Params, state, cfg: AdamWConfig,
@@ -163,16 +197,18 @@ def _update(params, grads, state, cfg: AdamWConfig, schedule, lead: int):
 
 @torch.no_grad()
 def apply_updates_(params: Params, grads: Params, state, cfg: AdamWConfig,
-                   schedule: Optional[Callable] = None):
+                   schedule: Optional[Callable] = None, ctx=None,
+                   specs=None):
     """:func:`apply_updates` in place: ``params`` (``{name: tensor}``, the
     tensors written with their new values), ``state["mu"]``, ``state["nu"]``
     and ``state["step"]`` are updated leaf by leaf, in the same operations
     and order as :func:`apply_updates`, so the results are its bits.
-    Returns the metrics ``{"grad_norm", "lr"}``."""
+    Returns the metrics ``{"grad_norm", "lr"}``.  On a mesh (``ctx`` and
+    the leaves' ``specs``) the clipping norm is :func:`global_norm`'s."""
     names = list(params)
     mu_dt = state["mu"][names[0]].dtype
     step = state["step"] + 1
-    gnorm = torch.sqrt(_sq_norms(grads, 0))
+    gnorm = global_norm(grads, ctx, specs)
     scale = None
     if cfg.grad_clip:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),

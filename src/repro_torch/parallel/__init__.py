@@ -1,2 +1,2 @@
 """Parallel layouts of the port (counterpart of ``repro/parallel``): the
-serving engine's lane ownership for now."""
+sharding specs (``sharding``) and the mesh's collectives (``comm``)."""

@@ -366,3 +366,48 @@ class TinyCondEps(TinyEps):
         h = torch.nn.functional.silu(
             torch.cat([x.reshape(b, -1), temb], -1) @ self.w1)
         return (h @ self.w2).reshape(x.shape)
+
+
+def ep_emulation(data, model, train=False):
+    """A stand-in for the reference's ``moe_forward`` that computes its
+    expert-parallel semantics on one device, for a (data, model) mesh:
+    with n tokens cut into data·model blocks of at least ``model`` tokens,
+    each block through ``_moe_local`` at its own capacity (the all-to-all
+    path; aux averaged over data shard 0's model blocks, which ``out_specs
+    P()`` returns, or with ``train`` over every block, as a data-parallel
+    step that averages each data rank's loss gives it); otherwise each data block (all tokens when n does not
+    divide) through ``_moe_local`` at its capacity (the replicated path,
+    whose ``keep & mine`` summed over ``model`` is ``keep``; aux data shard
+    0's); the shared experts on every token.  E not dividing ``model`` or
+    one model rank: the reference's own single-device path."""
+    import jax.numpy as jnp
+
+    from repro.models import moe as jmoe
+    orig = jmoe.moe_forward
+
+    def moe_forward(x, p, cfg, ctx):
+        b, s, d = x.shape
+        n, e = b * s, cfg.n_experts
+        if model == 1 or e % model:
+            return orig(x, p, cfg, ctx)
+        xf = x.reshape(n, d)
+        if n % (data * model) == 0 and n // (data * model) >= model:
+            blocks = data * model
+            cap = jmoe._capacity(n // blocks, cfg.top_k, e,
+                                 cfg.capacity_factor)
+            res = [jmoe._moe_local(blk, p, cfg, cap)
+                   for blk in jnp.split(xf, blocks)]
+            first = blocks if train else model
+            aux = sum(r[1] for r in res[:first]) / first
+        else:
+            blocks = data if n % data == 0 else 1
+            cap = jmoe._capacity(n // blocks, cfg.top_k, e,
+                                 cfg.capacity_factor)
+            res = [jmoe._moe_local(blk, p, cfg, cap)
+                   for blk in jnp.split(xf, blocks)]
+            aux = res[0][1]
+        out = jnp.concatenate([r[0] for r in res])
+        if "shared" in p:
+            out = out + jmoe._shared_expert(xf, p["shared"])
+        return out.reshape(b, s, d), aux
+    return moe_forward

@@ -1145,3 +1145,38 @@ def test_lm_train_step_matches_cpu_on_cuda(arch):
     assert abs(n_card - n_cpu) <= 1e-5 * n_cpu
     gap = leaf_gap(mu_card, mu_cpu)
     assert max(gap.values()) <= 1e-4, max(gap, key=gap.get)
+
+
+# ---------------------------------------------------------------------------
+# the mesh: two ranks sharing the card ("gloo+ipc")
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["collectives", "tp", "ep"])
+def test_mesh_on_one_card_matches_one_rank(case, tmp_path):
+    """Two ranks on card 0 (``tests/_torch_cuda_mesh.py``; transport
+    "gloo+ipc"): every collective of ``parallel/comm.py`` on CUDA tensors
+    through CUDA IPC; Yi's reduced member with its heads over
+    ``model`` (flash_attention at the local H, prefill and decode against
+    the whole model in float32); DeepSeek-V2's reduced member with its
+    experts over ``model`` (the all-to-all and replicated paths)."""
+    _require_cuda()
+    if torch.cuda.device_count() > 1:
+        pytest.skip("two ranks share one card only where the machine has "
+                    "one; with more cards the transport is NCCL")
+    from _torch_cuda_mesh import run
+    torch.cuda.empty_cache()
+    res = run(case, (1, 2), str(tmp_path))
+    assert all(r["transport"] == "gloo+ipc" for r in res)
+    if case == "collectives":
+        for r in res:
+            assert all(r["ok"].values()), r["ok"]
+            assert r["stats"]["calls"] == 6
+    elif case == "tp":
+        for r in res:
+            assert r["local_heads"] == 2 and r["launches"] == 2
+            assert r["prefill_err"] < 2e-4 and r["decode_err"] < 2e-4, r
+    else:
+        for r in res:
+            assert r["experts"] == 2
+            assert r["paths"] == ["all_to_all", "replicated"]
+            assert r["prefill_err"] < 2e-4 and r["decode_err"] < 2e-4, r

@@ -18,6 +18,8 @@ from repro_torch.checkpoint import io as ckpt_io  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.synthetic import token_batches  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.steps import make_ctx  # noqa: E402
 from repro_torch.optim import schedule as tschedule  # noqa: E402
 
 set_torch_cpu()
@@ -153,9 +155,25 @@ def test_launcher_remat_is_bitwise_its_plain_run(capsys):
 @pytest.mark.parametrize("flags", [["--devices", "2"],
                                    ["--mesh-shape", "2x1"],
                                    ["--mesh-shape", "1x2"], ["--fsdp"]])
-def test_launcher_refuses_more_than_one_card(flags):
-    with pytest.raises(ValueError, match="Queue 1 item 4.5"):
-        train.main(["--device", "cpu", "--reduced", *flags])
+def test_launcher_refuses_more_than_one_card(flags, capfd):
+    """The flags that one card refused now run: two ranks on the data or
+    the model axis (gloo processes, rank 0 prints), and FSDP on one
+    device."""
+    train.main(["--device", "cpu", "--arch", "yi-6b", "--reduced",
+                "--steps", "2", "--log-every", "1", "--batch", "4", "--seq",
+                "16", "--lr", "3e-3", *flags])
+    out = capfd.readouterr().out
+    assert "done: loss" in out
+    if flags[0] != "--fsdp":
+        d, m = (2, 1) if flags[-1] in ("2", "2x1") else (1, 2)
+        assert f"mesh=data:{d}xmodel:{m} transport=gloo" in out
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m"])
+def test_launcher_refuses_a_model_axis_for_recurrent_families(arch):
+    with pytest.raises(ValueError, match="Queue 1 item 4.6"):
+        train.main(["--device", "cpu", "--arch", arch, "--reduced",
+                    "--mesh-shape", "1x2"])
 
 
 def test_launcher_takes_one_device_spelled_out(capsys):
@@ -185,7 +203,73 @@ def test_launcher_memory_guard(monkeypatch):
     need = yi.param_count() * 12
     with pytest.raises(ValueError, match=f"{need} bytes of training state"):
         train.main(["--device", "cpu", "--arch", "yi-6b"])
+    glm = get_config("glm4-9b")
+    ctx = make_ctx(make_mesh((2, 1), ("data", "model")))
+    assert train.train_state_bytes(glm, ctx, fsdp=True) == \
+        glm.param_count() * 12 // 2                  # FSDP halves it
+    assert train.train_state_bytes(glm, ctx) == glm.param_count() * 12
     monkeypatch.setattr(train, "CPU_STATE_BYTES", 1 << 20)
     small = dataclasses.replace(yi.reduced(), n_layers=8)
-    with pytest.raises(ValueError, match="Queue 1 item 4.5"):
+    with pytest.raises(ValueError, match="shard it over more cards"):
         train.check_state_fits(small, cpu)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--arch", "deepseek-v2-236b", "--devices", "2", "--mesh-shape", "1x2"],
+    ["--arch", "yi-6b", "--devices", "4", "--mesh-shape", "2x2",
+     "--cache-seq-shard"]])
+def test_serve_launcher_on_a_mesh(flags, capfd):
+    """The serving launcher's ranks on the CPU: tensor and expert
+    parallelism over ``model``, the rows over ``data``, the cache's
+    sequence over ``model``."""
+    from repro_torch.launch import serve
+    serve.main(["--device", "cpu", "--requests", "1", "--batch", "2",
+                "--prompt-len", "8", "--tokens", "3", *flags])
+    out = capfd.readouterr().out
+    d, m = flags[flags.index("--mesh-shape") + 1].split("x")
+    assert f"mesh=data:{d}xmodel:{m} transport=gloo" in out
+    assert "serving loop OK" in out
+
+
+def test_serve_weight_guard_counts_a_ranks_shard():
+    """On 1x8 each rank holds its slice of DeepSeek-V2: the sharded leaves
+    (experts, heads, vocabulary, MLP columns) an eighth, the replicated
+    ones (router, norms, MLA's down projections) whole."""
+    from repro_torch.launch import serve
+    cfg = get_config("deepseek-v2-236b")
+    one = serve.check_weights_fit(cfg.reduced(), torch.device("cpu"))
+    ctx = make_ctx(make_mesh((1, 8), ("data", "model")))
+    full = cfg.param_count()
+    local = train.local_params(cfg, ctx)
+    assert full / 8 < local < full / 7
+    assert one == cfg.reduced().param_count() * 4
+
+
+
+def test_launcher_resumes_a_one_card_checkpoint_on_a_mesh(tmp_path, capfd):
+    """A one-device run's checkpoint resumed on a 2x1 mesh with FSDP: each
+    rank cuts its slices from the one-card leaves, trains on, and rank 0
+    writes the gathered state in the one-card format again."""
+    first, second = str(tmp_path / "one.npz"), str(tmp_path / "mesh.npz")
+    _run(capfd, "--steps", "4", "--ckpt", first)
+    train.main(["--device", "cpu", "--arch", "yi-6b", "--reduced",
+                "--batch", "8", "--seq", "32", "--lr", "3e-3", "--steps",
+                "3", "--devices", "2", "--mesh-shape", "2x1", "--fsdp",
+                "--resume", first, "--ckpt", second])
+    out = capfd.readouterr().out
+    assert f"from {first} (step 4)" in out and "done: loss" in out
+    assert ckpt_io.checkpoint_step(second) == 7
+    tree = ckpt_io.restore_checkpoint(second, _like())
+    assert int(tree["opt"]["step"]) == 7
+
+
+def _like():
+    """A one-device model's {params, opt} tree to restore a checkpoint
+    into."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    cfg = get_config("yi-6b").reduced()
+    model = tf.Transformer(cfg, device="cpu")
+    params = dict(model.named_parameters())
+    return {"params": params,
+            "opt": adamw.init_state(params, adamw.AdamWConfig())}

@@ -147,8 +147,13 @@ def _state_np(tree, seed):
 
 
 def _port_state(mu, nu, step):
+    """The port's AdamW state from the numpy moments, copied: the
+    reference's jitted update may still be reading the same numpy buffers
+    (its dispatch is asynchronous) while the port updates these in
+    place."""
     return {"step": torch.tensor(step, dtype=torch.int32),
-            "mu": ttf.params_from_jax(mu), "nu": ttf.params_from_jax(nu)}
+            "mu": {k: v.clone() for k, v in ttf.params_from_jax(mu).items()},
+            "nu": {k: v.clone() for k, v in ttf.params_from_jax(nu).items()}}
 
 
 @pytest.mark.parametrize("arch,wd,sched", [("minicpm-2b", 0.0, None),

@@ -70,12 +70,20 @@ def test_lane_owners_reject_uneven_blocks_as_the_reference(slots, hosts):
 
 
 def test_mesh_shape_parses_and_refuses_a_model_axis():
+    """A model axis parses (the LM launchers run it); serve_diffusion still
+    refuses one: the U-Net's model axis is ROADMAP Queue 1 item 4.7."""
+    from repro_torch.launch import serve_diffusion
     assert host_mesh("2x1", 2) == (2, 1)
     assert host_mesh("", 3) == (3, 1)
-    with pytest.raises(ValueError, match="Queue 1 item 4"):
-        host_mesh("2x2", 4)
+    assert host_mesh("2x2", 4) == (2, 2)
+    assert host_mesh("1x8") == (1, 8)
+    with pytest.raises(ValueError, match="Queue 1 item 4.7"):
+        serve_diffusion.main(["--device", "cpu", "--devices", "4",
+                              "--mesh-shape", "2x2"])
     with pytest.raises(ValueError, match="does not cover"):
         host_mesh("2x1", 4)
+    with pytest.raises(ValueError, match="is not DxM"):
+        host_mesh("2x", 2)
 
 
 # ---------------------------------------------------------------------------

@@ -133,6 +133,7 @@ def test_serve_diffusion_two_devices_merge_the_one_device_run(tmp_path):
                 for t in ("one", "two"))
     assert [h["host"] for h in two["hosts"]] == [0, 1]
     assert sum(h["halo_lanes"] for h in two["hosts"]) > 0
+    assert all(h["repeat_bitwise"] for h in one["hosts"] + two["hosts"])
     assert sum(h["finish_lanes"] for h in two["hosts"]) == \
         one["hosts"][0]["finish_lanes"] == one["images"]
     for key in ("served", "requests", "images", "ticks", "windows",
