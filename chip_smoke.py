@@ -113,8 +113,8 @@ Phases, each printing its own lines:
    round 0 in chunks of 16, 8 and 5 (ragged) on both engines against the
    unchunked round from the same models and draws: losses within phase
    4b's tolerance, parameters within the card-against-CPU bound; (c) 150
-   images a client (pooled 450) in chunks of 32, a warm-up and 2 timed
-   rounds on the looped engine (and the batched one when the phase's
+   images a client (pooled 450) in chunks of 32, a warm-up and a timed
+   round on the looped engine (and the batched one when the phase's
    budget allows): round and step ms, images/s, TFLOP/s against 67, peak
    memory under the card's, finite losses; (d) the trained trainer saved
    and restored into a fresh one, state bitwise, its ``trainer.sample``
@@ -132,7 +132,7 @@ Phases, each printing its own lines:
    (x_mid and x0) bitwise the in-process single host's artifact, retire ticks equal, guided pairs
    across the two blocks, the merged trace one pid a host; (b) the paper
    U-Net with 4 classes (random weights from a seed), T = 100, DDPM, DDIM
-   K = 20 and guided DDPM (w 1.5), 8 slots, k = 4, async_depth 2, 8
+   K = 20 and guided DDPM (w 1.5), 8 slots, k = 4, async_depth 2, 6
    requests, served by ``serve_diffusion --devices 2 --mesh-shape 2x1``
    against ``--devices 1`` in this process: the union's difference from
    the single host (or, where a lane's bits follow the model call's width,
@@ -140,6 +140,16 @@ Phases, each printing its own lines:
    its warm-up serve of the same requests, retire ticks equal, each
    host's ms a tick, images/s, kernel launches, halo lanes and peak
    memory, and the pod's images/s against the single host's;
+4h. model_serve — the U-Net's model axis: the paper U-Net (random
+   weights from a seed), DDIM K = 20, 6 requests at cuts 0.5 and 0.75 on
+   8 slots, k = 4, one client, served by ``serve_diffusion --devices 2 --mesh-shape 1x2`` (a
+   pod host over two model ranks, each convolving half of every
+   convolution's output channels; eager windows, said on its first line)
+   against ``--devices 1`` in this process: completions bitwise across the
+   two model ranks, each rank's measured serve bitwise its warm-up, the
+   rows within the stated tolerance of the single host, retire ticks
+   equal, ``traj_masked_step`` and ``lane_noise`` launched; ms a tick and
+   the collectives a tick;
 5. LM slice — Yi-6B at full width and depth in bf16 (random weights from a
    seed): (a) prefill of 4x2048 tokens through the flash kernel, 32
    launches a call, timed and profiled; (b) the same batch through
@@ -151,9 +161,9 @@ Phases, each printing its own lines:
    seed): (a) prefill of 4x2048 tokens through the kernels, ``ssm_scan``
    81 and ``flash_attention`` 14 launches a call, timed and profiled;
    (b) the same batch through ``kernel="torch"`` (the chunk loop and
-   blockwise attention), logits within the stated tolerance; (c) 64
-   chained cached decode steps against (a)'s logits; (d) the serving
-   launcher at full width;
+   blockwise attention), logits within the stated tolerance, and each
+   block alone over 32 decode steps; (c) 32 chained cached decode steps
+   against (a)'s logits; (d) the serving launcher at full width;
 7. moe — the MoE family at full width, depth cut (bf16, random weights
    from a seed): DeepSeek-V2 (MLA, 160 experts top-6, 2 shared) at 4
    layers and Kimi-K2 (GQA 64/8, 384 experts top-8, 1 shared) at 2, each
@@ -181,7 +191,7 @@ Phases, each printing its own lines:
    (28, 48; never for xLSTM), and for xLSTM the sLSTM loops' share of the
    prefill (CUDA events around each); (b) for the attention families the
    same batch through ``kernel="torch"``, logits within Yi's bounds;
-   (c) 64 chained decode steps at batch 1 against the forward: Qwen2-VL's
+   (c) 32 chained decode steps at batch 1 against the forward: Qwen2-VL's
    text (pos on all three streams) against the same weights' forward as
    family "dense" with the same sections, MusicGen's with each layer's
    ``cross_kv`` filled from the conditioning, xLSTM's against its prefill
@@ -194,7 +204,7 @@ Phases, each printing its own lines:
    ``kernel="torch"``: the kernels have no backward; autograd; the
    in-place ``apply_updates_``), after the earlier phases' memory is
    released (printed): (a) MiniCPM-2B at full width and depth in bf16
-   (random weights from a seed), 20 steps of ``token_batches`` at 4 x 512
+   (random weights from a seed), 10 steps of ``token_batches`` at 4 x 512
    (2 x 512 when a 1-row probe says the peak would pass 75 GB), lr 3e-4:
    the loss falls first to last; step ms (CUDA events), tokens/s, TFLOP/s
    against 989 (3x the forward's matmul FLOP), peak memory split into
@@ -225,11 +235,27 @@ Phases, each printing its own lines:
    shard's kept and dropped assignments (a decode step's summed over the
    ranks) equal, a layer of each path within phase 7's bounds; the
    all-to-all layer's ms by part; (c) MiniCPM-2B at full width with FSDP on
-   2x1, 2 x 256 tokens a rank: the first step's loss and grad norm against
-   one rank's step on the global batch, the loss falling, each rank's
-   state (half the one-rank state), gradients, the rest and peak, the step
-   ms; (d) the serving launcher on Yi-6B at full size on 1x2 and the
-   training launcher on 2x1 with ``--fsdp``.
+   2x1, 2 x 256 tokens a rank, 2 steps: the first step's loss and grad
+   norm against one rank's step on the global batch, the loss falling,
+   each rank's state (half the one-rank state), gradients, the rest and
+   peak, the step ms; (d) the serving launcher on Yi-6B at full size on
+   1x2 and the training launcher on 2x1 with ``--fsdp``; (e) Zamba2-7B at
+   full width and depth on 1x2 (56 Mamba2 heads and 16 attention heads a
+   rank, the conv cache [x_r, B, C]): the 4 x 2048 prefill's launches
+   (``ssm_scan`` 81, ``flash_attention`` 14 a rank), ms and collectives,
+   2 decode steps against it, the logits against one rank's prefill of
+   the same weights, one Mamba2 layer in float32 sharded against whole,
+   and ``ssm_scan`` and ``flash_attention`` at the rank's shapes against
+   their plain versions; (f) xLSTM-125M on 1x2 (2 mLSTM heads a rank, the
+   sLSTM on both), 4 x 256 and 2 decode steps, checked the same way; (g)
+   one train step of Zamba2 and xLSTM at ``reduced()`` on 1x2 against one
+   rank's: the loss and every leaf's gradient; and 4i, the CollaFuse
+   trainer on 2x1 (``CollaFuseTrainer(mesh=)``: the paper U-Net, 4
+   clients of 8 images, 2 rounds, a block of client stacks and of the
+   pooled server batch a rank) against the one-process trainer: round 0's
+   losses and the parameters within the stated bounds, the server's the
+   same bits on both ranks, the round ms and collectives, and
+   ``trainer.sample`` through ``ddpm_step`` against the plain step.
 
 It then prints the kernels' JSON line, and last the device line.  It exits
 non-zero, without the last line, when CUDA is absent or any phase fails.
@@ -238,6 +264,8 @@ Imports nothing of ``jax`` and nothing of the JAX package.
 import contextlib
 import dataclasses
 import functools
+import gc
+import hashlib
 import io
 import itertools
 import json
@@ -250,6 +278,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -291,6 +320,7 @@ from repro_torch.launch.mesh import (close_mesh, init_mesh,  # noqa: E402
 from repro_torch.launch.steps import (make_ctx, make_decode_step,  # noqa: E402
                                       make_prefill_step, make_train_step)
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.unet import UNet, flops_per_image  # noqa: E402
@@ -366,6 +396,9 @@ LM_TOL_MAX, LM_TOL_MEAN = 0.25, 0.03
 # 0.024, and one KV cache shared by the shared block's applications reads
 # a decode mean of 1.3.
 HYBRID_TOL_MEAN = 0.6
+# (b') and (c)'s chained decode steps (64 before the model-axis phases
+# paid for their time)
+HYBRID_DECODE_STEPS = 32
 BLOCK_TOL_MAX, BLOCK_TOL_MEAN = 2.0 ** -4, 2.0 ** -6
 # phase 4b: CollaFuse split training of the paper U-Net (its §4 setup: cosine
 # T = 100, c = 0.8, 3 clients, lr 1e-3, grad clip 1.0), 16 images a client
@@ -2088,12 +2121,13 @@ POD_SLOTS = 8
 POD_SMOKE_REQUESTS = 7
 # the full-width pod: the paper U-Net with 4 classes, T = 100, the menu
 # DDPM, DDIM K = 20 and ddpm_g at w 1.5, 8 slots, k = 4, async_depth 2,
-# 8 requests on one client; these cuts put guided pairs across the blocks
+# 6 requests on one client (8 before the model-axis phases paid for their
+# time: 88 ticks, now 64); these cuts put guided pairs across the blocks
 POD_FULL_ARGS = ["--config", "paper", "--num-classes", "4", "--guidance",
                  "1.5", "--mix", "--sampler", "ddim", "--num-steps", "20",
                  "--T", "100", "--slots", str(POD_SLOTS),
                  "--ticks-per-dispatch", "4", "--async-depth", "2",
-                 "--requests", "8", "--cut-ratios", "0.5", "0.5", "0.75",
+                 "--requests", "6", "--cut-ratios", "0.5", "0.5", "0.75",
                  "--clients", "1", "--seed", "0"]
 # extra flags of every child (the CPU rehearsal adds --device cpu)
 POD_CHILD_ARGS: list = []
@@ -2107,7 +2141,11 @@ POD_CHILD_TIMEOUT_S = 300.0
 POD_FULL_TOL = 1e-2
 
 
-PAPER_BUDGET_S = 150.0
+# 130 s (150 before the model-axis phases paid for their time)
+PAPER_BUDGET_S = 130.0
+# (c)'s timed rounds after the warm-up (2 before the model-axis phases paid
+# for their time)
+PAPER_TIMED_ROUNDS = 1
 # images generated a client by (e)'s evaluate (the unbiased KID needs 2)
 PAPER_N_GEN = 4
 # a block freed within this many allocator events of its allocation is
@@ -2521,6 +2559,84 @@ def phase_pod(dev, card: str):
     print(f"[4g] pod phase {time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
+# 4h: the U-Net's model axis, serve_diffusion --devices 2 --mesh-shape 1x2
+# (one pod host over two model ranks, eager windows) against the single
+# host (in this process, CUDA graphs): the paper U-Net at full width, DDIM
+# K = 20, 6 requests at cuts 0.5 and 0.75 on 8 slots, k = 4, one client.  A model rank convolves
+# half of each convolution's output channels (cuDNN's plan for the other
+# width) and gathers them: a lane's bits follow the call's shapes, as in
+# 4g (b), so it is held to POD_FULL_TOL; the two model ranks compute the
+# same gathered tensors, so their completions are held bitwise.
+MODEL_SERVE_ARGS = ["--config", "paper", "--sampler", "ddim", "--num-steps",
+                    "20", "--eta", "0", "--T", "100", "--slots",
+                    str(POD_SLOTS), "--ticks-per-dispatch", "4",
+                    "--requests", "6", "--cut-ratios", "0.5", "0.75",
+                    "--clients", "1", "--seed", "0"]
+
+
+def phase_model_serve(dev, card: str):
+    """4h: the serving engine over the U-Net's model axis."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        def args(label, mesh):
+            return [str(a) for a in (*MODEL_SERVE_ARGS, *POD_CHILD_ARGS,
+                                     "--devices",
+                                     int(mesh[0]) * int(mesh[2]),
+                                     "--mesh-shape", mesh, "--out",
+                                     tmp / f"{label}.npz", "--json",
+                                     tmp / f"{label}.json")]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            sd_launch.main(args("single", "1x1"))
+        single_wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        text = run_children([[sys.executable, "-m",
+                              "repro_torch.launch.serve_diffusion",
+                              *args("model", "1x2")]])[0]
+        model_wall = time.perf_counter() - t0
+        first = [ln for ln in text.splitlines()
+                 if ln.startswith("serve_diffusion:")][0]
+        single, single_rows = full_pod_result(tmp, "single")
+        two, two_rows = full_pod_result(tmp, "model")
+    keys, ticks, same, gap_mid, gap_x0 = rows_gap(single_rows, two_rows)
+    gap = max(gap_mid, gap_x0)
+    one, host = single["hosts"][0], two["hosts"][0]
+    st = host["collectives"]
+    print(f"[4h] {first[:first.index(' device=')]}", flush=True)
+    print(f"[4h] paper U-Net on data:1xmodel:2 against data:1xmodel:1, "
+          f"{two['requests']} requests ({two['images']} images), "
+          f"{two['ticks']} ticks (single {single['ticks']}): completions "
+          f"the same bits on both model ranks {host['model_bitwise']}, "
+          f"measured serve bitwise its warm-up {host['repeat_bitwise']}; "
+          f"against the single host: max |d| x_mid {gap_mid:.3g} x0 "
+          f"{gap_x0:.3g} (held to {POD_FULL_TOL:g}), bitwise {same}, "
+          f"retire ticks equal {ticks}", flush=True)
+    print(f"[4h] model axis: {host['ms_per_tick']:.2f} ms a tick (eager "
+          f"windows, the measured serve's wall over {host['ticks']} ticks, "
+          f"streamed finisher included) against the single host's "
+          f"{one['ms_per_tick']:.2f} (CUDA graphs); collectives "
+          f"{st['calls']} calls {st['bytes'] / 1e6:.1f} MB {st['ms']:.1f} "
+          f"ms, {st['calls'] / max(host['ticks'], 1):.1f} calls and "
+          f"{st['ms'] / max(host['ticks'], 1):.2f} ms a tick; launches "
+          f"traj_masked_step {host['launches']['traj_masked_step']} "
+          f"lane_noise {host['launches']['lane_noise']}; peak "
+          f"{host['peak_gb'] or 0:.2f} GB a rank; walls {single_wall:.1f}s (in "
+          f"this process) and {model_wall:.1f}s (the launcher)", flush=True)
+    ok = keys and ticks and gap <= POD_FULL_TOL and host["model_bitwise"] \
+        and host["repeat_bitwise"] and st["calls"] > 0 and \
+        "windows=eager" in first and all(
+            host["launches"][k] > 0 for k in ("traj_masked_step",
+                                              "lane_noise"))
+    if not ok:
+        raise AssertionError("model-axis serve failed")
+    print(f"[4h] phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return host["launches"]
+
+
 def phase_paper(dev, card: str):
     t_phase = time.perf_counter()
     ucfg = UNetConfig()
@@ -2594,7 +2710,7 @@ def phase_paper(dev, card: str):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         walls, hist = [], []
-        for r in range(3):
+        for r in range(1 + PAPER_TIMED_ROUNDS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = tr.train_round(batches)
@@ -2608,7 +2724,8 @@ def phase_paper(dev, card: str):
         s_ms = float(np.mean([event_ms(p) for p in steps["server"][1:]]))
         c_ms = float(np.mean([
             sum(event_ms(p) for p in steps["client"][i:i + per_round])
-            for i in range(per_round, 3 * per_round, per_round)]))
+            for i in range(per_round, (1 + PAPER_TIMED_ROUNDS) * per_round,
+                           per_round)]))
         w_ms = float(np.mean(walls[1:]))
         alloc = torch.cuda.max_memory_allocated(dev)
         res = torch.cuda.max_memory_reserved(dev)
@@ -2616,7 +2733,8 @@ def phase_paper(dev, card: str):
         print(f"[paper] (c) {engine}: {PAPER_BATCH} images a client, pooled "
               f"{n_img}, chunks of at most {PAPER_MICRO} images | warm-up "
               f"round "
-              f"{walls[0]:.1f} ms; 2 timed rounds: round {w_ms:.1f} ms "
+              f"{walls[0]:.1f} ms; {PAPER_TIMED_ROUNDS} timed round(s): "
+              f"round {w_ms:.1f} ms "
               f"({n_img / w_ms * 1e3:.1f} images/s), server step "
               f"{s_ms:.1f} ms ({step_flop / s_ms / 1e9:.1f} TFLOP/s, "
               f"{step_flop / s_ms / 1e9 / (f32_peak / 1e12):.1%} of "
@@ -2666,7 +2784,8 @@ def phase_paper(dev, card: str):
           f"original's {torch.equal(x_rt, x_tr)}, finite "
           f"{bool(torch.isfinite(x_rt).all())}, ddpm_step launches "
           f"{n_step}", flush=True)
-    if not same_state or rt.round != 3 or not torch.equal(x_rt, x_tr) or \
+    if not same_state or rt.round != 1 + PAPER_TIMED_ROUNDS or \
+            not torch.equal(x_rt, x_tr) or \
             n_step == 0:
         raise AssertionError("the restored trainer differs, or its sample "
                              "did not run ddpm_step")
@@ -2773,7 +2892,7 @@ def phase_paper(dev, card: str):
 
     # (c) on the batched engine, when the budget allows it
     spent = time.perf_counter() - t_phase
-    need = 3 * looped_ms / 1e3 * 1.5
+    need = (1 + PAPER_TIMED_ROUNDS) * looped_ms / 1e3 * 1.5
     if spent + need <= PAPER_BUDGET_S:
         t_part = time.perf_counter()
         tr, batched_ms = paper_rounds(True)
@@ -3295,8 +3414,8 @@ def phase_hybrid(dev, card: str):
     del logits_t
 
     # (b') each block's own output alone on the kernels' path: flash vs
-    # torch, and decode_step's chain over the first 64 positions
-    n_dec = 64
+    # torch, and decode_step's chain over the first n_dec positions
+    n_dec = HYBRID_DECODE_STEPS
     t0 = time.perf_counter()
     worst = block_gaps(model, cfg, batch["tokens"], n_dec)
     for key, (r_max, r_mean) in worst.items():
@@ -3309,7 +3428,7 @@ def phase_hybrid(dev, card: str):
     print(f"[hybrid] (b') {cfg.n_layers + n_attn} blocks checked in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    # (c) 64 chained cached decode steps over one prompt's first positions
+    # (c) chained cached decode steps over one prompt's first positions
     decode = make_decode_step(cfg)
     cache = tf.init_cache(cfg, 1, n_dec, device=dev)
     outs = []
@@ -3709,7 +3828,8 @@ def phase_moe(dev, card: str):
 # phase 8: the last LM families at full width and depth
 # ---------------------------------------------------------------------------
 FAMILY_SHAPE = (4, 2048)
-FAMILY_DECODE_STEPS = 64
+# 32 (64 before the model-axis phases paid for their time)
+FAMILY_DECODE_STEPS = 32
 # flash_attention at a Qwen2-VL-2B layer's prefill (12 heads, 2 KV, hd 128)
 # and a MusicGen-large layer's (MHA 32/32, hd 64): (B, S, H, KV, hd)
 VLM_ATTN_SHAPE = (4, 2048, 12, 2, 128)
@@ -3925,11 +4045,11 @@ def slstm_timer(pairs: list):
     block runs (appended to ``pairs``)."""
     fwd = xlstm_mod.slstm_forward
 
-    def timed(x, p, cfg):
+    def timed(x, p, cfg, ctx=None):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = fwd(x, p, cfg)
+        out = fwd(x, p, cfg, ctx)
         stop.record()
         pairs.append((start, stop))
         return out
@@ -4051,11 +4171,12 @@ def phase_families(dev, card: str):
 # ---------------------------------------------------------------------------
 # phase 9: LM training
 # ---------------------------------------------------------------------------
-# (a) MiniCPM-2B at full width and depth: 20 steps of token_batches at
-# 4 x 512, lr 3e-4, through kernel="torch" (the kernels have no backward)
+# (a) MiniCPM-2B at full width and depth: 10 steps (20 before the
+# model-axis phases paid for their time) of token_batches at 4 x 512, lr
+# 3e-4, through kernel="torch" (the kernels have no backward)
 LM_TRAIN_ARCH = "minicpm-2b"
 LM_TRAIN_SHAPE = (4, 512)
-LM_TRAIN_STEPS = 20
+LM_TRAIN_STEPS = 10
 LM_TRAIN_LR = 3e-4
 LM_TRAIN_PEAK_GB = 75.0
 # (b) Qwen2-VL-2B: (B, stubbed vision embeddings, text tokens), 8 steps
@@ -4421,7 +4542,7 @@ def phase_lm_train(dev, card: str):
 # phase 10: the (data, model) mesh
 # ---------------------------------------------------------------------------
 MESH_RANKS = 2
-MESH_TIMEOUT_S = 420.0
+MESH_TIMEOUT_S = 900.0
 # (a) Yi-6B at full width and depth, its heads over model (H 16, KV 2 a
 # rank); the logits held to phase 6's bf16 bounds: both sides bf16 with
 # float32 accumulation, the mesh's wo and w_down partial sums rounded to
@@ -4438,7 +4559,8 @@ MESH_MOE_DECODE_STEPS = 4
 # order (two ranks' halves reduce-scattered): rtol 1e-3
 MESH_TRAIN_ARCH = "minicpm-2b"
 MESH_TRAIN_SHAPE = (4, 256)
-MESH_TRAIN_STEPS = 6
+# 2 steps (6 before the model-axis phases paid for their time)
+MESH_TRAIN_STEPS = 2
 MESH_TRAIN_RTOL = 1e-3
 # (d) the launchers, both at once
 MESH_LAUNCHES = [
@@ -4448,6 +4570,41 @@ MESH_LAUNCHES = [
     ["-m", "repro_torch.launch.train", "--arch", "yi-6b", "--reduced",
      "--devices", "2", "--mesh-shape", "2x1", "--fsdp", "--steps", "4",
      "--batch", "4", "--seq", "32", "--lr", "3e-3"]]
+
+
+# (e) Zamba2-7B at full width and depth on 1x2: 56 of its 112 Mamba2 heads
+# and 16 of its shared block's 32 attention heads a rank.  The logits
+# against one rank's prefill of the same weights are held to phase 6's
+# mean (HYBRID_TOL_MEAN), the decode chain against the mesh's prefill too:
+# 81 layers of random weights amplify a rounding (the w_out partial sums,
+# the norm's summed statistic, narrower GEMMs) as they amplify phase 6's.
+# One Mamba2 layer in float32, sharded against whole on the same input,
+# differs only by such roundings: held to 1e-4 of the layer's max |out|
+# (a float32 dot of 7168 terms rounds at ~5e-6 relative).
+MESH_HYBRID_SHAPE = (4, 2048)
+MESH_HYBRID_DECODE = 2
+MESH_LAYER_TOL = 1e-4
+# (f) xLSTM-125M at full width on 1x2 (2 mLSTM heads a rank; the sLSTM's
+# recurrence on both ranks): 4 x 256 (one mLSTM chunk, 256 sLSTM steps),
+# held to phase 8's xLSTM bound (XLSTM_TOL["bf16_mean"]), the max printed
+MESH_XLSTM_SHAPE = (4, 256)
+# (g) one train step of each recurrent family at reduced() (float32, TF32
+# off) on 1x2 against one rank's step on the same batch: the loss to 1e-5
+# relative and each leaf's gradient to 1e-4 of its max, the CPU tests'
+# bounds (tests/test_torch_mesh.py)
+MESH_RECURRENT_ARCHS = ("zamba2-7b", "xlstm-125m")
+MESH_RECURRENT_SHAPE = (4, 32)
+MESH_RECURRENT_TOL = dict(loss=1e-5, grad=1e-4)
+# 4i: the CollaFuse trainer on 2x1 (CollaFuseTrainer(mesh=)): the paper
+# U-Net, 4 clients of 8 synthetic images (2 clients' stacks a rank, 16 of
+# the 32 pooled server rows), 2 rounds; against the one-process trainer
+# from the same models and draws: the losses to phase 4b (b)'s tolerance
+# (TRAIN_LOSS_TOL), the parameters to phase 4b (c)'s bounds scaled by the
+# rounds (AdamW moves an entry by ±lr by its gradient's sign: a gradient
+# near 0 can put an entry 2·lr apart each round); the server parameters
+# the same bits on both ranks.  trainer.sample through ddpm_step against
+# the plain step (phase 4's backend bound, 1e-2).
+MESH_TRAINER = dict(clients=4, images=8, rounds=2)
 
 
 def mesh_view(mesh: Mesh, dims) -> Mesh:
@@ -4697,37 +4854,248 @@ def mesh_fsdp(mesh: Mesh, rank: int):
     return out
 
 
-def mesh_rank(rank: int, port: int, tmp: str, parts) -> None:
+def launches_since(before) -> dict:
+    return {n: c - before[n] for n, c in ops.launch_counts().items()}
+
+
+def f32_layer(module):
+    """A module's parameters in float32, as attributes."""
+    return types.SimpleNamespace(**{n: p.detach().float()
+                                    for n, p in module.named_parameters()})
+
+
+def mesh_hybrid(mesh: Mesh, rank: int):
+    """(e) Zamba2-7B on 1x2."""
+    cfg, ctx, dev = get_config("zamba2-7b"), make_ctx(mesh), mesh.device
+    model = tf.init_params(cfg, seed=0, ctx=ctx)
+    b, s = MESH_HYBRID_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(2)).to(dev)
+    n = MESH_HYBRID_DECODE
+    layer = model.groups[0][0].ssm
+    x = torch.randn((b, s, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4)).to(dev)
+    with torch.inference_mode():
+        tf.prefill(model, {"tokens": toks[:, :256]}, cfg, ctx=ctx)
+        comm.reset_stats()
+        before = ops.launch_counts()
+        logits, ms = timed_sync(lambda: tf.prefill(
+            model, {"tokens": toks}, cfg, ctx=ctx))
+        out = {"ms": ms, "launches": launches_since(before),
+               "stats": dict(comm.STATS), "held_gb": gb(held_bytes(model)),
+               "whole_gb": gb(cfg.param_count() * 2),
+               "heads": layer.dt_bias.shape[0],
+               "attn_heads": model.shared_attn.attn.wq.shape[1]}
+        cache = tf.init_cache(cfg, 1, n, ctx=ctx)
+        out["conv_cache"] = list(cache["groups"][0]["ssm"][0]["conv"].shape)
+        comm.reset_stats()
+        dec, step_ms = [], []
+        for pos in range(n):
+            (lg, _), t = timed_sync(lambda: tf.decode_step(
+                model, cache, {"tokens": toks[:1, pos:pos + 1]}, pos, cfg,
+                ctx=ctx))
+            dec.append(lg[:, 0])
+            step_ms.append(t)
+        out["decode_ms"] = step_ms
+        out["decode_stats"] = dict(comm.STATS)
+        dec = torch.stack(dec, 1)
+        before = ops.launch_counts()
+        y_mesh = ssm_mod.ssm_forward(x, f32_layer(layer), cfg, ctx=ctx)
+        out["layer_launches"] = launches_since(before)
+    del model, cache
+    torch.cuda.empty_cache()
+    comm.barrier(mesh)
+    if rank == 0:
+        logit_gap("(e) decode chain vs the mesh's prefill", dec,
+                  logits[:1, :n], None, HYBRID_TOL_MEAN, "10")
+        whole = tf.init_params(cfg, seed=0, device=dev)
+        with torch.inference_mode():
+            ref, out["one_rank_ms"] = timed_sync(lambda: tf.prefill(
+                whole, {"tokens": toks}, cfg))
+            out["max"], out["mean"] = logits_gap(logits, ref)
+            y = ssm_mod.ssm_forward(x, f32_layer(whole.groups[0][0].ssm),
+                                    cfg)
+            out["layer_max"] = float((y_mesh - y).abs().max())
+            out["layer_scale"] = float(y.abs().max())
+        del whole, ref, y
+    del logits, dec, y_mesh, x
+    torch.cuda.empty_cache()
+    comm.barrier(mesh)
+    return out
+
+
+def mesh_xlstm(mesh: Mesh, rank: int):
+    """(f) xLSTM-125M on 1x2."""
+    cfg, ctx, dev = get_config("xlstm-125m"), make_ctx(mesh), mesh.device
+    model = tf.init_params(cfg, seed=0, ctx=ctx)
+    b, s = MESH_XLSTM_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (b, s),
+                         generator=torch.Generator().manual_seed(3)).to(dev)
+    n = MESH_HYBRID_DECODE
+    with torch.inference_mode():
+        tf.prefill(model, {"tokens": toks}, cfg, ctx=ctx)     # warm-up
+        comm.reset_stats()
+        logits, ms = timed_sync(lambda: tf.prefill(
+            model, {"tokens": toks}, cfg, ctx=ctx))
+        out = {"ms": ms, "stats": dict(comm.STATS),
+               "heads": model.groups[0][0].mlstm.norm_scale.shape[0] // (
+                   2 * cfg.d_model // cfg.n_heads)}
+        cache = tf.init_cache(cfg, 1, n, ctx=ctx)
+        dec = torch.stack([tf.decode_step(
+            model, cache, {"tokens": toks[:1, pos:pos + 1]}, pos, cfg,
+            ctx=ctx)[0][:, 0] for pos in range(n)], 1)
+    del model, cache
+    comm.barrier(mesh)
+    if rank == 0:
+        logit_gap("(f) decode chain vs the mesh's prefill", dec,
+                  logits[:1, :n], None, XLSTM_TOL["bf16_mean"], "10")
+        whole = tf.init_params(cfg, seed=0, device=dev)
+        with torch.inference_mode():
+            tf.prefill(whole, {"tokens": toks}, cfg)             # warm-up
+            ref, out["one_rank_ms"] = timed_sync(lambda: tf.prefill(
+                whole, {"tokens": toks}, cfg))
+            out["max"], out["mean"] = logits_gap(logits, ref)
+        del whole, ref
+    del logits, dec
+    torch.cuda.empty_cache()
+    comm.barrier(mesh)
+    return out
+
+
+def mesh_recurrent_train(mesh: Mesh, rank: int):
+    """(g) one train step of each recurrent family at reduced() on 1x2
+    against one rank's."""
+    ctx, dev, out = make_ctx(mesh), mesh.device, {}
+    for arch in MESH_RECURRENT_ARCHS:
+        cfg = get_config(arch).reduced()
+        batch = lm_train_batch(cfg, *MESH_RECURRENT_SHAPE, dev, seed=4)
+        model = tf.init_params(cfg, seed=0, ctx=ctx)
+        loss, _ = tf.lm_loss(model, batch, cfg, ctx=ctx)
+        loss.backward()
+        grads = {n: tf.gather_full(p.grad, model.param_specs[n], mesh)
+                 for n, p in model.named_parameters()}
+        whole = tf.init_params(cfg, seed=0, device=dev)
+        ref, _ = tf.lm_loss(whole, batch, cfg)
+        ref.backward()
+        worst, leaf = 0.0, ""
+        for n, p in whole.named_parameters():
+            r = float((grads[n] - p.grad).abs().max() /
+                      p.grad.abs().max().clamp_min(1e-30))
+            if r > worst:
+                worst, leaf = r, n
+        out[arch] = {"loss": float(loss), "ref": float(ref), "worst": worst,
+                     "leaf": leaf, "leaves": len(grads),
+                     "sharded": sum(any(v) for v in
+                                    model.param_specs.values())}
+        del model, whole, grads
+    return out
+
+
+def mesh_trainer_batches(dev):
+    c = MESH_TRAINER
+    data, _ = make_client_datasets(ClientDataConfig(
+        n_clients=c["clients"], per_client=2 * c["images"],
+        image_size=IMG[0], holdout=2))
+    streams = [image_batches(d, c["images"], seed=k)
+               for k, d in enumerate(data)]
+    return [[next(st).to(dev) for st in streams]
+            for _ in range(c["rounds"])]
+
+
+def mesh_trainer(mesh, dev):
+    """4i's trainer: the paper U-Net, ddpm_step in its sample."""
+    c = MESH_TRAINER
+    cfg = TrainerConfig(n_clients=c["clients"], T=T, cut_ratio=TRAIN_CUT,
+                        step_backend="triton")
+    return CollaFuseTrainer(cfg, lambda seed: UNet(UNetConfig(), seed=seed),
+                            device=dev, mesh=mesh)
+
+
+def trainer_state(tr, metrics) -> dict:
+    """Round losses and the whole state on the host (collective on a
+    mesh)."""
+    return {"losses": [[m["server_loss"]] + m["client_losses"]
+                       for m in metrics],
+            "server": {k: v.cpu() for k, v in tr.server_params.items()},
+            "clients": {k: v.cpu() for k, v in tr.client_stack.items()}}
+
+
+def mesh_collafuse(mesh: Mesh, rank: int, tmp: str):
+    """4i on the ranks: 2 rounds, then trainer.sample through ddpm_step
+    and through the plain step; rank 0 writes the state to ``tmp``."""
+    dev = mesh.device
+    tr = mesh_trainer(mesh, dev)
+    batches = mesh_trainer_batches(dev)
+    metrics, ms = [], []
+    comm.reset_stats()
+    for r in range(MESH_TRAINER["rounds"]):
+        m, t = timed_sync(lambda: tr.train_round(batches[r]))
+        metrics.append(m)
+        ms.append(t)
+    stats = dict(comm.STATS)
+    state = trainer_state(tr, metrics)
+    digest = hashlib.sha256(b"".join(
+        v.numpy().tobytes() for v in state["server"].values())).hexdigest()
+    before = ops.launch_counts()
+    gen = tr.sample(5, (2, *IMG))
+    launches = launches_since(before)
+    tr.step_backend = get_backend("torch")
+    plain = tr.sample(5, (2, *IMG))
+    out = {"ms": ms, "stats": stats, "digest": digest,
+           "clients": list(tr._clients), "launches": launches,
+           "sample_gap": float((gen - plain).abs().max()),
+           "sample_finite": bool(torch.isfinite(gen).all())}
+    if rank == 0:
+        torch.save(state, Path(tmp) / "trainer.pt")
+    del tr, state, gen, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    comm.barrier(mesh)
+    return out
+
+
+def mesh_rank(rank: int, port: int, tmp: str) -> None:
     """One of phase 10's ranks: the mesh's sub-phases in turn, their
     results written to ``tmp/rank<r>.json``."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = init_mesh((1, MESH_RANKS), rank, f"127.0.0.1:{port}")
-    out = {"transport": mesh.transport, "device": str(mesh.device)}
+    out = {"transport": mesh.transport, "device": str(mesh.device),
+           "walls": {}}
+    data = mesh_view(mesh, (MESH_RANKS, 1))
+    run = {"a": lambda: mesh_tp(mesh, rank),
+           "b": lambda: mesh_ep(mesh, rank),
+           "c": lambda: mesh_fsdp(data, rank),
+           "e": lambda: mesh_hybrid(mesh, rank),
+           "f": lambda: mesh_xlstm(mesh, rank),
+           "g": lambda: mesh_recurrent_train(mesh, rank),
+           "i": lambda: mesh_collafuse(data, rank, tmp)}
     try:
-        if "a" in parts:
-            out["a"] = mesh_tp(mesh, rank)
-        if "b" in parts:
-            out["b"] = mesh_ep(mesh, rank)
-        if "c" in parts:
-            out["c"] = mesh_fsdp(mesh_view(mesh, (MESH_RANKS, 1)), rank)
+        for part, fn in run.items():
+            t0 = time.perf_counter()
+            out[part] = fn()
+            out["walls"][part] = time.perf_counter() - t0
     finally:
         (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(out))
         close_mesh(mesh)
 
 
-def mesh_run(parts, tag: str):
+def mesh_run():
     """Phase 10's ranks on the mesh the machine gives: their results."""
+    gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        run_ranks(mesh_rank, MESH_RANKS, (tmp, parts),
-                  timeout_s=MESH_TIMEOUT_S)
+        run_ranks(mesh_rank, MESH_RANKS, (tmp,), timeout_s=MESH_TIMEOUT_S)
         res = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                for r in range(MESH_RANKS)]
-    print(f"[10] {tag}: {MESH_RANKS} ranks on {res[0]['device']} and "
+        if (Path(tmp) / "trainer.pt").exists():
+            res[0]["i"]["state"] = torch.load(Path(tmp) / "trainer.pt")
+    print(f"[10] the mesh: {MESH_RANKS} ranks on {res[0]['device']} and "
           f"{res[1]['device']} over {res[0]['transport']}, "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+          f"{time.perf_counter() - t0:.1f}s; rank 0's parts "
+          + ", ".join(f"({k}) {v:.1f}s" for k, v in res[0]["walls"].items()),
+          flush=True)
     return res
 
 
@@ -4736,16 +5104,160 @@ def stats_text(st) -> str:
             f"{st['ms']:.1f} ms (none staged through the host)")
 
 
-def phase_mesh(dev, card: str):
-    """10: the (data, model) mesh, two ranks."""
-    t_phase = time.perf_counter()
-    backend, cards = transport_for("cuda", MESH_RANKS)
-    how = "a card a rank" if backend == "nccl" else \
-        "the ranks share card 0: NCCL refuses two ranks on one GPU"
-    print(f"[10] mesh: {MESH_RANKS} ranks, {cards} card(s) of {card}: "
-          f"transport {backend} ({how})", flush=True)
-    ref_loss, ref_norm, ref_state = mesh_train_reference(dev)
-    res = mesh_run(("a", "b", "c"), "the mesh")
+def rank_shape_kernels(dev, card: str):
+    """(e)'s kernels at a rank's shapes against their plain versions:
+    ``ssm_scan`` on 56 of Zamba2-7B's 112 heads (float32, as
+    ``ssm_forward`` feeds it) and bf16 ``flash_attention`` on 16 of the
+    shared block's 32 heads (hd 112)."""
+    b, s, nh, p, n = SSM_SHAPE
+    nh //= MESH_RANKS
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((b, s, nh, p), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, nh), generator=g,
+                                                  device=dev))
+    a = -torch.exp(0.3 * torch.randn(nh, generator=g, device=dev))
+    bm, cm = (torch.randn((b, s, n), generator=g, device=dev)
+              for _ in range(2))
+    y = ops.ssm_scan(x, dt, a, bm, cm)
+    ref = kref.ssm_scan_ref(x, dt, a, bm, cm)
+    err = float((y - ref).abs().max())
+    scale = float(ref.abs().max())
+    t_k = cuda_time_ms(lambda: ops.ssm_scan(x, dt, a, bm, cm), iters=10,
+                       warmup=2)
+    t_p = cuda_time_ms(lambda: kref.ssm_scan_ref(x, dt, a, bm, cm), iters=2,
+                       warmup=1)
+    t_bytes, _, t_3x = ssm_bounds_ms(x, dt, a, bm, cm, card)
+    print(f"[10] (e) ssm_scan at a rank's shape x {tuple(x.shape)} N {n}: "
+          f"max_abs_err {err:.3e} (max |y| {scale:.3f}, tolerance "
+          f"{SSM_TOL[torch.float32]} of it) | kernel {t_k:.3f} ms, plain "
+          f"{t_p:.3f} ms, bound {max(t_bytes, t_3x):.3f} ms", flush=True)
+    if not torch.isfinite(y).all() or err > SSM_TOL[torch.float32] * scale:
+        raise AssertionError("ssm_scan disagrees at a rank's shape")
+    del x, dt, a, bm, cm, y, ref
+    torch.cuda.empty_cache()
+    hb, hs, hh, _, hd = HYBRID_ATTN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((hb, hs, hh // MESH_RANKS, hd), generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    print("[10] (e) flash_attention at a rank's 16 heads of the shared "
+          "block:", flush=True)
+    attention_case(q, k, v, 0, card)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def mesh_collafuse_reference(dev):
+    """4i's one-process trainer: its round losses and state."""
+    tr = mesh_trainer(None, dev)
+    batches = mesh_trainer_batches(dev)
+    metrics = [tr.train_round(batches[r])
+               for r in range(MESH_TRAINER["rounds"])]
+    out = trainer_state(tr, metrics)
+    del tr, batches
+    gc.collect()             # the trainer's loss closures hold it in a cycle
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_gap(a: dict, b: dict):
+    """(max |Δ|, mean |Δ|) over every entry of two trees of tensors."""
+    mx, tot, n = 0.0, 0.0, 0
+    for k in a:
+        d = (a[k].float() - b[k].float()).abs()
+        mx = max(mx, float(d.max()))
+        tot += float(d.sum(dtype=torch.float64))
+        n += d.numel()
+    return mx, tot / n
+
+
+def check_mesh_recurrent(res) -> bool:
+    """Print and hold (e), (f) and (g)."""
+    ok = True
+    e = [r["e"] for r in res]
+    for r, x in enumerate(e):
+        print(f"[10] (e) zamba2-7b prefill {MESH_HYBRID_SHAPE[0]}x"
+              f"{MESH_HYBRID_SHAPE[1]} mesh 1x2 rank {r}: holds "
+              f"{x['held_gb']:.2f} of {x['whole_gb']:.2f} GB, Mamba2 heads "
+              f"{x['heads']} and attention heads {x['attn_heads']} a rank, "
+              f"conv cache {x['conv_cache']} ([x_r, B, C]); launches "
+              f"ssm_scan {x['launches']['ssm_scan']} flash_attention "
+              f"{x['launches']['flash_attention']}; {x['ms']:.1f} ms, "
+              f"{stats_text(x['stats'])}; decode ms a step "
+              f"{[round(t, 1) for t in x['decode_ms']]}, "
+              f"{stats_text(x['decode_stats'])} over "
+              f"{MESH_HYBRID_DECODE} steps", flush=True)
+    e0 = e[0]
+    print(f"[10] (e) logits against one rank's prefill of the same weights "
+          f"({e0['one_rank_ms']:.1f} ms): max |d| {e0['max']:.4g} mean "
+          f"{e0['mean']:.4g} (held: mean {HYBRID_TOL_MEAN}); one Mamba2 "
+          f"layer in float32, sharded against whole: max |d| "
+          f"{e0['layer_max']:.3e} of max |out| {e0['layer_scale']:.3f} "
+          f"(held: {MESH_LAYER_TOL} of it), its ssm_scan launches "
+          f"{e0['layer_launches']['ssm_scan']}", flush=True)
+    ok &= all(x["launches"]["ssm_scan"] == 81 and
+              x["launches"]["flash_attention"] == 14 and x["heads"] == 56
+              and x["attn_heads"] == 16 for x in e)
+    ok &= e0["mean"] <= HYBRID_TOL_MEAN and \
+        e0["layer_max"] <= MESH_LAYER_TOL * e0["layer_scale"]
+    f = [r["f"] for r in res]
+    for r, x in enumerate(f):
+        print(f"[10] (f) xlstm-125m prefill {MESH_XLSTM_SHAPE[0]}x"
+              f"{MESH_XLSTM_SHAPE[1]} mesh 1x2 rank {r}: mLSTM heads "
+              f"{x['heads']} a rank, {x['ms']:.1f} ms (after a warm-up "
+              f"call), {stats_text(x['stats'])}", flush=True)
+    print(f"[10] (f) logits against one rank's prefill "
+          f"({f[0]['one_rank_ms']:.1f} ms): max |d| {f[0]['max']:.4g} mean "
+          f"{f[0]['mean']:.4g} (held: mean {XLSTM_TOL['bf16_mean']})",
+          flush=True)
+    ok &= f[0]["mean"] <= XLSTM_TOL["bf16_mean"] and \
+        all(x["heads"] == 2 for x in f)
+    for arch, x in res[0]["g"].items():
+        rel = abs(x["loss"] - x["ref"]) / abs(x["ref"])
+        print(f"[10] (g) {arch} reduced() train step on 1x2 "
+              f"({x['sharded']} of {x['leaves']} leaves sharded): loss "
+              f"{x['loss']:.7f} against one rank's {x['ref']:.7f} (rel "
+              f"{rel:.2e}, held {MESH_RECURRENT_TOL['loss']}); worst leaf "
+              f"gradient {x['leaf']} {x['worst']:.2e} of its max (held "
+              f"{MESH_RECURRENT_TOL['grad']})", flush=True)
+        ok &= rel <= MESH_RECURRENT_TOL["loss"] and \
+            x["worst"] <= MESH_RECURRENT_TOL["grad"] and x["sharded"] > 0
+    return ok
+
+
+def check_mesh_collafuse(res, ref) -> bool:
+    """Print and hold 4i."""
+    c = MESH_TRAINER
+    x = [r["i"] for r in res]
+    got = x[0]["state"]
+    bitwise = x[0]["digest"] == x[1]["digest"]
+    loss0 = np.allclose(got["losses"][0], ref["losses"][0],
+                        **TRAIN_LOSS_TOL)
+    s_max, s_mean = tree_gap(got["server"], ref["server"])
+    c_max, c_mean = tree_gap(got["clients"], ref["clients"])
+    p_max, p_mean = c["rounds"] * TRAIN_PARAM_MAX, TRAIN_PARAM_MEAN
+    for r, y in enumerate(x):
+        print(f"[4i] CollaFuseTrainer(mesh=) on 2x1 rank {r}: clients "
+              f"{y['clients']}, round ms {[round(t, 1) for t in y['ms']]}, "
+              f"{stats_text(y['stats'])}; trainer.sample through ddpm_step "
+              f"(launches {y['launches']['ddpm_step']}) against the plain "
+              f"step max |d| {y['sample_gap']:.3e} (held 1e-2), finite "
+              f"{y['sample_finite']}", flush=True)
+    print(f"[4i] paper U-Net, {c['clients']} clients x {c['images']} "
+          f"images, {c['rounds']} rounds, against the one-process trainer: "
+          f"round 0 losses {[round(v, 6) for v in got['losses'][0]]} vs "
+          f"{[round(v, 6) for v in ref['losses'][0]]} within "
+          f"{TRAIN_LOSS_TOL} {loss0}; server parameters max |d| "
+          f"{s_max:.3e} mean {s_mean:.3e}, clients max {c_max:.3e} mean "
+          f"{c_mean:.3e} (held: max {p_max:.4g}, mean {p_mean:g}); server "
+          f"parameters the same bits on both ranks {bitwise}", flush=True)
+    return bitwise and loss0 and max(s_max, c_max) <= p_max and \
+        max(s_mean, c_mean) <= p_mean and all(
+            y["launches"]["ddpm_step"] > 0 and y["sample_gap"] <= 1e-2 and
+            y["sample_finite"] for y in x)
+
+
+def check_mesh_lm(res, ref_loss, ref_norm, ref_state, cards) -> bool:
+    """Print and hold (a)-(c), then run and hold (d)."""
     ok = True
     # (a)
     a = [r["a"] for r in res]
@@ -4841,9 +5353,54 @@ def phase_mesh(dev, card: str):
                 or "request" in ln or "peak" in ln]
         print(f"[10] (d) {what}: " + " | ".join(last), flush=True)
     ok &= serve_ok and train_ok
+    return ok
+
+
+def phase_mesh(dev, card: str):
+    """10: the (data, model) mesh, two ranks."""
+    t_phase = time.perf_counter()
+    backend, cards = transport_for("cuda", MESH_RANKS)
+    how = "a card a rank" if backend == "nccl" else \
+        "the ranks share card 0: NCCL refuses two ranks on one GPU"
+    print(f"[10] mesh: {MESH_RANKS} ranks, {cards} card(s) of {card}: "
+          f"transport {backend} ({how})", flush=True)
+    ref_loss, ref_norm, ref_state = mesh_train_reference(dev)
+    res = mesh_run()
+    # after the ranks: its trainer would hold the card's memory
+    trainer_ref = mesh_collafuse_reference(dev)
+    ok = check_mesh_lm(res, ref_loss, ref_norm, ref_state, cards)
+    rank_shape_kernels(dev, card)
+    ok &= check_mesh_recurrent(res)
+    ok &= check_mesh_collafuse(res, trainer_ref)
     if not ok:
         raise AssertionError("mesh phase failed")
     print(f"[10] mesh phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
+# the phases in order: (name, whether the CUDA cache is emptied first, the
+# call on (device, card, the results of the phases before it by name))
+PHASES = [
+    ("kernels", False, lambda dev, card, res: phase_kernels(dev, card)),
+    ("attention", False, lambda dev, card, res: phase_attention(dev, card)),
+    ("ssm", False, lambda dev, card, res: phase_ssm(dev, card)),
+    ("slice", False, lambda dev, card, res: phase_slice(dev)),
+    ("train", False, lambda dev, card, res: phase_train(dev, card)),
+    ("guided", False,
+     lambda dev, card, res: phase_guided(dev, card, res["slice"][1])),
+    ("host", False,
+     lambda dev, card, res: phase_host(dev, card, res["slice"][1])),
+    ("obs", False, lambda dev, card, res: phase_obs(dev, card)),
+    ("pod", False, lambda dev, card, res: phase_pod(dev, card)),
+    ("model_serve", False,
+     lambda dev, card, res: phase_model_serve(dev, card)),
+    ("paper", False, lambda dev, card, res: phase_paper(dev, card)),
+    ("lm", False, lambda dev, card, res: phase_lm(dev, card)),
+    ("hybrid", False, lambda dev, card, res: phase_hybrid(dev, card)),
+    ("moe", True, lambda dev, card, res: phase_moe(dev, card)),
+    ("families", True, lambda dev, card, res: phase_families(dev, card)),
+    ("lm_train", True, lambda dev, card, res: phase_lm_train(dev, card)),
+    ("mesh", True, lambda dev, card, res: phase_mesh(dev, card)),
+]
 
 
 def main():
@@ -4868,42 +5425,15 @@ def main():
     card = phase_device()
     phase_build(dev)
     lap("device and build")
-    rows = phase_kernels(dev, card)
-    lap("kernels")
-    attn_rows = phase_attention(dev, card)
-    lap("attention")
-    ssm_rows = phase_ssm(dev, card)
-    lap("ssm")
-    _, unet_ms = phase_slice(dev)
-    lap("slice")
-    phase_train(dev, card)
-    lap("train")
-    g = phase_guided(dev, card, unet_ms)
-    lap("guided")
-    noise_rows = phase_host(dev, card, unet_ms)
-    lap("host")
-    phase_obs(dev, card)
-    lap("obs")
-    phase_pod(dev, card)
-    lap("pod")
-    phase_paper(dev, card)
-    lap("paper")
-    lm_counts = phase_lm(dev, card)
-    lap("lm")
-    hybrid_counts = phase_hybrid(dev, card)
-    lap("hybrid")
-    torch.cuda.empty_cache()
-    phase_moe(dev, card)
-    lap("moe")
-    torch.cuda.empty_cache()
-    phase_families(dev, card)
-    lap("families")
-    torch.cuda.empty_cache()
-    phase_lm_train(dev, card)
-    lap("lm_train")
-    torch.cuda.empty_cache()
-    phase_mesh(dev, card)
-    lap("mesh")
+    res = {}
+    for name, fresh, fn in PHASES:
+        if fresh:
+            torch.cuda.empty_cache()
+        res[name] = fn(dev, card, res)
+        lap(name)
+    rows, attn_rows, ssm_rows = res["kernels"], res["attention"], res["ssm"]
+    g, noise_rows = res["guided"], res["host"]
+    lm_counts, hybrid_counts = res["lm"], res["hybrid"]
     # the step kernels' launches on this slice's path, guided and gated
     # serving (phase 4's are printed in its own lines)
     counts = {"traj_masked_step": g["cuda_masked"]["traj_masked_step"],

@@ -36,10 +36,8 @@ itself stays the CPU template ``functional_call`` runs).  ``obs``
 publishes ``train_rounds_total`` and the round's losses; the losses are
 host floats already, so it adds no device sync.
 
-``micro_batch`` takes the place of the reference's ``mesh``: where the
-reference shards the pooled server batch over its mesh's ``data`` axis,
-one card runs a step's batch in chunks, one after the other, and sums
-their gradients before the step's single AdamW update.  At most
+``micro_batch`` runs a step's batch in chunks, one after the other, and
+sums their gradients before the step's single AdamW update.  At most
 ``micro_batch`` images go through one forward and backward: the server's
 pooled batch in chunks of ``micro_batch`` images, the vmapped client step
 in chunks of ``micro_batch // n_clients`` images a client (at least one),
@@ -50,6 +48,29 @@ global norm.  The draws are made for the whole batch before it is cut, so
 chunking regroups the arithmetic and changes nothing drawn.  ``None`` (the
 default), or a chunk no smaller than the batch, runs the batch in one
 piece.
+
+``mesh`` (a :class:`~repro_torch.parallel.comm.Mesh` of processes, the
+reference's ``CollaFuseTrainer(mesh=)``) places the batched engine's state
+as the reference's specs do, every rank a process of one program: the
+client stacks and their AdamW states over the data axes
+(``client_stack_specs``: a rank holds its block of clients and updates
+only those; with ``n_clients`` not dividing the axes every rank holds and
+updates all of them), and the pooled server batch over the data axes
+(``pooled_server_batch_specs``: a rank draws and noises only its rows).
+The server's parameters and AdamW state are replicated: each rank's
+gradient is its rows' mean, all-reduced over the data axes (one flat
+buffer) and divided by their size, so the clip sees the global norm and
+every rank makes the same update, bit for bit.  ``micro_batch`` chunks a
+rank's block.  :meth:`train_round` returns every client's loss on every
+rank; :attr:`client_stack`, :attr:`client_params`, :meth:`state_tree`
+and :meth:`save` gather the whole state, so a mesh's checkpoint restores
+on one process, and :meth:`restore` keeps a rank's block of a whole
+checkpoint; :meth:`model_fns`, :meth:`cond_model_fns`,
+:meth:`client_model`, :meth:`sample` and :meth:`disclosed` broadcast one
+client's parameters from the rank holding them.  All of these are
+collective calls: every rank of the data axes makes them.  A model axis
+replicates the trainer, as the reference's replicated server does; the
+looped engine (and ragged batches) runs replicated on every rank.
 
 :meth:`save` and :meth:`restore` write and read the whole training state
 (parameters, AdamW states, the round counter) through
@@ -71,8 +92,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.diffusion.backend import get_backend
 from repro_torch.diffusion.sampler import make_sampler
 from repro_torch.diffusion.schedule import DiffusionSchedule, get_schedule
+from repro_torch.models.layers import ShardCtx
 from repro_torch.obs import resolve_obs
 from repro_torch.optim import adamw
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,12 +138,22 @@ class CollaFuseTrainer:
                  device: DeviceLike = "cuda",
                  flops_per_call: Optional[float] = None,
                  draws: Any = None, obs=None,
-                 micro_batch: Optional[int] = None):
+                 micro_batch: Optional[int] = None, mesh=None):
         self.cfg = cfg
         if micro_batch is not None and micro_batch < 1:
             raise ValueError(f"micro_batch={micro_batch}: must be >= 1")
         self.micro_batch = micro_batch
-        self.device = resolve_device(device)
+        # on a mesh the rank's device; the data axes (and "pod") place the
+        # client stacks and the pooled server batch
+        self.mesh = mesh
+        self._axes = () if mesh is None else tuple(
+            a for a in mesh.axis_names if a in ("pod", "data"))
+        self._ranks = 1 if mesh is None else mesh.size(self._axes)
+        self._index = 0 if mesh is None else mesh.index(self._axes)
+        self._ctx = None if mesh is None else ShardCtx(mesh=mesh,
+                                                        batch_axes=self._axes)
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         # None (off), an ObsConfig, or an Observability shared with an
         # engine
         self.obs = resolve_obs(obs)
@@ -145,8 +179,18 @@ class CollaFuseTrainer:
         # per-client state follows the engine: stacked for the batched
         # engine, a list for the looped one; the accessors convert
         clients = [self._params_of(m) for m in modules[1:]]
+        # this rank's clients [lo, hi): a block over the data axes where
+        # the client_stack_specs rule shards the stacks, else all
+        n = cfg.n_clients
+        self._stacks_sharded = cfg.batched and self._ranks > 1 and \
+            shd.client_stack_specs({"c": torch.empty((n, 1), device="meta")},
+                                   self._ctx)["c"][0] is not None
+        w = n // self._ranks if self._stacks_sharded else n
+        self._clients = range(self._index * w, self._index * w + w) \
+            if self._stacks_sharded else range(n)
         if cfg.batched:
-            self._client_stack = adamw.tree_stack(clients)
+            self._client_stack = adamw.tree_stack(
+                [clients[c] for c in self._clients])
             self._client_opt_stack = adamw.init_stacked_state(
                 self._client_stack, self.opt_cfg)
             self._client_list = self._client_opt_list = None
@@ -165,6 +209,23 @@ class CollaFuseTrainer:
         self._client_loss = collafuse.client_loss_fn(
             self.sched, self._apply, num_classes=cfg.num_classes)
 
+    def _gather_clients(self, tree):
+        """A stack tree of this rank's clients made whole over the data
+        axes (the tree itself when every rank holds all of them)."""
+        if not self._stacks_sharded:
+            return tree
+        if isinstance(tree, dict):
+            return {k: self._gather_clients(v) for k, v in tree.items()}
+        return comm.all_gather(tree, self.mesh, self._axes, 0)
+
+    def _keep_clients(self, tree):
+        """This rank's block of a whole stack tree."""
+        if not self._stacks_sharded:
+            return tree
+        if isinstance(tree, dict):
+            return {k: self._keep_clients(v) for k, v in tree.items()}
+        return tree[self._clients.start:self._clients.stop].contiguous()
+
     def _params_of(self, module: torch.nn.Module) -> Dict[str, torch.Tensor]:
         return {k: v.detach().to(self.device, torch.float32, copy=True)
                 for k, v in module.named_parameters()}
@@ -182,20 +243,24 @@ class CollaFuseTrainer:
         not write back (use :meth:`set_client_params`)."""
         if self._client_list is not None:
             return list(self._client_list)
-        return [adamw.tree_unstack(self._client_stack, k)
+        stack = self.client_stack
+        return [adamw.tree_unstack(stack, k)
                 for k in range(self.cfg.n_clients)]
 
     def set_client_params(self, client_idx: int, params) -> None:
         """Replace one client's parameters in whichever representation is
-        live (e.g. to inject a restored private model)."""
+        live (e.g. to inject a restored private model); on a mesh the rank
+        that holds the client takes them."""
         if self._client_list is not None:
             self._client_list[client_idx] = {
                 k: v.to(self.device, torch.float32) for k, v in params.items()}
             return
+        if client_idx not in self._clients:
+            return
         stack = {}
         for k, s in self._client_stack.items():
             s = s.clone()
-            s[client_idx] = params[k]
+            s[client_idx - self._clients.start] = params[k]
             stack[k] = s
         self._client_stack = stack
 
@@ -203,35 +268,49 @@ class CollaFuseTrainer:
     def client_opts(self) -> List[Any]:
         if self._client_opt_list is not None:
             return list(self._client_opt_list)
-        return [adamw.tree_unstack(self._client_opt_stack, k)
+        stack = self.client_opt_stack
+        return [adamw.tree_unstack(stack, k)
                 for k in range(self.cfg.n_clients)]
 
     @property
     def client_stack(self):
-        """[n_clients, ...] stacked view of the client parameters."""
+        """[n_clients, ...] stacked view of the client parameters (on a
+        mesh gathered whole: every rank reads it)."""
         if self._client_stack is not None:
-            return self._client_stack
+            return self._gather_clients(self._client_stack)
         return adamw.tree_stack(self._client_list)
 
     @property
     def client_opt_stack(self):
         if self._client_opt_stack is not None:
-            return self._client_opt_stack
+            return self._gather_clients(self._client_opt_stack)
         return adamw.tree_stack(self._client_opt_list)
 
     def _client_param(self, client_idx: int):
+        """One client's parameters; where the ranks hold blocks of the
+        clients, broadcast over the data axes from the rank holding it (a
+        collective: every rank there makes the call)."""
         if self._client_list is not None:
             return self._client_list[client_idx]
-        return adamw.tree_unstack(self._client_stack, client_idx)
+        if not self._stacks_sharded:
+            return adamw.tree_unstack(self._client_stack, client_idx)
+        src, k = divmod(client_idx, len(self._clients))
+        # row k of every rank's block: the source's is the client, the
+        # others' only the broadcast's buffers
+        return {name: comm.broadcast(t, self.mesh, self._axes, src)
+                for name, t in adamw.tree_unstack(self._client_stack,
+                                                  k).items()}
 
     # ------------------------------------------------------------------
     # draws
     # ------------------------------------------------------------------
-    def _side_draws(self, side: str, rnd: int, batches, labels):
+    def _side_draws(self, side: str, rnd: int, batches, labels,
+                    clients=None):
         """Per-client (t, eps, drop) of one side of round ``rnd``, on the
-        device."""
+        device, for ``clients`` (a range; all of them by default)."""
         out = []
-        for k, x0 in enumerate(batches):
+        for k in clients or range(len(batches)):
+            x0 = batches[k]
             t, eps, drop = collafuse.side_draws(
                 self.draws, self.plan, rnd, k, side, tuple(x0.shape),
                 labels is not None, self.cfg.label_drop)
@@ -242,13 +321,32 @@ class CollaFuseTrainer:
     # ------------------------------------------------------------------
     # updates
     # ------------------------------------------------------------------
-    def _server_update(self, x_t, t, eps, y):
+    def _server_update(self, x_t, t, eps, y, rows_sharded: bool = False):
+        """One AdamW step of the server on a batch; with ``rows_sharded``
+        the batch is this rank's rows of the pooled batch, and the
+        gradient and loss are averaged over the data axes."""
         grads, loss = _chunked_grads(grad_and_value, self._server_loss,
                                      self.server_params, (x_t, t, eps, y),
                                      0, self.micro_batch)
+        if rows_sharded:
+            grads, loss = self._mean_over_data(grads, loss)
         self.server_params, self.server_opt, m = adamw.apply_updates(
             self.server_params, grads, self.server_opt, self.opt_cfg)
         return loss, m["grad_norm"]
+
+    def _mean_over_data(self, grads, loss):
+        """The ranks' gradients and loss averaged over the data axes: one
+        all-reduce of a flat buffer, the same bits on every rank."""
+        names = list(grads)
+        flat = torch.cat([grads[k].reshape(-1) for k in names] +
+                         [loss.reshape(1).to(grads[names[0]].dtype)])
+        flat = comm.all_reduce(flat, self.mesh, self._axes) / self._ranks
+        out, at = {}, 0
+        for k in names:
+            n = grads[k].numel()
+            out[k] = flat[at:at + n].view_as(grads[k])
+            at += n
+        return out, flat[at]
 
     def _client_round(self, x0_stack, t, eps, y_stack, drop):
         """Step 6 for every client at once: one vmapped loss and gradient
@@ -260,10 +358,11 @@ class CollaFuseTrainer:
                       else max(1, self.micro_batch // x0_stack.shape[0]))
         grads, losses = _chunked_grads(
             lambda f: vmap(grad_and_value(f)), self._client_loss,
-            self.client_stack, (x0_stack, t, eps) + extra, 1, per_client)
+            self._client_stack, (x0_stack, t, eps) + extra, 1, per_client)
         (self._client_stack, self._client_opt_stack,
-         _) = adamw.apply_updates_stacked(self.client_stack, grads,
-                                          self.client_opt_stack, self.opt_cfg)
+         _) = adamw.apply_updates_stacked(self._client_stack, grads,
+                                          self._client_opt_stack,
+                                          self.opt_cfg)
         self._client_list = self._client_opt_list = None
         return losses
 
@@ -334,25 +433,52 @@ class CollaFuseTrainer:
                           ).set(metrics["client_loss_mean"])
         return metrics
 
+    def _pool_rows(self, b: int):
+        """(this rank's rows of the pooled [n·b] server batch as a range,
+        whether they are a block of it): the pooled_server_batch_specs
+        rule."""
+        n = self.cfg.n_clients * b
+        if self._ranks > 1 and shd.pooled_server_batch_specs(
+                {"t": torch.empty((n,), device="meta")},
+                self._ctx)["t"][0] is not None:
+            w = n // self._ranks
+            return range(self._index * w, self._index * w + w), True
+        return range(n), False
+
     def _train_round_batched(self, batches, labels) -> Dict:
         rnd = self.round
         x0_stack = torch.stack(batches)
         y_stack = None if labels is None else torch.stack(labels)
         metrics: Dict[str, Any] = {}
         if self.plan.n_server_steps > 0:
-            t, eps, drop = _stack_draws(self._side_draws("server", rnd,
-                                                         batches, labels))
+            # this rank's rows: the draws and uploads of the clients they
+            # fall in, cut to the rows
+            b = x0_stack.shape[1]
+            rows, sharded = self._pool_rows(b)
+            cs = range(rows.start // b, -(-rows.stop // b))
+            t, eps, drop = _stack_draws(self._side_draws(
+                "server", rnd, batches, labels, cs))
             up = collafuse.make_pooled_server_batch(
-                self.sched, x0_stack, t, eps, y_stack, drop,
-                self.cfg.num_classes)
+                self.sched, x0_stack[cs.start:cs.stop], t, eps,
+                None if y_stack is None else y_stack[cs.start:cs.stop],
+                drop, self.cfg.num_classes)
+            lo = rows.start - cs.start * b
+            up = {k: v[lo:lo + len(rows)] for k, v in up.items()}
             s_loss, s_gnorm = self._server_update(up["x_t"], up["t"],
-                                                  up["eps"], up.get("y"))
+                                                  up["eps"], up.get("y"),
+                                                  sharded)
             metrics["server_loss"] = float(s_loss)
             metrics["server_grad_norm"] = float(s_gnorm)
         if self.plan.n_client_steps > 0:
-            t, eps, drop = _stack_draws(self._side_draws("client", rnd,
-                                                         batches, labels))
-            losses = self._client_round(x0_stack, t, eps, y_stack, drop)
+            cs = self._clients
+            t, eps, drop = _stack_draws(self._side_draws(
+                "client", rnd, batches, labels, cs))
+            losses = self._client_round(
+                x0_stack[cs.start:cs.stop], t, eps,
+                None if y_stack is None else y_stack[cs.start:cs.stop], drop)
+            if self._stacks_sharded:
+                losses = comm.all_gather(losses.detach(), self.mesh,
+                                         self._axes, 0)
             closses = losses.double().cpu().tolist()
             metrics["client_loss_mean"] = sum(closses) / len(closses)
             metrics["client_losses"] = closses
@@ -386,8 +512,10 @@ class CollaFuseTrainer:
                     clients[k], opts[k], x0, t, eps, ys[k], drop)
                 closses.append(float(loss))
             if self._client_stack is not None:     # batched trainer on
-                self._client_stack = adamw.tree_stack(clients)  # ragged
-                self._client_opt_stack = adamw.tree_stack(opts)  # input
+                self._client_stack = self._keep_clients(   # ragged input
+                    adamw.tree_stack(clients))
+                self._client_opt_stack = self._keep_clients(
+                    adamw.tree_stack(opts))
             else:
                 self._client_list = clients
                 self._client_opt_list = opts
@@ -409,8 +537,11 @@ class CollaFuseTrainer:
 
     def save(self, path: str) -> None:
         """Write :meth:`state_tree` to ``path`` (.npz), the rounds trained
-        as its step."""
-        ckpt_io.save_checkpoint(path, self.state_tree(), step=self.round)
+        as its step; on a mesh every rank gathers and the mesh's first
+        rank writes."""
+        tree = self.state_tree()
+        if self.mesh is None or self.mesh.index(self.mesh.axis_names) == 0:
+            ckpt_io.save_checkpoint(path, tree, step=self.round)
 
     def restore(self, path: str) -> None:
         """Read a checkpoint written by :meth:`save` (by a trainer of either
@@ -430,7 +561,8 @@ class CollaFuseTrainer:
                 _clone_tree(adamw.tree_unstack(opt_stack, c))
                 for c in range(n)]
         else:
-            self._client_stack, self._client_opt_stack = stack, opt_stack
+            self._client_stack = self._keep_clients(stack)
+            self._client_opt_stack = self._keep_clients(opt_stack)
         self.round = ckpt_io.checkpoint_step(path) or 0
         self.metrics_history = []
 

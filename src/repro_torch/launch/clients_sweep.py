@@ -14,7 +14,17 @@ one ``torch.func.vmap`` over the stack::
 The default device is CUDA; without a card the launcher raises unless
 ``--device cpu`` is given.  ``--compare-looped`` also times the per-client
 loop, printing the batched engine's speed-up per sweep point.  The records
-are the reference's, with ``device`` where it had ``mesh``.
+are the reference's, with ``device`` where it had ``mesh`` (and ``mesh``
+beside it on a mesh).
+
+``--devices N --mesh-shape DxM`` runs the trainer on a (data, model) mesh
+of N ranks (``launch/mesh.py``'s ``run_ranks``; ``CollaFuseTrainer(mesh=)``:
+the client stacks over ``data``, the pooled server batch over ``data``, a
+model axis replicating the trainer); rank 0 prints the reference's
+``mesh=data:Dxmodel:M`` line and the records::
+
+    python -m repro_torch.launch.clients_sweep --device cpu --devices 2 \
+        --mesh-shape 2x1 --clients 2 4 --rounds 1 --T 10
 """
 import argparse
 import json
@@ -40,6 +50,12 @@ def _parse_args(argv=None):
                     help="DDIM trajectory length K (0 = dense T steps)")
     ap.add_argument("--eta", type=float, default=0.0,
                     help="DDIM stochasticity in [0,1]")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="N ranks on a (data, model) mesh (0 = one "
+                         "process, no mesh)")
+    ap.add_argument("--mesh-shape", default="",
+                    help="DxM, e.g. 2x1; default = all devices on the data "
+                         "axis")
     ap.add_argument("--compare-looped", action="store_true",
                     help="also time the per-client reference loop")
     ap.add_argument("--json", default="",
@@ -47,8 +63,30 @@ def _parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+# a mesh sweep's deadline (its ranks are killed after it)
+MESH_TIMEOUT_S = 3000.0
+
+
 def main(argv=None):
     args = _parse_args(argv)
+    if args.devices or args.mesh_shape:
+        from repro_torch.launch.mesh import host_mesh, run_ranks
+        dims = host_mesh(args.mesh_shape, args.devices or None)
+        if dims[0] * dims[1] > 1:
+            run_ranks(_rank_main, dims[0] * dims[1], (args, dims),
+                      timeout_s=MESH_TIMEOUT_S)
+            return
+    _sweep(args)
+
+
+def _rank_main(rank: int, port: int, args, dims) -> None:
+    from repro_torch.launch.mesh import launcher_rank
+    with launcher_rank(rank, port, dims, args.device) as mesh:
+        _sweep(args, mesh)
+
+
+def _sweep(args, mesh=None):
+    """The sweep on one process, or as one rank of ``mesh``."""
     import dataclasses
     import time
 
@@ -59,9 +97,12 @@ def main(argv=None):
     from repro_torch.launch.serve_diffusion import launcher_config
     from repro_torch.models.unet import UNet
 
-    dev = resolve_device(args.device)
-    print(f"clients_sweep: device={dev} batch={args.batch} "
-          f"image={args.image} T={args.T} c={args.cut_ratio}")
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    d, m = (mesh.shape["data"], mesh.shape["model"]) if mesh is not None \
+        else (1, 1)
+    print(f"clients_sweep: mesh=data:{d}xmodel:{m} device={dev} "
+          f"batch={args.batch} image={args.image} T={args.T} "
+          f"c={args.cut_ratio}")
     ucfg = launcher_config(args.image)
 
     def factory(seed):
@@ -89,7 +130,7 @@ def main(argv=None):
                             step_backend=args.step_backend,
                             sampler=args.sampler,
                             sampler_steps=args.num_steps, eta=args.eta)
-        tr = CollaFuseTrainer(cfg, factory, device=dev)
+        tr = CollaFuseTrainer(cfg, factory, device=dev, mesh=mesh)
         batches = data_for(n)
         sec, metrics = timed_rounds(tr, batches)
         losses = (metrics.get("client_losses", []) +
@@ -104,7 +145,7 @@ def main(argv=None):
         speedup = None                    # null in the JSON artefact
         if args.compare_looped:
             looped = CollaFuseTrainer(dataclasses.replace(cfg, batched=False),
-                                      factory, device=dev)
+                                      factory, device=dev, mesh=mesh)
             lsec, _ = timed_rounds(looped, batches)
             speedup = lsec / sec
         rec = {"n_clients": n, "round_s": sec,
@@ -112,6 +153,8 @@ def main(argv=None):
                "client_flops": metrics["client_flops"],
                "server_loss": metrics.get("server_loss"),
                "speedup_vs_looped": speedup, "device": str(dev)}
+        if mesh is not None:
+            rec["mesh"] = f"{d}x{m}"
         records.append(rec)
         print(f"{n},{sec:.4f},{metrics['server_flops'] / 1e9:.3f},"
               f"{metrics['client_flops'] / 1e9:.3f},"
@@ -119,7 +162,8 @@ def main(argv=None):
               + (f"{speedup:.2f}" if speedup is not None else "-"),
               flush=True)
 
-    if args.json:
+    if args.json and (mesh is None or
+                      mesh.index(mesh.axis_names) == 0):
         with open(args.json, "w") as f:
             json.dump(records, f, indent=1)
         print(f"wrote {args.json}")

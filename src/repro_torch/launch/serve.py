@@ -97,12 +97,7 @@ def main(argv=None):
     from repro_torch.launch.mesh import host_mesh
     dims = host_mesh(args.mesh_shape, args.devices or None)
     if dims[0] * dims[1] > 1:
-        from repro_torch.configs import get_config
-        from repro_torch.launch.mesh import make_mesh, run_ranks
-        from repro_torch.launch.steps import make_ctx
-        from repro_torch.models.transformer import check_mesh
-        check_mesh(get_config(args.arch), make_ctx(make_mesh(
-            dims, ("data", "model"))))
+        from repro_torch.launch.mesh import run_ranks
         if args.device == "cuda":
             import torch
             torch.cuda.empty_cache()

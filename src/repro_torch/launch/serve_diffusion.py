@@ -41,11 +41,25 @@ CPU) over one shared queue.  Host 0 prints ``mesh=data:Nxmodel:1``, each
 host's ms a tick, images/s, kernel launches and peak memory, whether its
 measured serve is bitwise its warm-up serve of the same requests
 (``repeat_bitwise``), and the pod's images/s, and writes the merged
-``--json`` and ``--out``.  A model axis
-above 1 raises (ROADMAP.md Queue 1 item 4.7).  Two hosts::
+``--json`` and ``--out``.  Two hosts::
 
     python -m repro_torch.launch.serve_diffusion --devices 2 \
         --mesh-shape 2x1 --device cpu --config launcher --T 10 \
+        --requests 6 --slots 4
+
+A model axis: ``--devices D·M --mesh-shape DxM`` with M > 1 starts D·M
+ranks (``launch/mesh.py``'s ``run_ranks``); the M ranks of one data
+coordinate are one pod host, whose server U-Net holds its block of each
+convolution's output channels (``models/unet.py``'s ``shard_unet``) and
+whose engines run in lockstep, their windows eager (a CUDA graph cannot
+hold the ranks' gloo barriers; the first line says so).  Each host's
+record also says whether its completions are the same bits on all its
+model ranks (``model_bitwise``) and counts the collectives of its measured
+serve; model rank 0 of each host reports, and rank 0 writes.  One host
+over two model ranks::
+
+    python -m repro_torch.launch.serve_diffusion --devices 2 \
+        --mesh-shape 1x2 --device cpu --config launcher --T 10 \
         --requests 6 --slots 4
 """
 import argparse
@@ -163,9 +177,9 @@ def _parse_args(argv=None):
                          "device (the same card, or the CPU), over one "
                          "shared queue; 0 = one process, no pod")
     ap.add_argument("--mesh-shape", default="",
-                    help="DxM, e.g. 2x1: D pod hosts on the data axis; a "
-                         "model axis M > 1 raises (ROADMAP.md Queue 1 "
-                         "item 4.7)")
+                    help="DxM, e.g. 2x1: D pod hosts on the data axis, each "
+                         "over M model ranks that split the server U-Net's "
+                         "convolutions by output channel")
     ap.add_argument("--out", default="",
                     help="write every completion's x_mid and x0 (the pod's "
                          "owned rows joined on host 0) and its admit and "
@@ -190,9 +204,10 @@ def main(argv=None):
     from repro_torch.launch.mesh import host_mesh
     mesh = host_mesh(args.mesh_shape, args.devices or None)
     if mesh[1] > 1:
-        raise ValueError(f"mesh {mesh[0]}x{mesh[1]}: the U-Net's model axis "
-                         "(its HWIO convolutions sharded on output "
-                         "channels) is ROADMAP.md Queue 1 item 4.7")
+        from repro_torch.launch.mesh import run_ranks
+        run_ranks(_model_rank, mesh[0] * mesh[1], (args, mesh),
+                  timeout_s=MESH_TIMEOUT_S)
+        return
     if mesh[0] == 1:
         _serve(args, mesh=mesh)
         return
@@ -200,6 +215,24 @@ def main(argv=None):
     # CUDA needs fresh interpreters: the spawn start method
     mp.start_processes(_pod_host, args=(args, mesh, _free_port()),
                        nprocs=mesh[0], start_method="spawn")
+
+
+# a model-axis serve's deadline (its ranks are killed after it)
+MESH_TIMEOUT_S = 3000.0
+
+
+def _model_rank(rank: int, port: int, args, mesh) -> None:
+    """One rank of a model-axis serve: open the (data, model) mesh, then
+    serve as model rank ``model`` of pod host ``data`` (the data axis's
+    group is the pod's)."""
+    from repro_torch.launch.mesh import Pod, launcher_rank
+    from repro_torch.launch.steps import make_ctx
+    with launcher_rank(rank, port, mesh, args.device) as m:
+        pod = None
+        if mesh[0] > 1:
+            pod = Pod(hosts=mesh[0], host_id=m.coords["data"],
+                      group=m.group("data"))
+        _serve(args, pod, mesh, ctx=make_ctx(m))
 
 
 def _free_port() -> int:
@@ -286,18 +319,34 @@ def _merge_rows(parts, path: str) -> None:
     np.savez(path, **arrays)
 
 
-def _serve(args, pod=None, mesh=None):
+def _rows_digest(owned: dict) -> str:
+    """A digest of :func:`_owned`'s rows and ticks."""
+    import hashlib
+    h = hashlib.sha256()
+    for rid in sorted(owned):
+        *head, xm, x0 = owned[rid]
+        h.update(repr((rid, head)).encode())
+        h.update(xm.tobytes())
+        if x0 is not None:
+            h.update(x0.tobytes())
+    return h.hexdigest()
+
+
+def _serve(args, pod=None, mesh=None, ctx=None):
     """The launcher on one process: the single host, or host
-    ``pod.host_id`` of a pod over the ``mesh`` (data, model) shape."""
+    ``pod.host_id`` of a pod over the ``mesh`` (data, model) shape, and
+    with ``ctx`` (a model axis above 1) one of that host's model ranks."""
     import numpy as np
     import torch
+
+    from repro_torch.parallel import comm
 
     from repro_torch.configs import UNetConfig
     from repro_torch.device import resolve_device
     from repro_torch.diffusion.sampler import make_sampler
     from repro_torch.diffusion.schedule import cosine_schedule
     from repro_torch.kernels import ops
-    from repro_torch.models.unet import UNet
+    from repro_torch.models.unet import UNet, shard_unet
     from repro_torch.serve import (AdmissionPolicy, EngineConfig,
                                    ObsConfig, Request, ServeEngine,
                                    make_scheduler, serve_sequential)
@@ -337,7 +386,11 @@ def _serve(args, pod=None, mesh=None):
                          else args.sampler])
     traffic = ("mix of " + "/".join(request_samplers) if args.mix
                else samplers[request_samplers[0]].describe())
+    model_ranks = mesh[1] if mesh else 1
     mesh_text = f"mesh=data:{mesh[0]}xmodel:{mesh[1]} " if mesh else ""
+    if model_ranks > 1:
+        mesh_text += ("windows=eager (a CUDA graph cannot hold the model "
+                      "ranks' gloo barriers) ")
     print(f"serve_diffusion: {mesh_text}device={device} config={args.config} "
           f"image={ucfg.image_size} slots={args.slots} "
           f"requests={args.requests} T={args.T} policy={args.policy} "
@@ -349,6 +402,8 @@ def _serve(args, pod=None, mesh=None):
           f"min_kid={args.min_kid}", flush=True)
 
     server = UNet(ucfg, seed=args.seed).to(device).eval()
+    if model_ranks > 1:
+        shard_unet(server, ctx)
     clients = [UNet(ucfg, seed=args.seed + 1 + c).to(device).eval()
                for c in range(args.clients)]
     requests = [
@@ -390,7 +445,8 @@ def _serve(args, pod=None, mesh=None):
         finish_async_depth=args.finish_async_depth,
         spare_columns=args.spare_columns, device=device,
         num_classes=args.num_classes, admission=admission, obs=obs,
-        hosts=mesh[0] if mesh else 1, pod=pod)
+        hosts=mesh[0] if mesh else 1, pod=pod,
+        cuda_graphs=model_ranks == 1)
     eng = ServeEngine(cfg, server)
     if dyn_sampler is not None:
         eng.register_sampler("dyn", dyn_sampler)
@@ -403,8 +459,10 @@ def _serve(args, pod=None, mesh=None):
         # the spare columns the captured graphs read
         eng.register_sampler("dyn", dyn_sampler)
     before = ops.launch_counts()
+    comm.reset_stats()
     res = eng.serve(list(requests), clients)
     launches = {n: c - before[n] for n, c in ops.launch_counts().items()}
+    collectives = dict(comm.STATS)
     if eng.captures != captures:
         raise RuntimeError(f"the measured serve captured "
                            f"{eng.captures - captures} new graph(s)")
@@ -486,10 +544,18 @@ def _serve(args, pod=None, mesh=None):
                   "repeat_bitwise": _same_owned(_owned(warm), _owned(res)),
                   "launches": {n: launches[n] for n in ("traj_masked_step",
                                                         "lane_noise")},
+                  "collectives": collectives,
                   "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                               if cuda else None),
                   "peak_reserved_gb": (torch.cuda.max_memory_reserved(device)
                                        / 1e9 if cuda else None)}
+        if ctx is not None:
+            # the host's model ranks ran in lockstep: the same bits
+            digests = [None] * model_ranks
+            torch.distributed.all_gather_object(
+                digests, _rows_digest(_owned(res)),
+                group=ctx.mesh.group(ctx.model_axis))
+            record["model_bitwise"] = len(set(digests)) == 1
         gather = pod.all_gather_object if pod is not None \
             else (lambda obj: [obj])
         records = gather(record)
@@ -503,21 +569,28 @@ def _serve(args, pod=None, mesh=None):
                   f"tick over {r['ticks']} ticks, {r['images_per_s']:.2f} "
                   f"images/s, {r['finish_lanes']} finish lanes, "
                   f"{r['halo_lanes']} halo lane-windows, rows bitwise the "
-                  f"warm-up's {r['repeat_bitwise']}, launches "
-                  f"{r['launches']}, peak "
+                  f"warm-up's {r['repeat_bitwise']}"
+                  + (f", on its {model_ranks} model ranks "
+                     f"{r['model_bitwise']}" if "model_bitwise" in r else "")
+                  + f", launches {r['launches']}, collectives "
+                  f"{r['collectives']['calls']} calls "
+                  f"{r['collectives']['bytes'] / 1e6:.1f} MB "
+                  f"{r['collectives']['ms']:.1f} ms, peak "
                   + ("n/a" if r["peak_gb"] is None else
                      f"{r['peak_gb']:.2f} GB allocated / "
                      f"{r['peak_reserved_gb']:.2f} reserved"), flush=True)
         print(f"pod: {s['images']} images, {s['pod_images_per_s']:.3f} "
               "images/s over the slowest host's wall", flush=True)
-        if args.out and eng.host_id == 0:
+        writer = eng.host_id == 0 and (ctx is None or ctx.model_rank == 0)
+        if args.out and writer:
             _merge_rows(parts, args.out)
             print(f"wrote {args.out}", flush=True)
     elif args.out:
         _merge_rows([_owned(res)], args.out)
         print(f"wrote {args.out}", flush=True)
     eng.close()
-    if args.json and eng.host_id == 0:
+    if args.json and eng.host_id == 0 and (ctx is None or
+                                           ctx.model_rank == 0):
         with open(args.json, "w") as f:
             json.dump(s, f, indent=1)
         print(f"wrote {args.json}")

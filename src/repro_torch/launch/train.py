@@ -33,8 +33,7 @@ a card a rank, else the ranks share card 0 ("gloo+ipc": NCCL refuses two
 ranks on one GPU); on the CPU the group is gloo.  Rank 0 prints
 ``mesh=data:Dxmodel:M`` and the transport.  ``--ckpt`` writes the
 one-card format, gathered on rank 0; ``--resume`` restores it onto any
-mesh.  The ``hybrid`` and ``ssm`` families train on data-only meshes (a
-model axis is ROADMAP.md Queue 1 item 4.6).
+mesh, every family on any (data, model) shape.
 
 What it refuses, with a ``ValueError`` before it allocates:
 
@@ -219,12 +218,6 @@ def _check_arch(args):
             "beside its tokens; the launcher feeds tokens and labels only, "
             "as the reference's does: train it through "
             "launch.steps.make_train_step with stubbed embeddings")
-    if cfg.family in ("hybrid", "ssm") and mesh_dims(args)[1] > 1:
-        from repro_torch.launch.steps import make_ctx
-        from repro_torch.launch.mesh import make_mesh
-        from repro_torch.models.transformer import check_mesh
-        check_mesh(cfg, make_ctx(make_mesh(mesh_dims(args),
-                                           ("data", "model"))))
 
 
 def _rank_main(rank: int, port: int, args, dims) -> None:

@@ -23,8 +23,10 @@ collectives are ``torch.autograd.Function``s, so training has their
 backward: :func:`copy_to` (identity, its backward an all-reduce),
 :func:`reduce_from` (an all-reduce, its backward the identity),
 :func:`gather_from` and :func:`split_to` (each the other's backward),
-:func:`exchange` (an all-to-all, its own reverse) and :func:`fsdp_gather`
-(an all-gather, its backward a reduce-scatter).  Without a mesh every
+:func:`exchange` (an all-to-all, its own reverse), :func:`fsdp_gather`
+(an all-gather, its backward a reduce-scatter) and :func:`reduce_both` (an
+all-reduce both ways: a statistic of sharded values that feeds sharded
+work, such as a norm over a sharded width).  Without a mesh every
 function runs today's code, and an axis of size 1 runs no collective.
 """
 from __future__ import annotations
@@ -213,6 +215,12 @@ def fsdp_gather(x, mesh: Optional[Mesh], axes: Axes, dim: int):
     return _FsdpGather.apply(x, mesh, axes, dim) if _live(mesh, axes) else x
 
 
+def reduce_both(x, mesh: Optional[Mesh], axes: Axes):
+    """The sum of x over ``axes``; its gradient is summed too (each rank's
+    use of the sum is a part of the whole)."""
+    return copy_to(reduce_from(x, mesh, axes), mesh, axes)
+
+
 def full_shape(w: torch.Tensor) -> torch.Size:
     """The shape of the whole weight ``w`` is a rank's slice of (its own
     shape when it is whole)."""
@@ -258,6 +266,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     xf = x.to(torch.float32)
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def sharded_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                    width: int, ctx: ShardCtx) -> torch.Tensor:
+    """:func:`rmsnorm` of a tensor whose last dim is this rank's block of
+    ``width`` (and ``scale`` its block): the sum of squares is summed over
+    ``model`` both ways (:func:`reduce_both`)."""
+    xf = x.to(torch.float32)
+    ss = reduce_both(xf.square().sum(dim=-1, keepdim=True), ctx.mesh,
+                     ctx.model_axis)
+    return (xf * torch.rsqrt(ss / width + eps) *
+            scale.to(torch.float32)).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float,

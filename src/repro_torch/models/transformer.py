@@ -48,9 +48,11 @@ the vocabulary.  The model is the rank's shards (:func:`init_params` with
 shards are gathered before it runs and, under autograd, the block runs
 under ``torch.utils.checkpoint``, so its gathered weights are dropped after
 the forward and gathered again for the backward, whose gradients are
-reduce-scattered (:func:`~repro_torch.models.layers.fsdp_gather`).  The
-``hybrid`` and ``ssm`` families run on data-only meshes; a model axis above
-1 raises (their tensor parallelism is ROADMAP.md Queue 1 item 4.6).
+reduce-scattered (:func:`~repro_torch.models.layers.fsdp_gather`).  On a
+model axis the ``hybrid`` family runs its Mamba2 layers' heads a rank
+(:mod:`repro_torch.models.ssm`) and its shared block's attention heads a
+rank, and the ``ssm`` family its mLSTM heads a rank and its sLSTM
+recurrence on every rank (:mod:`repro_torch.models.xlstm`).
 """
 from __future__ import annotations
 
@@ -220,17 +222,16 @@ class MoELayer(nn.Module):
 class _MixBlock(nn.Module):
     """x + mix(RMSNorm(x)): the hybrid's and the xLSTM's blocks.  A
     subclass gives ``mix`` and ``mix_decode``, the block's own output
-    before the residual add.  They run on data-only meshes, where ``ctx``
-    changes nothing in a block."""
+    before the residual add, on the model axis of ``ctx``."""
 
     def forward(self, x, *, positions=None, cond=None, window: int = 0,
                 kernel: str = "flash", ctx: Optional[ShardCtx] = None):
         return x + self.mix(x, positions=positions, window=window,
-                            kernel=kernel)
+                            kernel=kernel, ctx=ctx)
 
     def decode(self, x, cache, pos: int, *, window: int = 0,
                ctx: Optional[ShardCtx] = None):
-        o, cache = self.mix_decode(x, cache, pos, window=window)
+        o, cache = self.mix_decode(x, cache, pos, window=window, ctx=ctx)
         return x + o, cache
 
 
@@ -244,14 +245,14 @@ class SharedAttention(_MixBlock):
         self.attn = attn.GQAttention(cfg, dtype, device)
 
     def mix(self, x, *, positions=None, window: int = 0,
-            kernel: str = "flash"):
+            kernel: str = "flash", ctx=None):
         return attn.gqa_forward(self.norm(x), self.attn, self.cfg,
                                 positions=positions, window=window,
-                                kernel=kernel)
+                                kernel=kernel, ctx=ctx)
 
-    def mix_decode(self, x, cache, pos: int, *, window: int = 0):
+    def mix_decode(self, x, cache, pos: int, *, window: int = 0, ctx=None):
         return attn.gqa_decode(self.norm(x), self.attn, cache, pos, self.cfg,
-                               window=window)
+                               window=window, ctx=ctx)
 
 
 class MambaLayer(_MixBlock):
@@ -264,12 +265,13 @@ class MambaLayer(_MixBlock):
         self.ssm = ssm_mod.Mamba2(cfg, dtype, device)
 
     def mix(self, x, *, positions=None, window: int = 0,
-            kernel: str = "flash"):
+            kernel: str = "flash", ctx=None):
         return ssm_mod.ssm_forward(self.norm(x), self.ssm, self.cfg,
-                                   kernel=kernel)
+                                   kernel=kernel, ctx=ctx)
 
-    def mix_decode(self, x, cache, pos: int, *, window: int = 0):
-        return ssm_mod.ssm_decode(self.norm(x), self.ssm, cache, self.cfg)
+    def mix_decode(self, x, cache, pos: int, *, window: int = 0, ctx=None):
+        return ssm_mod.ssm_decode(self.norm(x), self.ssm, cache, self.cfg,
+                                  ctx)
 
 
 class MLSTMLayer(_MixBlock):
@@ -282,12 +284,13 @@ class MLSTMLayer(_MixBlock):
         self.mlstm = xlstm_mod.MLSTM(cfg, dtype, device)
 
     def mix(self, x, *, positions=None, window: int = 0,
-            kernel: str = "flash"):
-        return xlstm_mod.mlstm_forward(self.norm(x), self.mlstm, self.cfg)
+            kernel: str = "flash", ctx=None):
+        return xlstm_mod.mlstm_forward(self.norm(x), self.mlstm, self.cfg,
+                                       ctx)
 
-    def mix_decode(self, x, cache, pos: int, *, window: int = 0):
+    def mix_decode(self, x, cache, pos: int, *, window: int = 0, ctx=None):
         return xlstm_mod.mlstm_decode(self.norm(x), self.mlstm, cache,
-                                      self.cfg)
+                                      self.cfg, ctx)
 
 
 class SLSTMLayer(_MixBlock):
@@ -300,12 +303,13 @@ class SLSTMLayer(_MixBlock):
         self.slstm = xlstm_mod.SLSTM(cfg, dtype, device)
 
     def mix(self, x, *, positions=None, window: int = 0,
-            kernel: str = "flash"):
-        return xlstm_mod.slstm_forward(self.norm(x), self.slstm, self.cfg)
+            kernel: str = "flash", ctx=None):
+        return xlstm_mod.slstm_forward(self.norm(x), self.slstm, self.cfg,
+                                       ctx)
 
-    def mix_decode(self, x, cache, pos: int, *, window: int = 0):
+    def mix_decode(self, x, cache, pos: int, *, window: int = 0, ctx=None):
         return xlstm_mod.slstm_decode(self.norm(x), self.slstm, cache,
-                                      self.cfg)
+                                      self.cfg, ctx)
 
 
 def hybrid_layout(cfg: ModelConfig):
@@ -427,8 +431,6 @@ class Transformer(nn.Module):
         block under ``torch.utils.checkpoint`` (non-reentrant): its
         activations are recomputed in the backward instead of kept (the
         reference's ``jax.checkpoint``); the values are the same."""
-        if ctx is not None and ctx.mesh is not None:
-            check_mesh(self.cfg, ctx)
         with _swapped(self, _gather_top(self, ctx)):
             if self.cfg.family == "vlm":
                 x, positions = vlm_assemble(tokens, vision_embeds,
@@ -457,17 +459,6 @@ class Transformer(nn.Module):
         return self.forward_aux(tokens, vision_embeds=vision_embeds,
                                 cond_embeds=cond_embeds, window=window,
                                 kernel=kernel)[0]
-
-
-def check_mesh(cfg: ModelConfig, ctx: ShardCtx) -> None:
-    """Raise for a family whose tensor parallelism is not ported, on a mesh
-    with a model axis above 1."""
-    if cfg.family in ("hybrid", "ssm") and ctx.model_size > 1:
-        raise ValueError(
-            f"{cfg.arch_id}: the {cfg.family} family runs on data-only "
-            f"meshes; a model axis of {ctx.model_size} (Mamba2 heads and "
-            "ssm_scan a rank, the xLSTM's w_gate_up) is ROADMAP.md Queue 1 "
-            "item 4.6")
 
 
 @contextlib.contextmanager
@@ -853,19 +844,23 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     On a mesh (``ctx``) ``batch`` is the global batch and each leaf is this
     rank's slice under ``cache_specs`` on the mesh's device, filled with
     the leaf's constant start (zeros, the sLSTM's stabiliser ``M_INIT``); a
-    sliced leaf carries ``full_shape``."""
+    sliced leaf carries ``full_shape``.  A Mamba2 layer's "conv" holds the
+    channels the rank convolves (:func:`~repro_torch.models.ssm.
+    conv_channels`: with its own heads [x_r, B, C], not the spec's
+    contiguous block)."""
     _check_supported(cfg)
     if ctx is not None and ctx.mesh is not None:
-        check_mesh(cfg, ctx)
         tree = _cache_tree(cfg, batch, cache_len, window,
                            torch.device("meta"))
         starts = _cache_tree(cfg, 1, 1, 0, torch.device("cpu"))
         mesh = ctx.mesh
 
-        def local(spec, t, start):
-            out = torch.full(shd.local_shape(t.shape, spec, mesh),
-                             start.reshape(-1)[0].item(), dtype=t.dtype,
-                             device=mesh.device)
+        def local(name, spec, t, start):
+            shape = shd.local_shape(t.shape, spec, mesh)
+            if name == "conv":                  # a Mamba2 layer's
+                shape = (*shape[:-1], ssm_mod.conv_channels(cfg, ctx))
+            out = torch.full(shape, start.reshape(-1)[0].item(),
+                             dtype=t.dtype, device=mesh.device)
             if tuple(out.shape) != tuple(t.shape):
                 out.full_shape = t.shape
             return out
@@ -873,15 +868,17 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     return _cache_tree(cfg, batch, cache_len, window, resolve_device(device))
 
 
-def _zip_tree(fn, *trees):
-    """``fn`` over the leaves of trees of one structure (nested dicts and
-    lists; None kept)."""
+def _zip_tree(fn, *trees, name: str = ""):
+    """``fn(name, *leaves)`` over the leaves of trees of one structure
+    (nested dicts and lists; None kept), ``name`` a leaf's innermost dict
+    key."""
     first = trees[1]
     if isinstance(first, dict):
-        return {k: _zip_tree(fn, *(t[k] for t in trees)) for k in first}
+        return {k: _zip_tree(fn, *(t[k] for t in trees), name=k)
+                for k in first}
     if isinstance(first, list):
-        return [_zip_tree(fn, *leaves) for leaves in zip(*trees)]
-    return None if first is None else fn(*trees)
+        return [_zip_tree(fn, *leaves, name=name) for leaves in zip(*trees)]
+    return None if first is None else fn(name, *trees)
 
 
 def _cache_tree(cfg: ModelConfig, batch: int, cache_len: int, window: int,
@@ -939,8 +936,6 @@ def decode_step(params: Transformer, cache, batch, pos: int,
     E)``, as in the reference.  On a mesh the batch is the global one, the
     cache this rank's (:func:`init_cache` with ``ctx``) and the logits
     this rank's rows, gathered over the vocabulary."""
-    if ctx is not None and ctx.mesh is not None:
-        check_mesh(params.cfg, ctx)
     batch, ctx = local_batch(batch, ctx)
     with run_config(params, cfg), _swapped(params, _gather_top(params, ctx)):
         x = params.embed.embed(batch["tokens"], ctx)

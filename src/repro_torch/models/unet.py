@@ -12,6 +12,17 @@ and 1 of ``Conv2d(padding=1)``.
 Submodule names mirror the reference's param tree (``downs.0.res.0.conv1``,
 ``mid.attn.qkv``, ...), so :func:`params_from_jax` maps a reference tree
 onto :meth:`UNet.load_state_dict` one leaf at a time.
+
+On a model axis (:func:`shard_unet`) each convolution whose output
+channels divide the axis holds its rank's block of them, as the
+reference's rule ``"w"`` shards its rank-4 HWIO kernels on their last dim
+(:func:`param_specs` computes the specs on the reference's names and
+shapes, :func:`reference_leaves`, and moves them onto the port's OIHW
+layout); ``conv_out``'s single channel, the biases, the dense maps, the
+norms and the label embedding stay whole.  Such a convolution computes its
+block of channels (its weight block and its slice of the bias) and
+all-gathers them, so the norms, the attention and the residuals run on
+whole tensors on every rank.
 """
 from __future__ import annotations
 
@@ -24,6 +35,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import UNetConfig
+from repro_torch.models.layers import (ShardCtx, copy_to, full_shape,
+                                      gather_from)
+from repro_torch.parallel import sharding as shd
 
 
 # ---------------------------------------------------------------------------
@@ -44,13 +58,25 @@ def conv_same(h: torch.Tensor, weight: torch.Tensor,
 
 
 class Conv(nn.Conv2d):
-    """Conv2d with XLA's "SAME" padding (:func:`conv_same`)."""
+    """Conv2d with XLA's "SAME" padding (:func:`conv_same`).  Its weight
+    may be a model-axis rank's block of the output channels
+    (:func:`shard_unet` sets ``ctx``): it computes that block and gathers
+    the channels."""
+
+    ctx: Optional[ShardCtx] = None
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
         super().__init__(cin, cout, k, stride=stride, padding=0)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return conv_same(h, self.weight, self.bias, self.stride[0])
+        w = self.weight.shape[0]
+        if w == self.out_channels:
+            return conv_same(h, self.weight, self.bias, self.stride[0])
+        mesh, axis = self.ctx.mesh, self.ctx.model_axis
+        lo = self.ctx.model_rank * w
+        out = conv_same(copy_to(h, mesh, axis), self.weight,
+                        self.bias[lo:lo + w], self.stride[0])
+        return gather_from(out, mesh, axis, 1)
 
 
 def group_norm(groups: int, c: int) -> nn.GroupNorm:
@@ -272,6 +298,71 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
                 walk(v, f"{prefix}{k}.")
     walk(tree, "")
     return out
+
+
+def reference_leaves(model: UNet) -> Dict[str, tuple]:
+    """``{port name: (reference dotted name, reference shape, perm)}`` for
+    every parameter, ``perm[i]`` the reference dim of the port's dim i:
+    a conv's OIHW ``weight`` is the HWIO ``w``, a dense map's (out, in)
+    ``weight`` the (in, out) ``w``, a GroupNorm's ``weight``/``bias`` the
+    ``g_scale``/``g_bias``, the label embedding's ``weight`` the
+    ``label_emb`` leaf of its parent; biases keep their names."""
+    out: Dict[str, tuple] = {}
+    for name, m in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(m, nn.Conv2d):
+            o, i, kh, kw = full_shape(m.weight)
+            out[pre + "weight"] = (pre + "w", (kh, kw, i, o), (3, 2, 0, 1))
+        elif isinstance(m, nn.Linear):
+            o, i = m.weight.shape
+            out[pre + "weight"] = (pre + "w", (i, o), (1, 0))
+        elif isinstance(m, nn.GroupNorm):
+            out[pre + "weight"] = (pre + "g_scale", tuple(m.weight.shape),
+                                   (0,))
+            out[pre + "bias"] = (pre + "g_bias", tuple(m.bias.shape), (0,))
+            continue
+        elif isinstance(m, nn.Embedding):
+            out[pre + "weight"] = (name, tuple(m.weight.shape), (0, 1))
+            continue
+        else:
+            continue
+        if m.bias is not None:
+            out[pre + "bias"] = (pre + "bias", tuple(m.bias.shape), (0,))
+    return out
+
+
+def param_specs(model: UNet, ctx: ShardCtx) -> Dict[str, tuple]:
+    """``{port name: spec}`` in the port's layouts: the reference's
+    ``param_specs`` of :func:`reference_leaves`'s names and shapes, each
+    spec's entries moved to the port's dims."""
+    leaves = reference_leaves(model)
+    ref = shd.param_specs({r: shape for r, shape, _ in leaves.values()},
+                          ctx)
+    return {n: tuple(ref[r][d] for d in perm)
+            for n, (r, _, perm) in leaves.items()}
+
+
+def shard_unet(model: UNet, ctx: ShardCtx) -> UNet:
+    """Cut ``model``'s parameters in place to this rank's slices under
+    :func:`param_specs` on ``ctx``'s mesh (a convolution's block of output
+    channels; a cut parameter carries ``full_shape`` and
+    ``shard_slices``), and hand each cut convolution the ``ctx``.  The
+    specs are kept in ``model.param_specs``."""
+    specs = param_specs(model, ctx)
+    for name, p in list(model.named_parameters()):
+        spec = specs[name]
+        if not any(spec):
+            continue
+        owner, _, leaf = name.rpartition(".")
+        m = model.get_submodule(owner)
+        cut = shd.shard_slices(p.shape, spec, ctx.mesh)
+        new = nn.Parameter(p.detach()[cut].clone(),
+                           requires_grad=p.requires_grad)
+        new.full_shape, new.shard_slices = p.shape, cut
+        setattr(m, leaf, new)
+        m.ctx = ctx
+    model.param_specs = specs
+    return model
 
 
 def flops_per_image(cfg: UNetConfig) -> float:

@@ -17,19 +17,38 @@ rounded to x's dtype and the chunks computed in float32; the gate branch
 decode keeps q, k and v in float32 unrounded.  The sLSTM runs in float32
 and its GELU is the tanh approximation (``jax.nn.gelu``'s default).  No
 Pallas kernel lies on this path in the reference, and none here.
+
+On a model axis (a ``ctx`` with ``model`` > 1) the blocks hold what the
+reference's rules give their leaves by name: the mLSTM's w_up and
+w_gate_up by column, norm_scale over d_inner and w_down by row, its other
+maps whole; the sLSTM's w_z (Mamba2's rule) and w_up by column,
+norm_scale over d and w_down by row, its gates' other maps, biases and
+recurrent maps whole.  An mLSTM whose heads divide the axis runs its own
+heads: u gathered from the column blocks (its gradient reduce-scattered
+back), q, k, v and the gates of its heads through its columns of the whole
+maps (their gradients summed over ``model``), its cache's state and norm
+its heads', the output RMSNorm's sum of squares summed both ways, and
+w_down row-parallel with float32 partial sums all-reduced before the cast.
+Otherwise (its heads not dividing the axis) the heads run replicated on
+the gathered blocks.  The sLSTM's recurrence runs replicated on every
+rank: its z input gathered from w_z's columns, its norm_scale gathered,
+and its w_up / w_down a tensor-parallel MLP.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.layers import (dense_f32, full_shape, rmsnorm,
-                                      trunc_normal_)
+from repro_torch.models.layers import (ShardCtx, copy_to, dense_f32,
+                                      fsdp_gather, full_shape, gather_from,
+                                      reduce_from, rmsnorm, sharded_rmsnorm,
+                                      split_to, tp, trunc_normal_)
 
 # the sLSTM stabiliser's start, as the reference's
 M_INIT = -1e9
@@ -81,32 +100,94 @@ def mlstm_chunk_len(s: int) -> int:
     return c
 
 
-def _mlstm_gates(u: torch.Tensor, p: MLSTM):
+@dataclasses.dataclass(frozen=True)
+class MSplit:
+    """How an mLSTM lies over the model axis of ``ctx``: ``cols`` when
+    d_inner's columns are sharded (w_up, w_gate_up, norm_scale, w_down),
+    ``heads`` when the heads divide the axis too (this rank runs its own).
+    All False without a model axis."""
+
+    ctx: Optional[ShardCtx] = None
+    cols: bool = False
+    heads: bool = False
+
+    @classmethod
+    def of(cls, p: MLSTM, cfg: ModelConfig,
+           ctx: Optional[ShardCtx]) -> "MSplit":
+        if not tp(ctx) or p.w_up.shape[1] == 2 * cfg.d_model:
+            return cls()
+        return cls(ctx, cols=True,
+                   heads=cfg.n_heads % ctx.model_size == 0)
+
+    def _args(self):
+        return self.ctx.mesh, self.ctx.model_axis
+
+    def up(self, x, p: MLSTM):
+        """(u as the rank's heads read it: whole, in x's dtype; g, this
+        rank's columns of the gate branch in float32)."""
+        if not self.cols:
+            return x @ p.w_up, dense_f32(x, p.w_gate_up)
+        xs = copy_to(x, *self._args())
+        u, g = xs @ p.w_up, dense_f32(xs, p.w_gate_up)
+        if self.heads:
+            # each rank reads all of u for its heads: the gradient is a
+            # part of the whole, summed back onto the owner's block
+            return fsdp_gather(u, *self._args(), -1), g
+        return gather_from(u, *self._args(), -1), g
+
+    def maps(self, p: MLSTM):
+        """(w_q, w_k, w_v, w_i, w_f, f_bias) of the rank's heads: column
+        slices of the whole maps, their gradients summed over ``model``."""
+        ws = (p.w_q, p.w_k, p.w_v, p.w_i, p.w_f, p.f_bias)
+        if not self.heads:
+            return ws
+        n, r = self.ctx.model_size, self.ctx.model_rank
+        out = []
+        for w in ws:
+            w = copy_to(w, *self._args())
+            c = w.shape[-1] // n
+            out.append(w[..., r * c:(r + 1) * c])
+        return tuple(out)
+
+    def out(self, h, g, p: MLSTM, cfg: ModelConfig, dtype):
+        """RMSNorm(h) · silu(g), down-projected, in ``dtype``."""
+        if not self.cols:
+            h = rmsnorm(h.to(dtype), p.norm_scale, cfg.norm_eps)
+            return (h * F.silu(g).to(dtype)) @ p.w_down
+        if self.heads:
+            h = sharded_rmsnorm(h.to(dtype), p.norm_scale, cfg.norm_eps,
+                                2 * cfg.d_model, self.ctx)
+        else:
+            h = rmsnorm(h.to(dtype), gather_from(p.norm_scale,
+                                                 *self._args(), 0),
+                        cfg.norm_eps)
+            h = split_to(h, *self._args(), -1)
+        out = dense_f32(h * F.silu(g).to(dtype), p.w_down)
+        return reduce_from(out, *self._args()).to(dtype)
+
+
+def _mlstm_gates(u: torch.Tensor, w_i, w_f, f_bias):
     """Input and forget gates (..., nh) in float32 from u in x's dtype."""
     uf = u.to(torch.float32)
-    return torch.sigmoid(uf @ p.w_i), torch.sigmoid(uf @ p.w_f + p.f_bias)
+    return torch.sigmoid(uf @ w_i), torch.sigmoid(uf @ w_f + f_bias)
 
 
-def _mlstm_out(h: torch.Tensor, g: torch.Tensor, p: MLSTM,
-               cfg: ModelConfig, dtype) -> torch.Tensor:
-    """RMSNorm(h) · silu(g), down-projected, in ``dtype``."""
-    h = rmsnorm(h.to(dtype), p.norm_scale, cfg.norm_eps)
-    return (h * F.silu(g).to(dtype)) @ p.w_down
-
-
-def mlstm_forward(x, p: MLSTM, cfg: ModelConfig):
+def mlstm_forward(x, p: MLSTM, cfg: ModelConfig,
+                  ctx: Optional[ShardCtx] = None):
     """x: (B, S, d) -> (B, S, d) in x's dtype, in chunks of
-    :func:`mlstm_chunk_len` (S must be a whole number of them)."""
+    :func:`mlstm_chunk_len` (S must be a whole number of them).  On a
+    model axis (``ctx``) the rank's heads (:class:`MSplit`)."""
     b, s, d = x.shape
-    di, nh = 2 * d, cfg.n_heads
-    hd = di // nh
+    sp = MSplit.of(p, cfg, ctx)
+    w_q, w_k, w_v, w_i, w_f, f_bias = sp.maps(p)
+    di, nh = w_q.shape[1], w_i.shape[1]
+    hd = 2 * d // cfg.n_heads
     f32 = torch.float32
-    u = x @ p.w_up
-    g = dense_f32(x, p.w_gate_up)
-    q = (u @ p.w_q).reshape(b, s, nh, hd) * (hd ** -0.5)
-    k = (u @ p.w_k).reshape(b, s, nh, hd)
-    v = (u @ p.w_v).reshape(b, s, nh, hd)
-    ig, fg = _mlstm_gates(u, p)                                # (B,S,nh)
+    u, g = sp.up(x, p)
+    q = (u @ w_q).reshape(b, s, nh, hd) * (hd ** -0.5)
+    k = (u @ w_k).reshape(b, s, nh, hd)
+    v = (u @ w_v).reshape(b, s, nh, hd)
+    ig, fg = _mlstm_gates(u, w_i, w_f, f_bias)                 # (B,S,nh)
     l = mlstm_chunk_len(s)
     nc = s // l
     if nc * l != s:
@@ -144,7 +225,7 @@ def mlstm_forward(x, p: MLSTM, cfg: ModelConfig):
         norm = norm * end[:, :, None] + torch.einsum("bshd,bsh->bhd", kc,
                                                     wstate)
     h = torch.cat(outs, dim=1).reshape(b, s, di)
-    return _mlstm_out(h, g, p, cfg, x.dtype)
+    return sp.out(h, g, p, cfg, x.dtype)
 
 
 def mlstm_init_cache(cfg: ModelConfig, batch: int, device
@@ -160,18 +241,20 @@ def mlstm_init_cache(cfg: ModelConfig, batch: int, device
 
 
 def mlstm_decode(x, p: MLSTM, cache: Dict[str, torch.Tensor],
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, ctx: Optional[ShardCtx] = None):
     """One token of the recurrence.  x: (B, 1, d).  Returns (out (B, 1, d),
-    cache), the cache's entries replaced by their next values."""
-    b, d = x.shape[0], cfg.d_model
-    di, nh = 2 * d, cfg.n_heads
-    hd = di // nh
-    u = (x @ p.w_up)[:, 0]
-    g = dense_f32(x, p.w_gate_up)[:, 0]
-    q = dense_f32(u, p.w_q).reshape(b, nh, hd) * (hd ** -0.5)
-    k = dense_f32(u, p.w_k).reshape(b, nh, hd)
-    v = dense_f32(u, p.w_v).reshape(b, nh, hd)
-    ig, fg = _mlstm_gates(u, p)                                # (B,nh)
+    cache), the cache's entries replaced by their next values.  On a model
+    axis the rank's heads, as :func:`mlstm_forward`."""
+    b = x.shape[0]
+    sp = MSplit.of(p, cfg, ctx)
+    w_q, w_k, w_v, w_i, w_f, f_bias = sp.maps(p)
+    di, nh = w_q.shape[1], w_i.shape[1]
+    hd = 2 * cfg.d_model // cfg.n_heads
+    u, g = (t[:, 0] for t in sp.up(x, p))
+    q = dense_f32(u, w_q).reshape(b, nh, hd) * (hd ** -0.5)
+    k = dense_f32(u, w_k).reshape(b, nh, hd)
+    v = dense_f32(u, w_v).reshape(b, nh, hd)
+    ig, fg = _mlstm_gates(u, w_i, w_f, f_bias)                 # (B,nh)
     state = cache["state"] * fg[:, :, None, None] + \
         ig[:, :, None, None] * torch.einsum("bhd,bhp->bhdp", k, v)
     norm = cache["norm"] * fg[:, :, None] + ig[:, :, None] * k
@@ -179,7 +262,7 @@ def mlstm_decode(x, p: MLSTM, cache: Dict[str, torch.Tensor],
     nv = torch.einsum("bhd,bhd->bh", q, norm)
     h = (y / torch.clamp_min(nv.abs(), 1.0)[..., None]).reshape(b, di)
     cache["state"], cache["norm"] = state, norm
-    return _mlstm_out(h, g, p, cfg, x.dtype)[:, None], cache
+    return sp.out(h, g, p, cfg, x.dtype)[:, None], cache
 
 
 # ---------------------------------------------------------------------------
@@ -223,10 +306,20 @@ class SLSTM(nn.Module):
         return [getattr(self, f"r_{n}").to(torch.float32) for n in GATES]
 
 
-def _slstm_pre(xf: torch.Tensor, p: SLSTM) -> torch.Tensor:
-    """The gates' input parts (4, ..., d) in float32 from float32 x."""
-    return torch.stack([xf @ getattr(p, f"w_{n}").to(torch.float32) + p.b[i]
-                        for i, n in enumerate(GATES)])
+def _slstm_pre(xf: torch.Tensor, p: SLSTM,
+               ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """The gates' input parts (4, ..., d) in float32 from float32 x; a
+    gate map held by column on a model axis (w_z) gathered."""
+    out = []
+    for i, n in enumerate(GATES):
+        w = getattr(p, f"w_{n}").to(torch.float32)
+        if w.shape[1] != w.shape[0]:
+            mesh, axis = ctx.mesh, ctx.model_axis
+            pre = gather_from(copy_to(xf, mesh, axis) @ w, mesh, axis, -1)
+        else:
+            pre = xf @ w
+        out.append(pre + p.b[i])
+    return torch.stack(out)
 
 
 def _slstm_step(r, carry, xt):
@@ -247,13 +340,24 @@ def _slstm_step(r, carry, xt):
     return c, n, h, m_new
 
 
-def _slstm_out(hs: torch.Tensor, p: SLSTM, cfg: ModelConfig,
-               dtype) -> torch.Tensor:
+def _slstm_out(hs: torch.Tensor, p: SLSTM, cfg: ModelConfig, dtype,
+               ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """RMSNorm, the up map with a float32 result, tanh GELU, the down map,
-    in ``dtype``."""
-    hs = rmsnorm(hs.to(dtype), p.norm_scale, cfg.norm_eps)
-    u = F.gelu(dense_f32(hs, p.w_up), approximate="tanh").to(dtype)
-    return u @ p.w_down
+    in ``dtype``.  On a model axis the norm's scale is gathered and the
+    up and down maps run tensor-parallel, the down map's float32 partial
+    sums all-reduced before the cast."""
+    d = cfg.d_model
+    scale = p.norm_scale
+    if tp(ctx) and scale.shape[0] != d:
+        scale = gather_from(scale, ctx.mesh, ctx.model_axis, 0)
+    hs = rmsnorm(hs.to(dtype), scale, cfg.norm_eps)
+    if not tp(ctx) or p.w_up.shape[1] == 2 * d:
+        u = F.gelu(dense_f32(hs, p.w_up), approximate="tanh").to(dtype)
+        return u @ p.w_down
+    mesh, axis = ctx.mesh, ctx.model_axis
+    u = F.gelu(dense_f32(copy_to(hs, mesh, axis), p.w_up),
+               approximate="tanh").to(dtype)
+    return reduce_from(dense_f32(u, p.w_down), mesh, axis).to(dtype)
 
 
 def slstm_init_cache(cfg: ModelConfig, batch: int, device
@@ -268,11 +372,12 @@ def slstm_init_cache(cfg: ModelConfig, batch: int, device
                             device=device)}
 
 
-def slstm_forward(x, p: SLSTM, cfg: ModelConfig):
+def slstm_forward(x, p: SLSTM, cfg: ModelConfig,
+                  ctx: Optional[ShardCtx] = None):
     """x: (B, S, d) -> (B, S, d) in x's dtype: the recurrence over S, one
-    step at a time."""
+    step at a time (on every rank of a model axis)."""
     b, s, _ = x.shape
-    pre = _slstm_pre(x.to(torch.float32), p)                   # (4,B,S,d)
+    pre = _slstm_pre(x.to(torch.float32), p, ctx)              # (4,B,S,d)
     r = p.recurrent()
     st = slstm_init_cache(cfg, b, x.device)
     carry = (st["c"], st["n"], st["h"], st["m"])
@@ -280,15 +385,15 @@ def slstm_forward(x, p: SLSTM, cfg: ModelConfig):
     for t in range(s):
         carry = _slstm_step(r, carry, pre[:, :, t])
         hs.append(carry[2])
-    return _slstm_out(torch.stack(hs, dim=1), p, cfg, x.dtype)
+    return _slstm_out(torch.stack(hs, dim=1), p, cfg, x.dtype, ctx)
 
 
 def slstm_decode(x, p: SLSTM, cache: Dict[str, torch.Tensor],
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, ctx: Optional[ShardCtx] = None):
     """One step.  x: (B, 1, d).  Returns (out (B, 1, d), cache), the cache's
     entries replaced by their next values."""
-    pre = _slstm_pre(x.to(torch.float32)[:, 0], p)             # (4,B,d)
+    pre = _slstm_pre(x.to(torch.float32)[:, 0], p, ctx)        # (4,B,d)
     carry = (cache["c"], cache["n"], cache["h"], cache["m"])
     c, n, h, m = _slstm_step(p.recurrent(), carry, pre)
     cache.update(c=c, n=n, h=h, m=m)
-    return _slstm_out(h, p, cfg, x.dtype)[:, None], cache
+    return _slstm_out(h, p, cfg, x.dtype, ctx)[:, None], cache

@@ -184,6 +184,14 @@ class EngineConfig:
     ``hosts`` must match; None simulates the hosts in one process.
     ``host_id`` defaults to the pod's, else 0; an explicit 0 is honoured
     (a None check, not truthiness).
+
+    Model axis: a server model whose parameters are a rank's slices
+    (``models/unet.py``'s :func:`~repro_torch.models.unet.shard_unet`) is
+    served by its model ranks in lockstep, each running this engine: the
+    same lanes, schedule and model calls, each call gathering the
+    convolutions' output channels.  Their windows run eagerly: a CUDA
+    graph cannot hold the gloo barriers of the ranks' exchange, so
+    :class:`ServeEngine` refuses such a model with ``cuda_graphs``.
     """
 
     sched: DiffusionSchedule
@@ -499,6 +507,14 @@ class ServeEngine:
         self.config = cfg
         self.device = resolve_device(cfg.device)
         check_on_device(server_model, self.device, "server model")
+        if cfg.cuda_graphs and any(hasattr(p, "shard_slices")
+                                   for p in server_model.parameters()):
+            raise ValueError(
+                "a server model sharded over a model axis with "
+                "cuda_graphs=True: a CUDA graph cannot hold the gloo "
+                "barriers around the model ranks' exchange of each "
+                "convolution's channels; run the windows eagerly "
+                "(cuda_graphs=False)")
         self.sched = cfg.sched
         self.server_model = server_model
         self.image_shape = cfg.image_shape
@@ -584,7 +600,9 @@ class ServeEngine:
             functools.partial(self.backend.guided_masked_index_step,
                               clip=self.clip),
             conditional=self._conditional)
-        n_params = sum(p.numel() for p in server_model.parameters())
+        # a model-axis rank's slices count as the whole weights they cut
+        n_params = sum(math.prod(getattr(p, "full_shape", p.shape))
+                       for p in server_model.parameters())
         # forward-only proxy, as the reference: ~2 FLOP per param per call
         self.flops_per_call = (cfg.flops_per_call
                                if cfg.flops_per_call is not None

@@ -102,7 +102,11 @@ def run_lm(case, state, ctx, out):
     out["decode_paths"] = np.array(
         sorted({r[0] for r in moe_mod.RECORD}) or ["none"])
     moe_mod.RECORD = None
-    if cfg.family not in ("hybrid", "ssm"):
+    if cfg.family == "hybrid":
+        layer = tf.init_cache(cfg, b, s, ctx=ctx)["groups"][0]["ssm"][0]
+        out["conv_local_shape"] = np.array(layer["conv"].shape)
+        out["state_local_shape"] = np.array(layer["state"].shape)
+    elif cfg.family != "ssm":
         out["kv_local_shape"] = np.array(
             tf.init_cache(cfg, b, s, ctx=ctx)["layers"][-1][
                 "c_kv" if cfg.attn_type == "mla" else "k"].shape)

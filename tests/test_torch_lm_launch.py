@@ -170,10 +170,21 @@ def test_launcher_refuses_more_than_one_card(flags, capfd):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m"])
-def test_launcher_refuses_a_model_axis_for_recurrent_families(arch):
-    with pytest.raises(ValueError, match="Queue 1 item 4.6"):
-        train.main(["--device", "cpu", "--arch", arch, "--reduced",
-                    "--mesh-shape", "1x2"])
+def test_launcher_refuses_a_model_axis_for_recurrent_families(arch, capfd):
+    """They no longer refuse one: both launchers run the recurrent
+    families on a 1x2 mesh (their heads a rank, gloo processes, rank 0
+    prints)."""
+    from repro_torch.launch import serve
+    train.main(["--device", "cpu", "--arch", arch, "--reduced",
+                "--devices", "2", "--mesh-shape", "1x2", "--steps", "2",
+                "--log-every", "1", "--batch", "2", "--seq", "16", "--lr",
+                "3e-3"])
+    serve.main(["--device", "cpu", "--arch", arch, "--devices", "2",
+                "--mesh-shape", "1x2", "--requests", "1", "--batch", "2",
+                "--prompt-len", "8", "--tokens", "2"])
+    out = capfd.readouterr().out
+    assert "done: loss" in out and "serving loop OK" in out
+    assert out.count("mesh=data:1xmodel:2 transport=gloo") == 2
 
 
 def test_launcher_takes_one_device_spelled_out(capsys):

@@ -14,9 +14,13 @@ by index) and the heads not dividing the axis (replicated, and
 reference's EP semantics, :func:`_torch_parity.ep_emulation`, which
 ``test_reference_ep_and_qshard_match_the_emulation`` holds against the
 reference's real ``shard_map`` paths); Kimi-K2, Qwen2-VL and MusicGen;
-``cache_seq_shard`` decode chains; 3 train steps (Yi on 2x2 with and
-without FSDP and with its KV heads sliced on 1x2, Zamba2 on 2x1 with
-FSDP, DeepSeek-V2 on 1x2 and 2x2 dropless and dropping: loss and
+``cache_seq_shard`` decode chains; Zamba2 and xLSTM on every world (their
+Mamba2 and mLSTM heads a rank, the sLSTM replicated) and with heads that
+do not divide the model axis; 3 train steps (Yi on 2x2 with and without
+FSDP and with its KV heads sliced on 1x2, Zamba2 on 2x1 with FSDP and on
+1x2, xLSTM on 1x2 and on 2x2 with FSDP, both with heads that do not
+divide the axis on 1x2, DeepSeek-V2 on 1x2 and 2x2 dropless and dropping:
+loss and
 grad_norm against the one-rank port, which for an MoE runs the mesh's
 expert-parallel semantics a block at a time, the gradients against
 ``jax.value_and_grad`` of the reference's ``lm_loss``, for an MoE under
@@ -63,6 +67,8 @@ B, S = 2, 8
 LOGIT_ATOL = 2e-4
 TRAIN = dict(steps=3, lr=3e-3, batch=4)
 
+# 15 Mamba2 heads of 32 and 3 attention heads: neither divides model 2
+ZAMBA2_ODD = dict(d_model=240, ssm_heads=15, n_heads=3, n_kv_heads=3)
 # name -> (arch, config fields replaced, extra case fields)
 LM_CASES = {
     "yi": ("yi-6b", {}, {}),
@@ -82,15 +88,26 @@ LM_CASES = {
                       dict(cache_seq_shard=True, prefill=False)),
     "musicgen-cseq": ("musicgen-large", {},
                       dict(cache_seq_shard=True, prefill=False)),
-    # the recurrent families on a data-only mesh
-    "zamba2": ("zamba2-7b", {}, dict(worlds=["2x1"])),
-    "xlstm": ("xlstm-125m", {}, dict(worlds=["2x1"])),
+    # the recurrent families: data-only, their heads a rank, and heads
+    # that do not divide the model axis (run replicated)
+    "zamba2": ("zamba2-7b", {}, dict(worlds=["2x1", "1x2", "2x2"])),
+    "xlstm": ("xlstm-125m", {}, dict(worlds=["2x1", "1x2", "2x2"])),
+    "zamba2-h15": ("zamba2-7b", ZAMBA2_ODD, {}),
+    "xlstm-h1": ("xlstm-125m", dict(n_heads=1, n_kv_heads=1), {}),
 }
 # name -> (arch, fsdp, world, config fields replaced)
 TRAIN_CASES = {
     "train": ("yi-6b", False, "2x2", {}),
     "train-fsdp": ("yi-6b", True, "2x2", {}),
     "train-zamba2-fsdp": ("zamba2-7b", True, "2x1", {}),
+    # the recurrent families on a model axis: B/C and the conv's B/C
+    # columns, the summed norm statistics, the mLSTM's gathered u
+    "train-zamba2-1x2": ("zamba2-7b", False, "1x2", {}),
+    "train-xlstm-1x2": ("xlstm-125m", False, "1x2", {}),
+    "train-xlstm-fsdp-2x2": ("xlstm-125m", True, "2x2", {}),
+    "train-zamba2-h15": ("zamba2-7b", False, "1x2", ZAMBA2_ODD),
+    "train-xlstm-h1": ("xlstm-125m", False, "1x2",
+                       dict(n_heads=1, n_kv_heads=1)),
     # KV 1 on model 2: wk/wv replicated, each rank slicing its KV head
     "train-yi-kv1": ("yi-6b", False, "1x2",
                      dict(n_heads=8, n_kv_heads=1, head_dim=32)),
@@ -102,6 +119,10 @@ TRAIN_CASES = {
     "train-deepseek-drop-fsdp": ("deepseek-v2-236b", True, "2x2",
                                  dict(capacity_factor=1.0)),
 }
+
+# the recurrent families' train cases on a model axis
+RECURRENT_TP = ("train-zamba2-1x2", "train-xlstm-1x2", "train-xlstm-fsdp-2x2",
+                "train-zamba2-h15", "train-xlstm-h1")
 
 
 def _cfgs(arch, replace):
@@ -278,13 +299,25 @@ def test_mesh_matches_reference(worlds, name, world):
         np.testing.assert_allclose(out["decode"], chain, rtol=0,
                                    atol=LOGIT_ATOL)
     arch = LM_CASES[name][0]
-    if name in ("zamba2", "xlstm"):
+    d, m = WORLDS[world]
+    if name == "zamba2":
+        # a rank's heads' state and its own conv channels [x_r, B, C]
+        cfg = _inputs(name)[1]
+        assert tuple(out["state_local_shape"]) == (
+            B // d, cfg.ssm_heads // m, cfg.ssm_state, cfg.ssm_head_dim)
+        assert tuple(out["conv_local_shape"]) == (
+            B // d, cfg.conv_width - 1,
+            cfg.d_inner_ssm // m + 2 * cfg.ssm_state)
+    if name == "zamba2-h15":
+        cfg = _inputs(name)[1]                          # whole, replicated
+        assert tuple(out["conv_local_shape"])[2] == \
+            cfg.d_inner_ssm + 2 * cfg.ssm_state
+    if arch in ("zamba2-7b", "xlstm-125m"):
         return
     if arch in ("deepseek-v2-236b", "kimi-k2-1t-a32b"):
         if extra.get("prefill", True):
             assert set(out["prefill_paths"]) == {"all_to_all"}
         assert set(out["decode_paths"]) == {"replicated"}
-    d, m = WORLDS[world]
     kv = tuple(out["kv_local_shape"])
     if name == "yi":
         assert kv == (B // d, S, 4 // m, 64)            # KV heads sharded
@@ -362,7 +395,15 @@ def test_mesh_train_matches_one_rank_and_reference(worlds, name):
     out = _out(worlds, TRAIN_CASES[name][2], name)
     losses, norms = _one_rank_train(name)
     np.testing.assert_allclose(out["loss"], losses, rtol=1e-5)
-    np.testing.assert_allclose(out["grad_norm"], norms, rtol=1e-5)
+    if name in RECURRENT_TP:
+        # the first step's grad_norm at 1e-5; AdamW's normalised update
+        # turns the ~1e-6 relative rounding of the sharded sums into up
+        # to lr on gradient entries near zero, so later steps drift
+        # (6e-4 by step 3 at lr 3e-3, 3e-6 at lr 3e-4)
+        np.testing.assert_allclose(out["grad_norm"][0], norms[0], rtol=1e-5)
+        np.testing.assert_allclose(out["grad_norm"], norms, rtol=1e-3)
+    else:
+        np.testing.assert_allclose(out["grad_norm"], norms, rtol=1e-5)
     assert out["loss"][-1] < out["loss"][0]
     jcfg, _, tree, batch = _inputs(name)
     jb = _jbatch(batch)
@@ -464,17 +505,33 @@ def test_init_params_on_a_mesh_draws_the_one_card_weights():
 
 
 def test_hybrid_and_ssm_refuse_a_model_axis():
+    """They no longer refuse one: a rank's cache on a 1x2 mesh holds its
+    Mamba2 heads' state and conv channels [x_r, B, C], its mLSTM heads'
+    state and norm, and the sLSTM's whole (B, d) carries; a rank's model
+    holds the specs' slices (no process group: neither runs a
+    collective)."""
     mesh = Mesh(shape={"data": 1, "model": 2}, coords={"data": 0,
-                                                        "model": 0},
+                                                        "model": 1},
                 device=torch.device("cpu"))
-    for arch in ("zamba2-7b", "xlstm-125m"):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(ValueError, match="Queue 1 item 4.6"):
-            ttf.init_cache(cfg, 2, 8, ctx=make_ctx(mesh))
-        model = ttf.Transformer(cfg, device="cpu")
-        with pytest.raises(ValueError, match="Queue 1 item 4.6"):
-            ttf.forward(model, {"tokens": torch.zeros(2, 8).long()}, cfg,
-                        ctx=make_ctx(mesh))
+    ctx = make_ctx(mesh)
+    cfg = get_config("zamba2-7b").reduced()
+    layer = ttf.init_cache(cfg, 2, 8, ctx=ctx)["groups"][0]["ssm"][0]
+    assert layer["state"].shape == (2, cfg.ssm_heads // 2, cfg.ssm_state,
+                                    cfg.ssm_head_dim)
+    assert layer["conv"].shape == (2, cfg.conv_width - 1,
+                                   cfg.d_inner_ssm // 2 + 2 * cfg.ssm_state)
+    model = ttf.init_params(cfg, seed=1, ctx=ctx)
+    ssm = model.groups[0][0].ssm
+    assert ssm.w_x.shape[1] == cfg.d_inner_ssm // 2
+    assert ssm.conv_w.shape[1] == (cfg.d_inner_ssm + 2 * cfg.ssm_state) // 2
+    assert ssm.w_B.shape == (cfg.d_model, cfg.ssm_state)
+    cfg = get_config("xlstm-125m").reduced()
+    cache = ttf.init_cache(cfg, 2, 8, ctx=ctx)["groups"][0]
+    hd = 2 * cfg.d_model // cfg.n_heads
+    assert cache["mlstm"][0]["state"].shape == (2, cfg.n_heads // 2, hd, hd)
+    assert cache["mlstm"][0]["norm"].shape == (2, cfg.n_heads // 2, hd)
+    assert cache["slstm"]["m"].shape == (2, cfg.d_model)
+    assert torch.all(cache["slstm"]["m"] == -1e9)
 
 
 EP_SCRIPT = r"""

@@ -69,17 +69,27 @@ def test_lane_owners_reject_uneven_blocks_as_the_reference(slots, hosts):
         tshd.lane_owners(slots, hosts)
 
 
-def test_mesh_shape_parses_and_refuses_a_model_axis():
-    """A model axis parses (the LM launchers run it); serve_diffusion still
-    refuses one: the U-Net's model axis is ROADMAP Queue 1 item 4.7."""
+def test_mesh_shape_parses_and_refuses_a_model_axis(tmp_path, capfd):
+    """A model axis parses, and serve_diffusion no longer refuses one: a
+    2x2 mesh serves two pod hosts of two model ranks each, each host's
+    rows the same bits on its model ranks."""
+    import json
+
     from repro_torch.launch import serve_diffusion
     assert host_mesh("2x1", 2) == (2, 1)
     assert host_mesh("", 3) == (3, 1)
     assert host_mesh("2x2", 4) == (2, 2)
     assert host_mesh("1x8") == (1, 8)
-    with pytest.raises(ValueError, match="Queue 1 item 4.7"):
-        serve_diffusion.main(["--device", "cpu", "--devices", "4",
-                              "--mesh-shape", "2x2"])
+    out = tmp_path / "pod.json"
+    serve_diffusion.main(["--device", "cpu", "--devices", "4",
+                          "--mesh-shape", "2x2", "--config", "launcher",
+                          "--T", "6", "--requests", "4", "--slots", "4",
+                          "--clients", "2", "--json", str(out)])
+    assert "serve_diffusion OK" in capfd.readouterr().out
+    summary = json.loads(out.read_text())
+    assert summary["mesh"] == "data:2xmodel:2"
+    assert [h["host"] for h in summary["hosts"]] == [0, 1]
+    assert all(h["model_bitwise"] for h in summary["hosts"])
     with pytest.raises(ValueError, match="does not cover"):
         host_mesh("2x1", 4)
     with pytest.raises(ValueError, match="is not DxM"):

@@ -3,7 +3,7 @@ processes joined by a gloo group against the in-process single host (the
 union of their owned rows bitwise, retire ticks equal, with the client
 segment in both finish modes, wave packing, guided pairs across the two
 blocks, and one trace track a host), and ``serve_diffusion --devices 2
---mesh-shape 2x1`` against ``--devices 1``.  Every child has a time limit,
+--mesh-shape 2x1`` and ``1x2`` against ``--devices 1``.  Every child has a time limit,
 and its whole process group is killed when the limit runs out."""
 import json
 import os
@@ -148,7 +148,32 @@ def test_serve_diffusion_two_devices_merge_the_one_device_run(tmp_path):
         np.testing.assert_array_equal(rows[0][f], rows[1][f], err_msg=f)
 
 
-def test_serve_diffusion_refuses_a_model_axis():
-    with pytest.raises(ValueError, match="Queue 1 item 4"):
-        serve_diffusion.main(["--device", "cpu", "--devices", "4",
-                              "--mesh-shape", "2x2"])
+def test_serve_diffusion_refuses_a_model_axis(tmp_path):
+    """It no longer refuses one: ``--devices 2 --mesh-shape 1x2`` serves
+    one host over two model ranks (eager windows, said on the first line),
+    its completions the same bits on both ranks and within the model-axis
+    serve's CPU bound (``test_torch_unet_mesh.SERVE_TOL``) of the one-device
+    run; the summary keeps its form."""
+    outs = run_children([
+        [sys.executable, "-m", "repro_torch.launch.serve_diffusion",
+         *_launcher_flags(tmp_path, tag), "--devices", d, "--mesh-shape",
+         f"1x{d}"] for tag, d in (("one", 1), ("two", 2))])
+    first = [ln for ln in outs[1].splitlines()
+             if ln.startswith("serve_diffusion:")][0]
+    assert first.startswith("serve_diffusion: mesh=data:1xmodel:2 "
+                            "windows=eager")
+    assert "serve_diffusion OK" in outs[1]
+    one, two = (json.loads((tmp_path / f"{t}.json").read_text())
+                for t in ("one", "two"))
+    assert two["mesh"] == "data:1xmodel:2"
+    assert two["hosts"][0]["model_bitwise"] is True
+    assert two["hosts"][0]["repeat_bitwise"] is True
+    assert two["hosts"][0]["collectives"]["calls"] > 0
+    for key in ("served", "requests", "images", "ticks", "windows",
+                "server_flops", "client_flops"):
+        assert two[key] == one[key], key
+    rows = [np.load(tmp_path / f"{t}.npz") for t in ("one", "two")]
+    assert sorted(rows[0].files) == sorted(rows[1].files)
+    for f in rows[0].files:
+        np.testing.assert_allclose(rows[1][f], rows[0][f], rtol=0,
+                                   atol=1e-3, err_msg=f)
