@@ -110,7 +110,7 @@ Phases, each printing its own lines:
    parameters and AdamW state, one chunk's activations, the gradients and
    the rest (cuDNN workspace and temporaries), the blocks live at the
    peak, the largest allocation, and the reserved-but-free bytes; (b)
-   round 0 in chunks of 16, 8 and 5 (ragged) on both engines against the
+   round 0 in chunks of 5 (ragged) on both engines against the
    unchunked round from the same models and draws: losses within phase
    4b's tolerance, parameters within the card-against-CPU bound; (c) 150
    images a client (pooled 450) in chunks of 32, a warm-up and a timed
@@ -162,7 +162,7 @@ Phases, each printing its own lines:
    81 and ``flash_attention`` 14 launches a call, timed and profiled;
    (b) the same batch through ``kernel="torch"`` (the chunk loop and
    blockwise attention), logits within the stated tolerance, and each
-   block alone over 32 decode steps; (c) 32 chained cached decode steps
+   block alone over 16 decode steps; (c) 16 chained cached decode steps
    against (a)'s logits; (d) the serving launcher at full width;
 7. moe — the MoE family at full width, depth cut (bf16, random weights
    from a seed): DeepSeek-V2 (MLA, 160 experts top-6, 2 shared) at 4
@@ -191,7 +191,7 @@ Phases, each printing its own lines:
    (28, 48; never for xLSTM), and for xLSTM the sLSTM loops' share of the
    prefill (CUDA events around each); (b) for the attention families the
    same batch through ``kernel="torch"``, logits within Yi's bounds;
-   (c) 32 chained decode steps at batch 1 against the forward: Qwen2-VL's
+   (c) 16 chained decode steps at batch 1 against the forward: Qwen2-VL's
    text (pos on all three streams) against the same weights' forward as
    family "dense" with the same sections, MusicGen's with each layer's
    ``cross_kv`` filled from the conditioning, xLSTM's against its prefill
@@ -221,7 +221,8 @@ Phases, each printing its own lines:
    steps at 4 x 256, "done: loss"), then at ``reduced()`` 6 steps saved
    and 6 resumed: the restored parameters and moments bitwise the saved
    ones, and the resumed run against 12 straight steps (printed);
-10. mesh — two ranks (``launch/mesh.py``'s ``run_ranks``), on the one
+10. mesh (run right after phase 3 in a process of its own, while the
+   card is empty) — two ranks (``launch/mesh.py``'s ``run_ranks``), on the one
    card ("gloo+ipc": payloads through CUDA IPC, gloo's barriers; NCCL
    where the machine has a card a rank), the transport printed: (a) Yi-6B at full width and depth, 4 x 2048, mesh
    1x2: each rank's share of the weights, ``flash_attention``'s launches
@@ -255,7 +256,20 @@ Phases, each printing its own lines:
    pooled server batch a rank) against the one-process trainer: round 0's
    losses and the parameters within the stated bounds, the server's the
    same bits on both ranks, the round ms and collectives, and
-   ``trainer.sample`` through ``ddpm_step`` against the plain step.
+   ``trainer.sample`` through ``ddpm_step`` against the plain step;
+11. roofline — the dry run (``launch/dryrun.py``: one rank's step on the
+   meta device under the work counter, a dry mesh recording the
+   collectives) held against the card: (a) Yi-6B's prefill of phase 5 (a)
+   (4 x 2048, the kernel) dry on a 1x1 mesh against the same counter over
+   a real prefill on the card: FLOPs, bytes, ops and kernel units equal
+   exactly; its roofline terms beside phase 5 (a)'s ms; (b) the dry run's
+   argument + temp bytes against that prefill's
+   ``torch.cuda.max_memory_allocated`` within the stated tolerance; (c)
+   phase 10 (a)'s prefill on 1x2, dry, each rank's collectives' calls and
+   bytes equal to the rank's in phase 10; (d) every arch x ``prefill_32k``
+   on 32 nodes of 8 cards with probes, in worker processes on the host
+   started before phase 10 (they need no card): the terms, the dominant
+   one and the argument bytes a card against 80 GB.
 
 It then prints the kernels' JSON line, and last the device line.  It exits
 non-zero, without the last line, when CUDA is absent or any phase fails.
@@ -270,6 +284,7 @@ import io
 import itertools
 import json
 import math
+import multiprocessing as mp
 import os
 import re
 import signal
@@ -279,7 +294,7 @@ import sys
 import tempfile
 import time
 import types
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -289,8 +304,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import (UNetConfig, get_config,  # noqa: E402
-                                 list_archs)
+from repro_torch.configs import (InputShape, UNetConfig,  # noqa: E402
+                                 get_config, list_archs)
 from repro_torch.core.collafuse import (CutPlan, lane_philox,  # noqa: E402
                                         split_sample_lane)
 from repro_torch.core.privacy import (disclosure_report,  # noqa: E402
@@ -312,11 +327,13 @@ from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import lane_noise as kln  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import ssm_scan as kssm  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch import serve_diffusion as sd_launch  # noqa: E402
-from repro_torch.launch.mesh import (close_mesh, init_mesh,  # noqa: E402
-                                     run_ranks, transport_for)
+from repro_torch.launch.counter import WorkCounter  # noqa: E402
+from repro_torch.launch.mesh import (HBM_BW, close_mesh,  # noqa: E402
+                                     init_mesh, run_ranks, transport_for)
 from repro_torch.launch.steps import (make_ctx, make_decode_step,  # noqa: E402
                                       make_prefill_step, make_train_step)
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -397,8 +414,8 @@ LM_TOL_MAX, LM_TOL_MEAN = 0.25, 0.03
 # a decode mean of 1.3.
 HYBRID_TOL_MEAN = 0.6
 # (b') and (c)'s chained decode steps (64 before the model-axis phases
-# paid for their time)
-HYBRID_DECODE_STEPS = 32
+# and 32 until a run on a slower host took 1,188 s of the script's 1,200)
+HYBRID_DECODE_STEPS = 16
 BLOCK_TOL_MAX, BLOCK_TOL_MEAN = 2.0 ** -4, 2.0 ** -6
 # phase 4b: CollaFuse split training of the paper U-Net (its §4 setup: cosine
 # T = 100, c = 0.8, 3 clients, lr 1e-3, grad clip 1.0), 16 images a client
@@ -1150,6 +1167,26 @@ def profile_device(label: str, fn, reps: int = 3,
 # 100: 4 classes, cuts {0.5, 0.75}, a KID gate on 16 synthetic images
 GUIDE_CLASSES, GUIDE_CUTS, GUIDE_CALIB = 4, (0.5, 0.75), 16
 GUIDE_TWINS = {"ddpm": "ddpm_g0", "ddim": "ddim_g0"}
+# (c) and (e) serve with the caching allocator crowding the card: freed
+# blocks of CROWD_BLOCK bytes, cached, hold all of its free memory but
+# CROWD_LEAVE, the history a training phase or a mesh phase leaves behind
+# (k = 4 once differed from k = 1 after the mesh phase ran in this
+# process: ROADMAP Queue 3)
+CROWD_BLOCK, CROWD_LEAVE = 256 << 20, 256 << 20
+
+
+def crowd_allocator(dev) -> str:
+    """Take blocks of CROWD_BLOCK bytes (the allocator's cached ones first)
+    until the card has CROWD_LEAVE free, and free them: the allocator
+    caches them.  Returns what is left, as text."""
+    held = []
+    while torch.cuda.mem_get_info(dev)[0] > CROWD_LEAVE + CROWD_BLOCK:
+        held.append(torch.empty(CROWD_BLOCK, dtype=torch.uint8, device=dev))
+    n = len(held)
+    del held
+    return (f"{n} blocks of {CROWD_BLOCK >> 20} MiB cached, "
+            f"{torch.cuda.mem_get_info(dev)[0] / 1e9:.2f} GB of the card "
+            "free")
 
 
 def guide_samplers():
@@ -1324,7 +1361,9 @@ def phase_guided(dev, card: str, unet_ms: float):
     if not anchor:
         raise AssertionError("w = 0 twins differ from the unguided traffic")
 
-    # (c) mixed traffic through each backend, gated
+    # (c) mixed traffic through each backend, gated, the allocator crowded
+    print(f"[guide] (c) crowded the allocator: {crowd_allocator(dev)}",
+          flush=True)
     mix = ["ddpm", "ddpm_g", "ddim", "ddim_g"]
     reqs = guide_requests(mix, 6, salt=7)
     runs, counts, shadows, windows = {}, {}, [], []
@@ -1410,7 +1449,12 @@ def phase_guided(dev, card: str, unet_ms: float):
     if not empty:
         raise AssertionError("an all-rejecting floor served work")
 
-    # (e) k = 4 against k = 1 on the mixed traffic
+    # (e) k = 4 against k = 1 on the mixed traffic, the allocator crowded
+    # again (a k = 1 window is eager only for its first tick, a k = 4
+    # window for its first four: the graphs must hold the eager window's
+    # algorithms)
+    print(f"[guide] (e) crowded the allocator: {crowd_allocator(dev)}",
+          flush=True)
     res1 = guide_engine(server, "cuda_masked", 1, dev, gate).serve(reqs,
                                                                    clients)
     same_k = bitwise(res, res1) and set(res1.completions) == set(
@@ -2113,8 +2157,9 @@ def phase_obs(dev, card: str):
 PAPER_BATCH, PAPER_MICRO = 150, hc.FULL_MICRO_BATCH
 # at phase 4b's 16 images a client: (a) the chunk whose round's memory is
 # broken down beside the unchunked one, (b) the chunks held against the
-# unchunked round (5: ragged, its last chunk shorter)
-MEMORY_CHUNK, CHUNKS_CHECKED = 16, (8, 5)
+# unchunked round (5: ragged, its last chunk shorter; 8 too until a run on
+# a slower host took 1,188 s of the script's 1,200)
+MEMORY_CHUNK, CHUNKS_CHECKED = 16, (5,)
 POD_SLOTS = 8
 # the pod smoke's queue: 7 requests put request 5's two guided pairs across
 # the two hosts' blocks (lanes 2, 3 with 4, 5)
@@ -3261,16 +3306,16 @@ def phase_lm(dev, card: str):
     with contextlib.redirect_stdout(buf):
         stats = lm_serve.main(["--arch", "yi-6b", "--no-reduced",
                                "--requests", "2", "--batch", "4",
-                               "--prompt-len", "128", "--tokens", "32"])
+                               "--prompt-len", "32", "--tokens", "16"])
     for line in buf.getvalue().splitlines():
         print(f"[lm] (d) {line}", flush=True)
     if "serving loop OK" not in buf.getvalue():
         raise AssertionError("the launcher did not print 'serving loop OK'")
     print(f"[lm] (d) launcher decode {stats[-1]['tok_s']:.1f} tokens/s at "
-          f"batch 4 (request 1), cache fill of 4x128 in "
+          f"batch 4 (request 1), cache fill of 4x32 in "
           f"{stats[-1]['prefill_s']:.2f}s", flush=True)
     torch.cuda.empty_cache()
-    return counts
+    return {"counts": counts, "ms": t_pre * 1e3, "peak_gb": peak_gb}
 
 
 # ---------------------------------------------------------------------------
@@ -3455,13 +3500,13 @@ def phase_hybrid(dev, card: str):
     with contextlib.redirect_stdout(buf):
         stats = lm_serve.main(["--arch", "zamba2-7b", "--no-reduced",
                                "--requests", "2", "--batch", "4",
-                               "--prompt-len", "32", "--tokens", "16"])
+                               "--prompt-len", "16", "--tokens", "8"])
     for line in buf.getvalue().splitlines():
         print(f"[hybrid] (d) {line}", flush=True)
     if "serving loop OK" not in buf.getvalue():
         raise AssertionError("the launcher did not print 'serving loop OK'")
     print(f"[hybrid] (d) launcher decode {stats[-1]['tok_s']:.1f} tokens/s "
-          f"at batch 4 (request 1), cache fill of 4x32 in "
+          f"at batch 4 (request 1), cache fill of 4x16 in "
           f"{stats[-1]['prefill_s']:.2f}s", flush=True)
     torch.cuda.empty_cache()
     return counts
@@ -3828,8 +3873,9 @@ def phase_moe(dev, card: str):
 # phase 8: the last LM families at full width and depth
 # ---------------------------------------------------------------------------
 FAMILY_SHAPE = (4, 2048)
-# 32 (64 before the model-axis phases paid for their time)
-FAMILY_DECODE_STEPS = 32
+# 16 (64 before the model-axis phases and 32 until a run on a slower host
+# took 1,188 s of the script's 1,200)
+FAMILY_DECODE_STEPS = 16
 # flash_attention at a Qwen2-VL-2B layer's prefill (12 heads, 2 KV, hd 128)
 # and a MusicGen-large layer's (MHA 32/32, hd 64): (B, S, H, KV, hd)
 VLM_ATTN_SHAPE = (4, 2048, 12, 2, 128)
@@ -5072,6 +5118,11 @@ def mesh_rank(rank: int, port: int, tmp: str) -> None:
            "i": lambda: mesh_collafuse(data, rank, tmp)}
     try:
         for part, fn in run.items():
+            # each part starts from this rank's live tensors alone: the two
+            # ranks share one card, and a part's cached blocks (or a
+            # cycle's) would starve the other rank's next part
+            gc.collect()
+            torch.cuda.empty_cache()
             t0 = time.perf_counter()
             out[part] = fn()
             out["walls"][part] = time.perf_counter() - t0
@@ -5375,14 +5426,211 @@ def phase_mesh(dev, card: str):
     if not ok:
         raise AssertionError("mesh phase failed")
     print(f"[10] mesh phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dry run and the roofline against the card
+# ---------------------------------------------------------------------------
+# (a) phase 5 (a)'s Yi-6B prefill, 4 x 2048 through the kernel
+ROOFLINE_SHAPE = InputShape("yi_prefill_4x2048", ATTN_SHAPE[1],
+                            ATTN_SHAPE[0], "prefill")
+# (b) the dry run's argument_bytes + temp_bytes against the card's peak
+# above what was allocated before the model was built.  Both count the
+# same tensors: the weights and the batch, then every tensor the prefill
+# creates, freed when it dies (the counter tracks each storage; the
+# kernel's meta branch allocates the output the kernel's wrapper
+# allocates).  The card adds what the dry run cannot see: the caching
+# allocator rounds each block up to 512 bytes (a few thousand blocks, ~1
+# MB) and a library may take a workspace on a first call, which the
+# warm-up call makes before the peak is reset.  Yi-6B's 12.1 GB of weights
+# and ~2 GB at the peak: 5 % (~0.7 GB) holds those, and catches a missing
+# or doubled activation (the logits alone are 1.05 GB).
+ROOFLINE_MEM_RTOL = 0.05
+# (d) the production combos: every arch x prefill_32k on 32 nodes of 8
+# cards, with probes, in worker processes on the host (the dry run needs no
+# card).  xLSTM's alone took 178.8 s of the host in a pool of 7 (its sLSTM
+# loop over 32k steps, each step's ops on meta), so the workers start
+# right after phase 10 ("dry_combos") and run beside phases 4-4c, whose
+# host-side times they share the host with; 4 workers leave the other
+# cores to those phases; the two longest (xLSTM, DeepSeek-V2's MLA
+# blockwise prefill) are submitted first
+ROOFLINE_COMBOS = [(a, "prefill_32k") for a in list_archs()]
+ROOFLINE_FIRST = ("xlstm-125m", "deepseek-v2-236b")
+ROOFLINE_WORKERS = 4
+CARD_GB = 80.0
+
+
+def dry_combo(arch: str, shape: str):
+    """(the record of ``arch`` x ``shape`` on ``single``, its wall s)."""
+    t0 = time.perf_counter()
+    rec = dryrun.run_combo(arch, shape, "single")
+    return rec, time.perf_counter() - t0
+
+
+def start_dry_combos():
+    """(d)'s combinations submitted to worker processes: (the pool, {combo:
+    its future})."""
+    pool = ProcessPoolExecutor(ROOFLINE_WORKERS,
+                               mp_context=mp.get_context("spawn"))
+    return pool, {c: pool.submit(dry_combo, *c) for c in sorted(
+        ROOFLINE_COMBOS, key=lambda c: c[0] not in ROOFLINE_FIRST)}
+
+
+def terms_text(r) -> str:
+    return (f"compute {r['compute_s'] * 1e3:.3f} ms (counted "
+            f"{r['compute_hlo_s'] * 1e3:.3f}), memory {r['memory_s'] * 1e3:.3f}"
+            f" ms, collective {r['collective_s'] * 1e3:.3f} ms, dominant "
+            f"{r['dominant']} ({r['bound_fraction']:.1%}), useful "
+            f"{r['useful_ratio']:.3f}")
+
+
+def phase_roofline(dev, card: str, lm: dict, mesh_res, dry_combos):
+    """11: the dry run held against the card on work the script does;
+    ``dry_combos`` is :func:`start_dry_combos`' (pool, futures)."""
+    t_phase = time.perf_counter()
+    ok = True
+    pool, futures = dry_combos
+    try:
+        cfg = get_config("yi-6b")
+        shape = ROOFLINE_SHAPE
+        # (a) the dry 1x1 prefill against the counter over a real one
+        rec = dryrun.run_combo("yi-6b", shape, "1x1", cfg=cfg)
+        dry = rec["full"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        model = tf.init_params(cfg, seed=0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(11)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (shape.global_batch, shape.seq_len),
+            generator=g, device=dev)}
+        prefill = make_prefill_step(cfg, kernel="flash")
+        prefill(model, batch)                           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with WorkCounter() as real:
+            logits = prefill(model, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        same = (real.flops == dry["flops"] and real.bytes ==
+                dry["bytes_accessed"] and real.ops == dry["ops"] and
+                real.units == dry["kernels"])
+        print(f"[11] (a) yi-6b prefill {shape.global_batch}x{shape.seq_len}"
+              f": dry (meta, 1x1) {dry['flops']:.6e} FLOP, "
+              f"{dry['bytes_accessed']:.6e} bytes, {dry['ops']} ops, kernels"
+              f" {dry['kernels']}; counted on the card {real.flops:.6e} FLOP,"
+              f" {real.bytes:.6e} bytes, {real.ops} ops: equal {same}",
+              flush=True)
+        ok &= same and logits.shape == (shape.global_batch, shape.seq_len,
+                                         cfg.vocab_size)
+        r = rec["roofline"]
+        bound_s = max(r["compute_s"], r["memory_s"])
+        # the whole step's yardstick: the analytic terms, which no change
+        # to the port's op sequence moves (the counted memory term is what
+        # the port moves today, a diagnostic)
+        yard_s = max(r["compute_s"], r["memory_analytic_s"])
+        print(f"[11] (a) roofline on one card: {terms_text(r)}; phase 5 "
+              f"(a)'s prefill {lm['ms']:.1f} ms = "
+              f"{lm['ms'] / 1e3 / yard_s:.2f}x max(compute, analytic "
+              f"memory {r['memory_analytic_s'] * 1e3:.1f} ms) "
+              f"({yard_s * 1e3:.1f} ms), "
+              f"{lm['ms'] / 1e3 / bound_s:.2f}x max(compute, memory) "
+              f"({bound_s * 1e3:.1f} ms); counted bytes "
+              f"{dry['bytes_accessed'] / lm['ms'] / 1e6:.0f} GB/s at that "
+              f"time (of {HBM_BW / 1e9:.0f}), counted FLOP "
+              f"{dry['flops'] / lm['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+        # (b) memory
+        mem = dry["memory"]
+        want = mem["argument_bytes"] + mem["temp_bytes"]
+        gap = abs(peak - want) / peak
+        print(f"[11] (b) memory: dry argument {gb(mem['argument_bytes']):.3f}"
+              f" + temp {gb(mem['temp_bytes']):.3f} = {gb(want):.3f} GB; the "
+              f"card's peak above the baseline {gb(peak):.3f} GB "
+              f"(max_memory_allocated); gap {gap:.2%} (held "
+              f"{ROOFLINE_MEM_RTOL:.0%})", flush=True)
+        ok &= gap <= ROOFLINE_MEM_RTOL
+        del model, logits, batch
+        torch.cuda.empty_cache()
+        # (c) the dry 1x2 prefill against phase 10 (a)'s ranks
+        b, s = MESH_YI_SHAPE
+        for rank in range(MESH_RANKS):
+            st = dryrun.count_step(
+                cfg, InputShape("yi_prefill", s, b, "prefill"),
+                dryrun.dry_mesh("1x2", rank=rank))
+            real_st = mesh_res[rank]["a"]["stats"]
+            same = st["stats"] == {"calls": real_st["calls"],
+                                   "bytes": real_st["bytes"]}
+            print(f"[11] (c) yi-6b prefill {b}x{s} mesh 1x2 rank {rank}: dry"
+                  f" {st['stats']['calls']} calls {st['stats']['bytes']} "
+                  f"bytes ({st['collectives']['counts']}, link bytes "
+                  f"{st['collectives']['link_bytes_by_class']}); phase 10 "
+                  f"(a) {real_st['calls']} calls {real_st['bytes']} bytes: "
+                  f"equal {same}", flush=True)
+            ok &= same
+        # (d) the production combos
+        for arch, shp in ROOFLINE_COMBOS:
+            rec, wall = futures[(arch, shp)].result()
+            r, mem = rec["roofline"], rec["full"]["memory"]
+            args_gb = gb(mem["argument_bytes"])
+            print(f"[11] (d) {arch} x {shp} x single "
+                  f"({rec['mesh_shape']}): {terms_text(r)}; argument "
+                  f"{args_gb:.2f} GB a card "
+                  f"{'> ' if args_gb > CARD_GB else '<= '}{CARD_GB:.0f} GB, "
+                  f"temp {gb(mem['temp_bytes']):.2f} GB; {wall:.1f} s",
+                  flush=True)
+            ok &= r["dominant"] in ("compute_s", "memory_s", "collective_s")
+    finally:
+        pool.shutdown(cancel_futures=True)
+    if not ok:
+        raise AssertionError("roofline phase failed")
+    print(f"[11] roofline phase {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
+def _phase_child(fn, args, path: str) -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.save(fn(*args), path)
+
+
+def phase_in_child(fn, *args, timeout_s: float = MESH_TIMEOUT_S + 300):
+    """``fn(*args)`` in a process of its own (``spawn``; TF32 off, as in
+    ``main``), its result returned through a file: what it allocates on
+    the card never enters this process's caching allocator.  Raises if the
+    process fails or outlives ``timeout_s``."""
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "result.pt"
+        proc = ctx.Process(target=_phase_child, args=(fn, args, str(path)))
+        proc.start()
+        proc.join(timeout_s)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            raise RuntimeError(f"{fn.__name__} outlived {timeout_s:.0f} s")
+        if proc.exitcode:
+            raise RuntimeError(f"{fn.__name__} failed in its process (exit "
+                               f"{proc.exitcode})")
+        return torch.load(path, weights_only=False)
 
 
 # the phases in order: (name, whether the CUDA cache is emptied first, the
-# call on (device, card, the results of the phases before it by name))
+# call on (device, card, the results of the phases before it by name)).
+# The mesh runs in a process of its own, right after the kernels, while
+# this process holds almost nothing on the card: its two ranks and its
+# parent share the one card, and from phase 4d on this process keeps ~1.2
+# GB live in ~11 GB of segments it cannot release, which ran phase 10 (i)
+# out of memory when it ran last.  (Phase 4c crowds the allocator itself
+# before it holds k = 4 bitwise k = 1.)  Phase 11 (d)'s workers
+# ("dry_combos") start right after it, so none runs beside its ranks.
 PHASES = [
     ("kernels", False, lambda dev, card, res: phase_kernels(dev, card)),
     ("attention", False, lambda dev, card, res: phase_attention(dev, card)),
     ("ssm", False, lambda dev, card, res: phase_ssm(dev, card)),
+    ("mesh", False,
+     lambda dev, card, res: phase_in_child(phase_mesh, dev, card)),
+    ("dry_combos", False, lambda dev, card, res: start_dry_combos()),
     ("slice", False, lambda dev, card, res: phase_slice(dev)),
     ("train", False, lambda dev, card, res: phase_train(dev, card)),
     ("guided", False,
@@ -5399,7 +5647,8 @@ PHASES = [
     ("moe", True, lambda dev, card, res: phase_moe(dev, card)),
     ("families", True, lambda dev, card, res: phase_families(dev, card)),
     ("lm_train", True, lambda dev, card, res: phase_lm_train(dev, card)),
-    ("mesh", True, lambda dev, card, res: phase_mesh(dev, card)),
+    ("roofline", True, lambda dev, card, res: phase_roofline(
+        dev, card, res["lm"], res["mesh"], res["dry_combos"])),
 ]
 
 
@@ -5433,7 +5682,7 @@ def main():
         lap(name)
     rows, attn_rows, ssm_rows = res["kernels"], res["attention"], res["ssm"]
     g, noise_rows = res["guided"], res["host"]
-    lm_counts, hybrid_counts = res["lm"], res["hybrid"]
+    lm_counts, hybrid_counts = res["lm"]["counts"], res["hybrid"]
     # the step kernels' launches on this slice's path, guided and gated
     # serving (phase 4's are printed in its own lines)
     counts = {"traj_masked_step": g["cuda_masked"]["traj_masked_step"],

@@ -9,7 +9,12 @@ dtype, shape and contiguity, launches its kernel
 :mod:`repro_torch.kernels.ssm_scan`, :mod:`repro_torch.kernels.lane_noise`)
 or raises, and adds one to its ``launches`` attribute; nothing falls back.
 A CUDA graph that holds kernels launches each of them once a replay: its
-owner counts a replay with :func:`add_launches`.
+owner counts a replay with :func:`add_launches`.  ``flash_attention`` and
+``ssm_scan`` also take meta tensors (the dry run's, ``launch/dryrun.py``):
+after the checks a card's call makes, they return the output's shape and
+launch nothing; under a work counter (``launch/counter.py``, found by
+:func:`repro_torch.kernels.units.active`) a call of either is one unit of
+its kernel's FLOP and byte formulas, on any device.
 
 No kernel has a backward.  The plain version on the CPU is differentiable;
 a kernel writes a fresh tensor outside autograd, so ``flash_attention`` and
@@ -28,6 +33,7 @@ from repro_torch.kernels import ddpm_step as _ddpm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lane_noise as _ln
 from repro_torch.kernels import ssm_scan as _ssm
+from repro_torch.kernels import units
 from repro_torch.kernels.ref import (attention_ref, ddpm_step_ref,
                                      lane_noise_ref, ssm_scan_ref,
                                      traj_masked_step_ref)
@@ -43,6 +49,18 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_device(name: str, *tensors: torch.Tensor) -> None:
+    """:func:`_check_cuda`, or for a dry run's call (the first tensor on
+    meta, which returns the output's shape alone and counts no launch)
+    every tensor on meta."""
+    if not tensors[0].is_meta:
+        _check_cuda(name, *tensors)
+    elif not all(t.is_meta for t in tensors):
+        raise ValueError(f"{name}: meta and real tensors in one call")
+    elif not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
 
 
 def _check_no_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -157,12 +175,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel).  q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0; one
     dtype, float32 or bfloat16; hd in {32, 64, 112, 128}.  Returns
     (B, Sq, H, hd) in q's dtype.  Any lengths: the kernel masks its ragged
-    tiles."""
+    tiles.  Under a work counter (:func:`repro_torch.kernels.units.active`)
+    a call is one unit of :func:`~repro_torch.kernels.flash_attention.
+    attention_flops` and ``attention_bytes``; on meta tensors it returns
+    the output's shape alone."""
+    counter = units.active()
+    if counter is None:
+        return _flash_attention(q, k, v, causal=causal, window=window,
+                                softmax_scale=softmax_scale)
+    key = ("flash_attention", tuple(q.shape), tuple(k.shape), q.dtype,
+           causal, window)
+    with counter.unit("flash_attention", key, lambda: (
+            _fa.attention_flops(q, k, causal=causal, window=window),
+            _fa.attention_bytes(q, k, v))):
+        return _flash_attention(q, k, v, causal=causal, window=window,
+                                softmax_scale=softmax_scale)
+
+
+def _flash_attention(q, k, v, *, causal: bool, window: int,
+                     softmax_scale: Optional[float]) -> torch.Tensor:
     if q.device.type == "cpu":
+        # in the kernel's layout, so the ops after it run as on a card
         return attention_ref(q, k, v, causal=causal, window=window,
-                             softmax_scale=softmax_scale)
+                             softmax_scale=softmax_scale).contiguous()
     _check_no_grad("flash_attention", q, k, v)
-    _check_cuda("flash_attention", q, k, v)
+    _check_device("flash_attention", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError("flash_attention: q must be (B, Sq, H, hd) and k, v "
                          f"one (B, Skv, KV, hd); got {tuple(q.shape)}, "
@@ -179,11 +216,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: q, k and v must share one dtype, "
                          f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: tensors must be 16-byte aligned")
     if b * h * -(-sq // _fa.BLOCK_Q) > _fa.MAX_WORK_ITEMS:
         raise ValueError(f"flash_attention: B*H*ceil(Sq/{_fa.BLOCK_Q}) "
                          f"work items > {_fa.MAX_WORK_ITEMS}")
+    if q.is_meta:
+        return torch.empty_like(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: tensors must be 16-byte aligned")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -212,14 +251,28 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     in arithmetic, and the kernel scans in chunks of its own (64), any S,
     one block per (head, batch) (see :mod:`repro_torch.kernels.ssm_scan`).
     A call runs the record kernel (G = C·Bᵀ, C and B per chunk) and the
-    scan on the current stream, and counts as one launch."""
+    scan on the current stream, and counts as one launch.  Under a work
+    counter a call is one unit of :func:`~repro_torch.kernels.ssm_scan.
+    ssd_flops` and ``ssd_bytes``; on meta tensors it returns y's shape
+    alone."""
     if chunk < 1 or head_block < 1:
         raise ValueError(f"ssm_scan: chunk {chunk} and head_block "
                          f"{head_block} must be positive")
+    counter = units.active()
+    if counter is None:
+        return _ssm_scan(x, dt, a, bm, cm)
+    key = ("ssm_scan",) + tuple((tuple(t.shape), t.dtype)
+                                for t in (x, dt, a, bm, cm))
+    with counter.unit("ssm_scan", key, lambda: (
+            _ssm.ssd_flops(x, bm), _ssm.ssd_bytes(x, dt, a, bm, cm))):
+        return _ssm_scan(x, dt, a, bm, cm)
+
+
+def _ssm_scan(x, dt, a, bm, cm) -> torch.Tensor:
     if x.device.type == "cpu":
-        return ssm_scan_ref(x, dt, a, bm, cm)
+        return ssm_scan_ref(x, dt, a, bm, cm).contiguous()
     _check_no_grad("ssm_scan", x, dt, a, bm, cm)
-    _check_cuda("ssm_scan", x, dt, a, bm, cm)
+    _check_device("ssm_scan", x, dt, a, bm, cm)
     if x.ndim != 4 or bm.ndim != 3 or cm.shape != bm.shape:
         raise ValueError("ssm_scan: x must be (B, S, nh, P) and bm, cm one "
                          f"(B, S, N); got {tuple(x.shape)}, "
@@ -245,6 +298,8 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if b > 65535:
         raise ValueError(f"ssm_scan: B = {b} > 65535 (grid.y)")
     y = torch.empty_like(x)
+    if x.is_meta:
+        return y
     if x.numel() == 0:
         return y
     _ssm.launch_ssm_scan(x, dt, a, bm, cm, y)

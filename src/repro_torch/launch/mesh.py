@@ -35,6 +35,26 @@ from repro_torch.parallel.comm import Mesh, make_groups, rank_coords
 # an H100 node's cards, the production mesh's model axis
 CARDS_PER_NODE = 8
 
+# NVIDIA H100 SXM hardware constants used by the roofline (a card; the data
+# sheet's dense rates): the bf16 tensor-core rate, HBM3's bandwidth, NVLink's
+# bandwidth in each direction (the model axis, inside a node) and the
+# network's (an axis across nodes, data and pod: one 400 Gb/s NIC a card)
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s
+HBM_BW = 3.35e12                  # B/s
+NVLINK_BW = 450e9                 # B/s a card, each direction
+NET_BW = 50e9                     # B/s a card
+
+
+def link_class(shape, axes) -> str:
+    """"nvlink" when each group over ``axes`` of a row-major mesh of
+    ``shape`` ({axis: size}, the model axis fastest) lies inside one node
+    of :data:`CARDS_PER_NODE` consecutive ranks, else "net"."""
+    names = list(shape)
+    axes = [axes] if isinstance(axes, str) else list(axes)
+    slowest = min(names.index(a) for a in axes)
+    block = math.prod(shape[a] for a in names[slowest:])
+    return "nvlink" if CARDS_PER_NODE % block == 0 else "net"
+
 
 def parse_mesh_shape(mesh_shape: str) -> Tuple[int, ...]:
     """"DxM" (or "PxDxM") as integers; a ``ValueError`` otherwise."""

@@ -120,7 +120,10 @@ def dispatch_indices(top_i: torch.Tensor, n_experts: int, capacity: int):
     below ``capacity``."""
     n, k = top_i.shape
     flat = top_i.reshape(-1).long()
-    onehot = F.one_hot(flat, n_experts).to(torch.int32)        # (N·k, E)
+    # F.one_hot's values without its range checks, which read the ids on
+    # the host on some devices (not CUDA) and cannot on meta
+    onehot = torch.zeros((n * k, n_experts), dtype=torch.int32,
+                         device=flat.device).scatter_(1, flat[:, None], 1)
     pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
     pos = pos_in_e.gather(1, flat[:, None])[:, 0]
     return pos.reshape(n, k), (pos < capacity).reshape(n, k)

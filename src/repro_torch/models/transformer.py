@@ -545,10 +545,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     leaf becomes this rank's slice under ``param_specs(fsdp=fsdp)`` on the
     mesh's device (:func:`shard_model`); each leaf is then drawn whole, in
     the one-card order, and the slice kept, so the sharded model holds the
-    one-card model's weights of the same seed."""
+    one-card model's weights of the same seed.  On a dry mesh (the meta
+    device) the shards have their shapes and nothing is drawn."""
     if ctx is not None and ctx.mesh is not None:
         model = shard_model(Transformer(cfg, device="meta"), ctx, fsdp)
         dev = ctx.mesh.device
+        if dev.type == "meta":
+            return model.eval()
     else:
         dev = resolve_device(device)
         model = Transformer(cfg, device=dev)

@@ -376,14 +376,14 @@ def slstm_forward(x, p: SLSTM, cfg: ModelConfig,
                   ctx: Optional[ShardCtx] = None):
     """x: (B, S, d) -> (B, S, d) in x's dtype: the recurrence over S, one
     step at a time (on every rank of a model axis)."""
-    b, s, _ = x.shape
+    b = x.shape[0]
     pre = _slstm_pre(x.to(torch.float32), p, ctx)              # (4,B,S,d)
     r = p.recurrent()
     st = slstm_init_cache(cfg, b, x.device)
     carry = (st["c"], st["n"], st["h"], st["m"])
     hs = []
-    for t in range(s):
-        carry = _slstm_step(r, carry, pre[:, :, t])
+    for xt in pre.unbind(2):                    # one op, not S selects
+        carry = _slstm_step(r, carry, xt)
         hs.append(carry[2])
     return _slstm_out(torch.stack(hs, dim=1), p, cfg, x.dtype, ctx)
 

@@ -5,7 +5,11 @@ A :class:`Mesh` is the counterpart of a ``jax.sharding.Mesh``: named axes
 processes joined by ``torch.distributed``, one rank a device, ranks laid
 out row-major (the model axis fastest, as ``jax.make_mesh`` lays devices).
 ``Mesh.abstract`` gives a mesh of shape only, for the pure spec functions
-of :mod:`repro_torch.parallel.sharding`.
+of :mod:`repro_torch.parallel.sharding`.  ``Mesh.dry`` gives one rank of a
+mesh with no processes at all, for the dry run (``launch/dryrun.py``):
+its tensors live on the meta device, and each collective returns a meta
+tensor of its result's shape, counts :data:`STATS` as a real run does and
+appends (op, axes, group size, result bytes) to ``mesh.records``.
 
 Every collective of the port goes through the functions below, which take
 the mesh and the axes to run over, return new tensors, skip an axis of size
@@ -70,10 +74,20 @@ class Mesh:
     # a group's CUDA IPC exchange (transport "gloo+ipc"), made at its first
     # collective
     ipc: Dict[Tuple[str, ...], Any] = dataclasses.field(default_factory=dict)
+    # transport "dry": each collective's (op, axes, group size, result bytes)
+    records: List[Tuple[str, Tuple[str, ...], int, int]] = \
+        dataclasses.field(default_factory=list)
 
     @classmethod
     def abstract(cls, shape: Dict[str, int]) -> "Mesh":
         return cls(shape=dict(shape))
+
+    @classmethod
+    def dry(cls, shape: Dict[str, int], rank: int = 0) -> "Mesh":
+        """Rank ``rank`` of a mesh of ``shape`` with no processes: the meta
+        device, transport "dry"."""
+        return cls(shape=dict(shape), coords=rank_coords(shape, rank),
+                   device=torch.device("meta"), transport="dry")
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -239,12 +253,25 @@ def _exchange(mesh: Mesh, axes: Axes):
 # ---------------------------------------------------------------------------
 # the collectives
 # ---------------------------------------------------------------------------
-def _run(mesh: Mesh, axes: Axes, x: torch.Tensor, by_ipc, by_group):
-    """``by_ipc(ex, x)`` through the group's CUDA IPC exchange (transport
-    "gloo+ipc", a CUDA tensor) or ``by_group(group, x)`` through the
-    process group; counts calls, bytes and host milliseconds."""
+def _run(op: str, mesh: Mesh, axes: Axes, x: torch.Tensor, shape,
+         by_ipc, by_group):
+    """Collective ``op`` of ``x`` over ``axes``, its result of ``shape``:
+    ``by_ipc(ex, x)`` through the group's CUDA IPC exchange (transport
+    "gloo+ipc", a CUDA tensor), ``by_group(group, x)`` through the process
+    group, or on a dry mesh a meta tensor of ``shape``, recorded; counts
+    calls, bytes and host milliseconds."""
     t0 = time.perf_counter()
-    if x.is_cuda and mesh.transport == "gloo+ipc":
+    if (mesh.transport == "dry") != x.is_meta:
+        raise ValueError(f"{op}: a {x.device} tensor on a mesh of transport "
+                         f"{mesh.transport!r}; meta tensors go to a dry mesh "
+                         "and only there")
+    if mesh.transport == "dry":
+        # the local ops of by_group's path: a copy for the in-place ones
+        out = x.clone() if op in ("all_reduce", "broadcast") else \
+            torch.empty(shape, dtype=x.dtype, device="meta")
+        mesh.records.append((op, mesh.key(axes), mesh.size(axes),
+                             out.numel() * out.element_size()))
+    elif x.is_cuda and mesh.transport == "gloo+ipc":
         ex = _exchange(mesh, axes)
         out = by_ipc(ex, x)
         ex.done(x.device)
@@ -279,7 +306,8 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes,
         t = t.clone()
         dist.all_reduce(t, op=red, group=group)
         return t
-    return _run(mesh, axes, x.contiguous(),
+    x = x.contiguous()
+    return _run("all_reduce", mesh, axes, x, x.shape,
                 lambda ex, t: _sum(ex.exchange(t), op), by_group)
 
 
@@ -293,7 +321,8 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axes: Axes,
         t = t.clone()
         dist.broadcast(t, dist.get_global_rank(g, src), group=g)
         return t
-    return _run(mesh, axes, x.contiguous(),
+    x = x.contiguous()
+    return _run("broadcast", mesh, axes, x, x.shape,
                 lambda ex, t: ex.exchange(t)[src].clone(), by_group)
 
 
@@ -312,7 +341,9 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes: Axes,
                           device=t.device)
         dist.all_gather_into_tensor(out, t, group=group)
         return out
-    return _run(mesh, axes, xm, lambda ex, t: torch.cat(ex.exchange(t)),
+    return _run("all_gather", mesh, axes, xm,
+                (n * xm.shape[0], *xm.shape[1:]),
+                lambda ex, t: torch.cat(ex.exchange(t)),
                 by_group).movedim(0, dim)
 
 
@@ -339,7 +370,8 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Axes,
     def by_ipc(ex, t):
         i = mesh.index(axes)
         return _sum([p[i * w:(i + 1) * w] for p in ex.exchange(t)], "sum")
-    return _run(mesh, axes, xm, by_ipc, by_group).movedim(0, dim)
+    return _run("reduce_scatter", mesh, axes, xm, (w, *xm.shape[1:]),
+                by_ipc, by_group).movedim(0, dim)
 
 
 def all_to_all(x: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
@@ -361,9 +393,10 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
     def by_ipc(ex, t):
         i = mesh.index(axes)
         return torch.cat([p.chunk(n)[i] for p in ex.exchange(t)])
-    return _run(mesh, axes, x.contiguous(), by_ipc, by_group)
+    x = x.contiguous()
+    return _run("all_to_all", mesh, axes, x, x.shape, by_ipc, by_group)
 
 
 def barrier(mesh: Mesh) -> None:
-    if mesh.world > 1:
+    if mesh.world > 1 and mesh.transport != "dry":
         dist.barrier(group=mesh.group(mesh.axis_names))

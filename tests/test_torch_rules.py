@@ -69,6 +69,19 @@ def test_port_sources_name_no_jax_repro_or_environment():
                 (path, ln)
 
 
+@pytest.mark.parametrize("layer", ["kernels", "models"])
+def test_kernels_and_models_import_nothing_of_the_launchers(layer):
+    """The launch layer builds on the models and the kernels, never the
+    other way: a work counter reaches a kernel wrapper through
+    ``kernels/units.py``."""
+    for path in (PKG / layer).rglob("*.py"):
+        for ln in path.read_text().splitlines():
+            words = ln.split("#")[0].split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith("repro_torch.launch"), \
+                    (path, ln)
+
+
 def _no_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")
@@ -163,8 +176,10 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_environment(
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
-    """On any device but the CPU a wrapper launches its kernel or raises;
-    a tensor on the meta device cannot be launched on, so it raises."""
+    """On any device but the CPU a wrapper launches its kernel or raises.
+    A tensor on the meta device cannot be launched on: the step kernels
+    raise; the LM kernels, which the dry run reaches, return the output's
+    shape and dtype on meta and launch nothing."""
     x = torch.empty((2, 4, 4, 1), device="meta")
     with pytest.raises(ValueError, match="runs on CUDA"):
         ops.ddpm_step(x, x, x, torch.empty((2, 4), device="meta"))
@@ -173,13 +188,17 @@ def test_non_cpu_tensors_never_take_the_plain_version():
                                             device="meta"), x, x,
                              torch.empty(2, dtype=torch.bool, device="meta"),
                              torch.empty((5, 3), device="meta"))
+    ops.reset_launch_counts()
     q = torch.empty((1, 8, 4, 32), device="meta")
-    with pytest.raises(ValueError, match="runs on CUDA"):
-        ops.flash_attention(q, q, q)
+    out = ops.flash_attention(q, q, q)
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
     bm = torch.empty((1, 8, 16), device="meta")
-    with pytest.raises(ValueError, match="runs on CUDA"):
-        ops.ssm_scan(q, torch.empty((1, 8, 4), device="meta"),
+    y = ops.ssm_scan(q, torch.empty((1, 8, 4), device="meta"),
                      torch.empty(4, device="meta"), bm, bm)
+    assert y.is_meta and y.shape == q.shape
+    assert set(ops.launch_counts().values()) == {0}
+    with pytest.raises(ValueError, match="meta and real"):
+        ops.flash_attention(q, torch.empty((1, 8, 4, 32)), q)
 
 
 def test_reset_launch_counts():
